@@ -1,17 +1,22 @@
 #!/usr/bin/env python3
-"""Where the eggbox run's time goes in the PyTorch port, on one CUDA card.
+"""Where a main-path run's time goes in the PyTorch port, on one CUDA card.
 
-Runs the eggbox of ``chip_smoke.py`` (``run_eggbox``: the JAX
-package's bench configuration, ``bench.py:104-115``, 400 live points)
-through ``ultranest_torch.ReactiveNestedSampler(device='cuda')``:
+Runs one of the main paths of ``chip_smoke.py`` through
+``ultranest_torch.ReactiveNestedSampler(device='cuda')``:
 
-* ``--repeats`` timed runs (the first one cold, in a fresh process), each
-  reporting wall time, ncall, evals/s, logZ and the segment phase split;
-* one more run under ``torch.profiler``, reporting device kernel time by
-  name and the device's busy share of the run's wall time.
+* ``--problem eggbox`` (``run_eggbox``): the region-rejection path at
+  the JAX package's bench configuration (``bench.py:104-115``, 400 live
+  points);
+* ``--problem asymgauss50`` (``run_asymgauss50``): the population
+  spec-walk path at the bench's full width (``bench.py:126-175``);
 
-Usage: ``python3 scripts/torch_eggbox_profile.py [--repeats 3]
-[--out eggbox_profile.json]``. Needs a CUDA device.
+as ``--repeats`` timed runs (the first one cold, in a fresh process),
+each reporting wall time, ncall, evals/s, logZ and the segment phase
+split, then one more run under ``torch.profiler``, reporting device
+kernel time by name and the device's busy share of the run's wall time.
+
+Usage: ``python3 scripts/torch_profile.py [--problem eggbox]
+[--repeats 3] [--out profile.json]``. Needs a CUDA device.
 """
 
 import argparse
@@ -29,11 +34,14 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
-from chip_smoke import run_eggbox  # noqa: E402
+from chip_smoke import run_asymgauss50, run_eggbox  # noqa: E402
+
+RUNS = dict(eggbox=(run_eggbox, 42), asymgauss50=(run_asymgauss50, 1))
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
+    ap.add_argument('--problem', choices=sorted(RUNS), default='eggbox')
     ap.add_argument('--repeats', type=int, default=3)
     ap.add_argument('--out', default=None)
     args = ap.parse_args()
@@ -45,16 +53,17 @@ def main():
          '--format=csv,noheader'], capture_output=True, text=True,
         check=True).stdout.strip()
     print(card)
+    run, seed0 = RUNS[args.problem]
     runs = []
     for i in range(args.repeats):
-        runs.append(run_eggbox(seed=42 + i))
+        runs.append(run(seed=seed0 + i))
         print(json.dumps(runs[-1]))
 
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        profiled = run_eggbox(seed=42)
+        profiled = run(seed=seed0)
         wall = time.perf_counter() - t0
     from torch.autograd import DeviceType
     # device-side events only: a CPU op's device time repeats its kernels'
@@ -67,7 +76,8 @@ def main():
                     if not key.startswith('Memcpy')
                     and not key.startswith('Memset'))
     busy_ms = sum(ms for _, ms, _ in device)
-    summary = dict(card=card, runs=runs, profiled=profiled,
+    summary = dict(card=card, problem=args.problem, runs=runs,
+                   profiled=profiled,
                    profiled_wall_s=wall,
                    device_busy_ms=busy_ms, device_kernel_ms=kernel_ms,
                    device_busy_share=busy_ms / 1e3 / wall,

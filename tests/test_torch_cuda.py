@@ -212,5 +212,117 @@ def test_gauss_run_on_card(cuda):
                 dlogz=0.5, frac_remain=0.1)
     assert s._segment_exits
     assert abs(res['logz'] - prob.logz) < max(4 * res['logzerr'], 1.0)
-    for name in kernels.KERNELS:
+    for name in kernels.REGION_KERNELS:
         assert kernels.LAUNCHES[name] > 0, name
+
+
+@pytest.mark.parametrize('npts,m,d', [(512, 4096, 16), (512, 32768, 2),
+                                      (1024, 16384, 8)])
+def test_radius_member_t_equals_plain_and_k1(cuda, npts, m, d):
+    """K1t at the membership shootout's shapes, 65 boundary radii."""
+    from ultranest_torch.evaluate import bench_membership
+    kernels.reset_counts()
+    assert bench_membership.check_shape(npts, m, d, cuda) >= 65
+    assert kernels.LAUNCHES['radius_member_t'] == 65
+    assert kernels.LAUNCHES['radius_member'] == 65
+
+
+def test_consume_scan_spec_shape_equals_plain(cuda):
+    """K3 at the spec path's shape: 4096 walker rows, all valid, into a
+    live set of 400 padded to 512."""
+    rng = np.random.RandomState(11)
+    npad, nlive, P = 512, 400, 4096
+    live_L = np.full(npad, np.inf, np.float32)
+    live_L[:nlive] = rng.uniform(-60, -50, nlive).astype(np.float32)
+    rows_L = rng.uniform(-62, -45, P).astype(np.float32)
+    rows_L[::97] = live_L[rng.randint(nlive, size=len(rows_L[::97]))]
+    a = [torch.as_tensor(x, device=cuda)
+         for x in (live_L, rows_L, np.ones(P, np.float32))]
+    gL, grec = kernels.consume_scan(*a)
+    wL, wrec = kernels.consume_scan_plain(*a)
+    assert torch.equal(gL, wL) and torch.equal(grec, wrec)
+    assert 0 < int(wrec[:, 0].sum()) < P
+
+
+def _spec_sampler(cuda, d=8, popsize=256, nlive=200, seed=3):
+    from ultranest_torch.mlfriends import ScalingLayer, SimpleRegion
+    from ultranest_torch.models.problems import asymgauss
+    from ultranest_torch.popfused import FusedPopulationSliceSampler
+    prob = asymgauss(d)
+    rng = np.random.RandomState(seed)
+    # live points from a box around the peak, as a mid-run live set
+    sigma = np.logspace(-1, -2, d)
+    centers = (np.sin(np.arange(d) / 2.0) * (1 - 5 * sigma) + 1.0) / 2.0
+    u = np.clip(centers + 2 * sigma * rng.uniform(-1, 1, size=(nlive, d)),
+                1e-3, 1 - 1e-3)
+    layer = ScalingLayer()
+    layer.optimize(u, u)
+    region = SimpleRegion(u, layer, device=cuda)
+    region.maxradiussq, region.enlarge = region.compute_enlargement(
+        nbootstraps=30, rng=rng)
+    region.create_ellipsoid()
+    s = FusedPopulationSliceSampler(popsize=popsize, nsteps=2 * d,
+                                    torch_loglike=prob.torch_loglike,
+                                    seed=seed, device=cuda)
+    return s, region, u, prob.loglike(u)
+
+
+def test_spec_dispatch_reads_the_host_as_stated(cuda):
+    """A spec segment dispatch waits for the card only in its flag reads.
+
+    Under ``set_sync_debug_mode('error')`` any implicit synchronisation
+    (``.item()``, ``nonzero``, a copy from pageable memory) raises. The
+    walk's own reads go through a CUDA event, one every
+    ``SPEC_CHECK_EVERY`` rounds, one check behind the queued rounds:
+    ``reads == rounds // SPEC_CHECK_EVERY - 1`` for a walk that stopped
+    on its flag (PERF.md, "Host reads per dispatch").
+    """
+    from ultranest_torch.popfused import SPEC_CHECK_EVERY, spec_max_rounds
+    s, region, u, L = _spec_sampler(cuda)
+    s.segment_start(u, L)
+    s.segment_launch(region)              # warm: caches, pinned blocks
+    torch.cuda.synchronize()
+    kernels.reset_counts()
+    stats = []
+    torch.cuda.set_sync_debug_mode('error')
+    try:
+        for _ in range(3):
+            s.segment_launch(region)
+            stats.append(s.walk_log[-1])
+    finally:
+        torch.cuda.set_sync_debug_mode('default')
+    assert kernels.LAUNCHES['consume_scan'] == 3
+    cap = spec_max_rounds(s.nsteps, s.max_it, s.spec_depth)
+    for st in stats:
+        assert st['rounds'] < cap, st
+        assert st['reads'] == st['rounds'] // SPEC_CHECK_EVERY - 1, st
+        assert st['reads'] <= -(-cap // SPEC_CHECK_EVERY)
+    for _ in range(4):
+        rec = s.segment_fetch()
+        assert rec['done_frac'] == 1.0 and rec['accept'].any()
+        assert np.isfinite(rec['jump2']).all() and rec['ref2_dev'] > 0
+        assert rec['nc_useful'] <= rec['nc']
+
+
+def test_asymgauss_spec_run_on_card(cuda):
+    """A small run of the spec path on the card, gated on logZ."""
+    from ultranest_torch import ReactiveNestedSampler
+    from ultranest_torch.mlfriends import ScalingLayer, SimpleRegion
+    from ultranest_torch.models.problems import asymgauss
+    from ultranest_torch.popfused import FusedPopulationSliceSampler
+    prob = asymgauss(8)
+    s = ReactiveNestedSampler(prob.param_names, prob.loglike,
+                              vectorized=True, seed=2, device=cuda)
+    s.transform_layer_class = ScalingLayer
+    s.stepsampler = FusedPopulationSliceSampler(
+        popsize=512, nsteps=16, torch_loglike=prob.torch_loglike, seed=2,
+        device=cuda)
+    kernels.reset_counts()
+    res = s.run(min_num_live_points=200, viz_callback=False,
+                show_status=False, max_num_improvement_loops=0, min_ess=0,
+                dlogz=2.0, frac_remain=0.1, region_class=SimpleRegion,
+                cluster_num_live_points=0)
+    assert s._segment_exits
+    assert kernels.LAUNCHES['consume_scan'] > 0
+    assert sum(kernels.PLAIN_CALLS.values()) == 0
+    assert abs(res['logz']) < max(4 * res['logzerr'], 1.5)

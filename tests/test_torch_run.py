@@ -68,7 +68,7 @@ def test_slice_matches_jax_package(name):
     res = port.run(**RUN, **opts)
 
     assert port._segment_exits, 'segment path never engaged'
-    for k in kernels.KERNELS:
+    for k in kernels.REGION_KERNELS:
         assert kernels.PLAIN_CALLS[k] > 0, k
         assert kernels.LAUNCHES[k] == 0, k     # no card here
     assert sorted(res) == sorted(res_ref)

@@ -5,11 +5,14 @@ ultranest_torch
 
 PyTorch/CUDA port of :mod:`ultranest_tpu`, for one NVIDIA H100.
 
-The region-rejection path of :class:`ReactiveNestedSampler` is ported:
-pass a torch likelihood as ``torch_loglike=`` (and ``torch_transform=``)
-and the proposal, region filtering and likelihood run on ``device``
-('cuda' by default), with the three hand-written CUDA kernels of
-:mod:`ultranest_torch.ops.kernels` on the path.
+Two paths of :class:`ReactiveNestedSampler` are ported. Region
+rejection: pass a torch likelihood as ``torch_loglike=`` (and
+``torch_transform=``) and the proposal, region filtering and likelihood
+run on ``device`` ('cuda' by default). The population spec walk: set
+``sampler.stepsampler`` to a
+:class:`ultranest_torch.popfused.FusedPopulationSliceSampler`. The
+hand-written CUDA kernels on these paths are in
+:mod:`ultranest_torch.ops.kernels`.
 
 This package imports torch and never jax; it does not import
 :mod:`ultranest_tpu` either.

@@ -6,17 +6,22 @@ Carrying region state across from the JAX package
 :func:`region_from_reference` rebuilds the port's transform layer and
 region from the arrays of a reference (``ultranest_tpu``) region, given
 as numpy, so that both packages filter candidates against the same
-region. Nothing here imports the reference: the caller passes its
-arrays (see :func:`reference_state`).
+region. :func:`spec_banks` and :func:`walk_inputs` move the random
+draws and the packed geometry of one reference spec-walk dispatch onto
+the port's device, so both walks run on the same state. Nothing here
+imports the reference: the caller passes its arrays (see
+:func:`reference_state`).
 """
 
 import numpy as np
+import torch
 
 from .mlfriends import (AffineLayer, LocalAffineLayer, MLFriends,
                         RobustEllipsoidRegion, ScalingLayer, SimpleRegion,
                         WrappingEllipsoid)
 
-__all__ = ['reference_state', 'region_from_reference', 'live_from_state']
+__all__ = ['reference_state', 'region_from_reference', 'live_from_state',
+           'spec_banks', 'walk_inputs']
 
 _LAYERS = {'ScalingLayer': ScalingLayer, 'AffineLayer': AffineLayer,
            'LocalAffineLayer': LocalAffineLayer}
@@ -94,3 +99,33 @@ def region_from_reference(state, device):
 def live_from_state(state):
     """(live_u, live_L) arrays of the region's live points."""
     return np.array(state['u']), np.array(state['live_L'])
+
+
+def spec_banks(xibank, i1, i2, jx, pick, idx0, device):
+    """The raw draws of one spec dispatch as the port's walk takes them.
+
+    Arguments are numpy arrays in the layout of
+    :func:`ultranest_torch.popfused.draw_spec_banks` (the reference draws
+    them at ``ultranest_tpu/popfused.py:547-558``): float32 uniforms
+    ``xibank`` (max_rounds, P, D) and ``pick`` (nsteps, P), and the
+    integer draws ``i1``, ``i2``, ``jx`` (nsteps, P) and ``idx0`` (P,),
+    before ``i2`` is shifted past ``i1``.
+    """
+    def f32(a):
+        return torch.as_tensor(np.array(a, np.float32)).to(device)
+
+    def i64(a):
+        return torch.as_tensor(np.array(a, np.int64)).to(device)
+    return dict(xibank=f32(xibank), i1=i64(i1), i2=i64(i2), jx=i64(jx),
+                pick=f32(pick), idx0=i64(idx0))
+
+
+def walk_inputs(axes, tpack, treg, device):
+    """The reference's packed walk geometry as float32 device tensors.
+
+    ``axes`` (d, d) region axes, ``tpack`` the (d+1, d) whitening pack
+    (``popfused.py:318-343``) and ``treg`` the flat p-space ellipsoid
+    vector (``popfused.py:345-354``); returns them in that order.
+    """
+    return tuple(torch.as_tensor(np.array(a, np.float32)).to(device)
+                 for a in (axes, tpack, treg))

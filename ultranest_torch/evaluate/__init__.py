@@ -1,0 +1,1 @@
+"""Evaluation scripts of the PyTorch port (run with ``python -m``)."""

@@ -452,7 +452,7 @@ class FusedRegionSampler:
         live_u2, live_L2, recs = consume_scan(live_u, live_L, u, logl, valid)
         self._seg_state = (live_u2, live_L2)
         packed = pack_segment(u, logl, recs, nc.to(torch.float32),
-                              valid.mean())
+                              valid.mean(), torch.zeros_like(Lmin0))
         self._seg_queue.append(start_fetch(packed))
 
     def segment_fetch(self):

@@ -14,8 +14,10 @@ device work per dispatch (:class:`ultranest_torch.fused.FusedRegionSampler`);
 in segment mode (the default on a CUDA device) each dispatch also
 consumes its batch into the device live set (kernel K3), and the host
 replays the records. Region rebuilds bootstrap the MLFriends radius in
-kernel K2 on the same device. Accepted points are re-checked in f64 on
-the host before they enter the tree.
+kernel K2 on the same device. A step sampler set as ``sampler.stepsampler``
+(:class:`ultranest_torch.popfused.FusedPopulationSliceSampler`) takes
+the place of the region proposal, with the same segment path. Accepted
+points are re-checked in f64 on the host before they enter the tree.
 
 Not ported yet: ``NestedSampler``, ``read_file``, warm starts and
 resume-similar, ``plot()`` and multi-device runs.
@@ -314,6 +316,7 @@ class ReactiveNestedSampler:
                     "unless resume=resume-similar. To start from scratch, "
                     "delete '%s'." % log_dir)
         self._set_likelihood_function(transform, loglike, num_test_samples)
+        self.stepsampler = None
         self._init_fused_sampler(torch_loglike, torch_transform, seed)
 
     def _parse_wrapped(self, wrapped_params):
@@ -871,7 +874,14 @@ class ReactiveNestedSampler:
     def _fill_sample_buffer(self, Lmin, ndraw, active_u, active_values,
                             nit):
         """Generate fresh candidates into the sample buffer (device or host)."""
-        u, v, logl, nc, quality = self._refill_samples(Lmin, ndraw, nit)
+        if self.stepsampler is not None:
+            u, v, logl, nc = self.stepsampler.__next__(
+                self.region, Lmin=Lmin, us=active_u, Ls=active_values,
+                transform=self.transform, loglike=self.loglike,
+                tregion=self.tregion, ndraw=ndraw)
+            quality = self.stepsampler.nsteps
+        else:
+            u, v, logl, nc, quality = self._refill_samples(Lmin, ndraw, nit)
 
         if logl is None:
             u = np.empty((0, self.x_dim))
@@ -917,7 +927,7 @@ class ReactiveNestedSampler:
         Consumes the sample buffer, replaying the point store first (this
         is how resume works), then refilling from the region sampler.
         """
-        if self.fused_sampler is None \
+        if self.stepsampler is None and self.fused_sampler is None \
                 and self._region_membership_unchecked:
             # sanity check, once per region rebuild: membership can only
             # change when the region does
@@ -1393,6 +1403,8 @@ class ReactiveNestedSampler:
             bootstrap_rootids=mi.rootids[1:, ],
             nbootstraps=self.num_bootstraps,
             minvol=exp(mi.logVolremaining))
+        if region_fresh and self.stepsampler is not None:
+            self.stepsampler.region_changed(active_values, self.region)
         # buffered candidates stay valid across region rebuilds: they
         # were drawn uniformly above Lmin from an envelope containing
         # the constrained set, and insertion re-checks L > current Lmin.
@@ -1417,7 +1429,9 @@ class ReactiveNestedSampler:
                     paramlims=self.transform_limits,
                     order_test_correlation=st.insertion_test_quality,
                     order_test_direction=st.insertion_test_direction,
-                    stepsampler_info={}),
+                    stepsampler_info=self.stepsampler.get_info_dict()
+                    if hasattr(self.stepsampler, 'get_info_dict')
+                    else {}),
                 region=self.region,
                 transformLayer=self.transformLayer,
                 region_fresh=region_fresh)
@@ -1613,7 +1627,8 @@ class ReactiveNestedSampler:
         and a frontier of childless nodes. Everything else falls back to
         the classic per-node loop.
         """
-        ss = self.fused_sampler
+        ss = self.stepsampler if self.stepsampler is not None \
+            else self.fused_sampler
         if not getattr(ss, 'segment_capable', False) \
                 or not ss.segment_ok():
             return False
@@ -1648,7 +1663,8 @@ class ReactiveNestedSampler:
         (strategy decided, plateau, budget, width boundary). Returns the
         number of consumed nodes.
         """
-        ss = self.fused_sampler
+        ss = self.stepsampler if self.stepsampler is not None \
+            else self.fused_sampler
         ex = st.explorer
         mi = st.main_iterator
         frac_remain = opts['frac_remain']
@@ -1861,10 +1877,23 @@ class ReactiveNestedSampler:
                     if it_test:
                         self._insertion_test_batch(
                             st, rank_seq[:stop_at], nlive, zst, win)
+                    observe = getattr(self.stepsampler,
+                                      'observe_insertion_ranks', None)
+                    if observe is not None:
+                        # nsteps-governor feed (independent of the
+                        # user-facing alarm above): the record carries
+                        # its at-launch chain length so queued stale
+                        # dispatches cannot compound a doubling
+                        observe(rank_seq[:stop_at], nlive,
+                                rec.get('nsteps'))
                     st.saved_logl.extend(Li_a.tolist())
                     ex.active_node_ids[w_a] = child_ids
                     if self.log_to_pointstore:
-                        quality = 0.0
+                        # this batch's chains ran at the at-launch
+                        # nsteps (the governor may have changed it since)
+                        quality = rec.get(
+                            'nsteps',
+                            getattr(self.stepsampler, 'nsteps', 0.0))
                         self.pointstore.add_many(np.column_stack([
                             Li_a, Lnew_a,
                             np.full(stop_at, float(quality)),
@@ -1969,8 +1998,8 @@ class ReactiveNestedSampler:
                     target_min_num_children, node, active_values,
                     opts['max_ncalls'], opts['max_iters'],
                     self.live_points_healthy):
-                active_u = self.pointpile.getu(active_node_ids)
-                active_p = self.pointpile.getp(active_node_ids)
+                active_u, active_p = self._live_coords_if_needed(
+                    st, Lmin, active_node_ids)
                 region_fresh = self._refresh_region_if_due(
                     st, node.value, active_u, active_p, active_node_ids,
                     active_rootids, active_values, viz_callback, uivlf)
@@ -1996,6 +2025,11 @@ class ReactiveNestedSampler:
                     st, L, nlive, active_values,
                     opts['insertion_test_zscore_threshold'],
                     opts['insertion_test_window'])
+                observe = getattr(self.stepsampler,
+                                  'observe_insertion_ranks', None)
+                if observe is not None:
+                    # nsteps-governor feed (classic path)
+                    observe([int((active_values < L).sum())], nlive)
                 self._swap_into_region(node, child, u, active_p)
                 node.children.append(child)
 
@@ -2024,6 +2058,23 @@ class ReactiveNestedSampler:
             self.logger.info("Explored until L=%.1g  ", node.value)
         self.pointstore.flush()
         return Llo, Lhi, strategy_stale
+
+    def _live_coords_if_needed(self, st, Lmin, active_node_ids):
+        """Gather the live point coordinate arrays only when they are used.
+
+        The (nlive, dim) fancy-index copies cost host time at high
+        iteration rates; iterations served from a step sampler's buffer
+        skip them (``needs_live_points``).
+        """
+        due = st.main_iterator.logVolremaining \
+            < st.next_update_interval_volume
+        sampler = self.fused_sampler or self.stepsampler
+        needs_live = getattr(sampler, 'needs_live_points', None)
+        if due or needs_live is None or self.tregion is not None \
+                or needs_live(Lmin):
+            return (self.pointpile.getu(active_node_ids),
+                    self.pointpile.getp(active_node_ids))
+        return None, None
 
     def _plan_more_work(self, st, Llo, Lhi, opts):
         """Decide whether (and where) another pass should explore.
@@ -2159,6 +2210,49 @@ class ReactiveNestedSampler:
             if plan is None:
                 break
             Llo, Lhi = plan
+        self._warn_if_chains_short()
+
+    def _warn_if_chains_short(self):
+        """Flag a step-sampler run whose chains did not decorrelate.
+
+        The jump-distance criterion (Buchner+24): if fewer than half the
+        chains travelled the region decorrelation scale, the samples are
+        not independent and logZ is unreliable. Emits a warning naming
+        ``nsteps``; with ``adaptive_nsteps`` only the dispatches at the
+        final nsteps are judged.
+        """
+        ss = self.stepsampler
+        try:
+            frac = float(ss.far_enough_fraction)
+            nsteps = int(ss.nsteps)
+            labels = getattr(ss, 'logstat_labels', None) or []
+            if 'nsteps' in labels and 'far_enough' in labels \
+                    and ss.logstat:
+                # adaptive samplers: judge only the dispatches at the
+                # final nsteps
+                arr = np.asarray(ss.logstat, float)
+                cur = arr[:, labels.index('nsteps')] == nsteps
+                if cur.any():
+                    frac = float(np.nanmean(
+                        arr[cur, labels.index('far_enough')]))
+            elif getattr(ss, 'adaptive_nsteps', False):
+                # no per-row nsteps record: the all-rows average includes
+                # the pre-adaptation phase
+                return
+        except Exception:
+            # diagnostics are best-effort (no step sampler, no records):
+            # never fail a finished run over them
+            return
+        if not np.isfinite(frac) or frac >= 0.5:
+            return
+        msg = ('step sampler chains may be too short: only %.0f%% moved '
+               'farther than the region scale (want >50%%) at nsteps=%d. '
+               'logZ may be significantly overestimated. Double nsteps '
+               '(or pass adaptive_nsteps=True to the fused sampler) and '
+               'compare logZ.' % (100 * frac, nsteps))
+        warnings.warn(msg)
+        if self.log:
+            self.logger.warning(msg)
 
     def _write_chain_files(self, sequence, results, saved_logl):
         """Persist posterior chains, the results schema and the run trace."""
@@ -2303,6 +2397,9 @@ class ReactiveNestedSampler:
         print('insert order U test : converged: %(converged)s correlation: '
               '%(independent_iterations)s iterations'
               % self.results['insertion_order_MWW_test'])
+        if self.stepsampler and hasattr(self.stepsampler,
+                                        'print_diagnostic'):
+            self.stepsampler.print_diagnostic()
         print()
         for i, name in enumerate(self.paramnames + self.derivedparamnames):
             print(self._marginal_line(

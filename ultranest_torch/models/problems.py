@@ -16,7 +16,7 @@ import math
 import numpy as np
 import torch
 
-__all__ = ['Problem', 'gauss', 'corrgauss', 'eggbox']
+__all__ = ['Problem', 'gauss', 'asymgauss', 'corrgauss', 'eggbox']
 
 
 class Problem:
@@ -74,6 +74,38 @@ def gauss(ndim=3, sigma=0.1):
         return -0.5 * (((theta - 0.5) / sigma) ** 2).sum(dim=1) + norm
 
     return Problem('gauss%dd' % ndim, _names(ndim), loglike, None,
+                   torch_loglike, None, logz=0.0)
+
+
+def asymgauss(ndim=50, sigma_min=0.01):
+    """Gaussian with log-spaced widths per axis (upstream testasymgauss.py).
+
+    The headline problem of the population slice sampler
+    (``bench.py:168-175``): widths from 0.1 down to *sigma_min*, centres
+    spread along a sine, analytic logZ 0.
+    """
+    sigma = np.logspace(-1, np.log10(sigma_min), ndim)
+    width = np.clip(1 - 5 * sigma, 1e-20, None)
+    centers = (np.sin(np.arange(ndim) / 2.0) * width + 1.0) / 2.0
+    norm = -0.5 * np.log(2 * np.pi * sigma**2).sum()
+
+    def loglike(theta):
+        return -0.5 * (((theta - centers) / sigma) ** 2).sum(axis=1) + norm
+
+    consts = {}
+
+    def torch_loglike(theta):
+        # constants copied to the device once: a copy from host memory
+        # on every call would wait for the device
+        key = (theta.device, theta.dtype)
+        if key not in consts:
+            consts[key] = tuple(torch.as_tensor(a, dtype=theta.dtype,
+                                                device=theta.device)
+                                for a in (centers, sigma))
+        c, s = consts[key]
+        return -0.5 * (((theta - c) / s) ** 2).sum(dim=1) + norm
+
+    return Problem('asymgauss%dd' % ndim, _names(ndim), loglike, None,
                    torch_loglike, None, logz=0.0)
 
 

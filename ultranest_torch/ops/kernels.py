@@ -3,10 +3,13 @@
 Hand-written CUDA kernels of the region-rejection path
 ------------------------------------------------------
 
-Three kernels, sources in ``ultranest_torch/csrc/``:
+Four kernels, sources in ``ultranest_torch/csrc/``:
 
 * K1 :func:`radius_member` (``csrc/radius_member.cu``) replaces the
   Pallas ``_member_kernel`` (``ultranest_tpu/ops/pallas_kernels.py``);
+* K1t :func:`radius_member_t` (``csrc/radius_member_t.cu``) replaces the
+  Pallas ``_member_kernel_t`` of the membership shootout
+  (``evaluate/bench_pallas_membership.py``), K1 on transposed operands;
 * K2 :func:`bootstrap_radius` (``csrc/bootstrap_radius.cu``) replaces
   the Pallas ``_bootstrap_kernel`` (same file);
 * K3 :func:`consume_scan` (``csrc/consume_scan.cu``) replaces the XLA
@@ -15,11 +18,11 @@ Three kernels, sources in ``ultranest_torch/csrc/``:
 Each source file says what bounds its kernel on an H100 and what its
 design does about it.
 
-Build: on first use, ``nvcc -gencode arch=compute_90a,code=sm_90a``
-compiles all sources into one shared library with a plain C interface,
-under ``ultranest_torch/_build/``, named by a hash of the sources and
-flags. It is loaded with ctypes: pointers and the stream go as
-``c_void_p``.
+Build: on first use, one ``nvcc -gencode arch=compute_90a,code=sm_90a``
+per source compiles the sources in parallel, and one more links the
+objects into a shared library with a plain C interface, under
+``ultranest_torch/_build/``, named by a hash of the sources and flags.
+It is loaded with ctypes: pointers and the stream go as ``c_void_p``.
 
 Routing: each wrapper runs its plain torch version (``*_plain``) when
 the tensors it is given lie on the CPU, and only then. On a CUDA tensor
@@ -41,17 +44,25 @@ import threading
 
 import torch
 
-__all__ = ['radius_member', 'bootstrap_radius', 'consume_scan',
-           'radius_member_plain', 'bootstrap_radius_plain',
-           'consume_scan_plain', 'build', 'LAUNCHES', 'PLAIN_CALLS',
-           'reset_counts', 'KERNELS']
+__all__ = ['radius_member', 'radius_member_t', 'bootstrap_radius',
+           'consume_scan', 'radius_member_plain', 'radius_member_t_plain',
+           'bootstrap_radius_plain', 'consume_scan_plain', 'build',
+           'LAUNCHES', 'PLAIN_CALLS', 'reset_counts', 'KERNELS',
+           'REGION_KERNELS']
 
-KERNELS = ('radius_member', 'bootstrap_radius', 'consume_scan')
-SOURCES = ('radius_member.cu', 'bootstrap_radius.cu', 'consume_scan.cu')
+KERNELS = ('radius_member', 'radius_member_t', 'bootstrap_radius',
+           'consume_scan')
+# the kernels the region-rejection path launches (K1t runs only in the
+# membership shootout, ultranest_torch.evaluate.bench_membership)
+REGION_KERNELS = ('radius_member', 'bootstrap_radius', 'consume_scan')
+SOURCES = ('radius_member.cu', 'radius_member_t.cu', 'bootstrap_radius.cu',
+           'consume_scan.cu')
 NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
-              '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v']
+              '-O3', '-Xcompiler', '-fPIC', '-Xptxas', '-v']
 # largest live set K3 keeps in shared memory (128 KB of the 227 KB)
 MAX_SCAN_NPAD = 32768
+# largest dimension K1t stages in shared memory (200 KB of the 227 KB)
+MAX_MEMBER_T_DIM = 200
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, 'csrc')
@@ -94,18 +105,26 @@ def build():
     if os.path.exists(so):
         return so
     os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix='.so', dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        proc = subprocess.run([_nvcc()] + NVCC_FLAGS + ['-o', tmp] + srcs,
-                              capture_output=True, text=True, timeout=600)
-        BUILD_LOG = proc.stdout + proc.stderr
-        if proc.returncode != 0:
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
+        objs = [os.path.join(tmpdir, os.path.basename(s) + '.o')
+                for s in srcs]
+        # one compiler per source, all started together
+        procs = [subprocess.Popen(
+            [nvcc] + NVCC_FLAGS + ['-c', s, '-o', o],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for s, o in zip(srcs, objs)]
+        logs = [p.communicate(timeout=600)[0] for p in procs]
+        BUILD_LOG = ''.join(logs)
+        if any(p.returncode != 0 for p in procs):
             raise RuntimeError('nvcc failed:\n' + BUILD_LOG)
+        tmp = os.path.join(tmpdir, 'lib.so')
+        proc = subprocess.run([nvcc, '-shared', '-o', tmp] + objs,
+                              capture_output=True, text=True, timeout=600)
+        BUILD_LOG += proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError('nvcc link failed:\n' + BUILD_LOG)
         os.replace(tmp, so)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
     return so
 
 
@@ -117,11 +136,13 @@ def _lib():
             vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
             lib.un_radius_member.argtypes = [vp, vp, ci, vp, ci, ci, cf, vp,
                                              vp]
+            lib.un_radius_member_t.argtypes = [vp, vp, ci, vp, ci, ci, cf,
+                                               vp, vp]
             lib.un_bootstrap_radius.argtypes = [vp, vp, vp, ci, ci, ci, vp,
                                                 vp]
             lib.un_consume_scan.argtypes = [vp, ci, vp, vp, ci, vp, vp, vp]
-            for fn in (lib.un_radius_member, lib.un_bootstrap_radius,
-                       lib.un_consume_scan):
+            for fn in (lib.un_radius_member, lib.un_radius_member_t,
+                       lib.un_bootstrap_radius, lib.un_consume_scan):
                 fn.restype = ci
             _LIB = lib
     return _LIB
@@ -213,6 +234,70 @@ def radius_member(tpoints, tmask, cands, r2):
     out = torch.empty(m, dtype=torch.int32, device=cands.device)
     _launch('radius_member', _lib().un_radius_member,
             tpoints.data_ptr(), tmask.data_ptr(), n, cands.data_ptr(), m, d,
+            ctypes.c_float(r2), out.data_ptr())
+    return out
+
+
+# --------------------------------------------------------------- K1t -----
+
+def radius_member_t_plain(tp_t, tm, cd_t, r2, chunk=16384):
+    """Plain torch K1t: int32 (M,), 1 where a valid point is within r2.
+
+    The arithmetic of :func:`radius_member_plain` on transposed operands:
+    squared distances summed axis by axis from direct differences.
+    """
+    r2 = torch.tensor(r2, dtype=torch.float32).item()
+    valid = (tm > 0)[:, None]
+    out = []
+    for c0 in range(0, cd_t.shape[1], chunk):
+        c = cd_t[:, c0:c0 + chunk]
+        d2 = torch.zeros((tp_t.shape[1], c.shape[1]), dtype=torch.float32,
+                         device=c.device)
+        for k in range(tp_t.shape[0]):
+            diff = c[k, None, :] - tp_t[k, :, None]
+            d2 = d2 + diff * diff
+        out.append(((d2 <= r2) & valid).any(dim=0).to(torch.int32))
+    if not out:
+        return torch.zeros(0, dtype=torch.int32, device=cd_t.device)
+    return torch.cat(out)
+
+
+def radius_member_t(tp_t, tm, cd_t, r2):
+    """K1t: radius membership with axis-major (transposed) operands.
+
+    Parameters
+    ----------
+    tp_t: (d, N) float32
+        live points in whitened space, one row per axis
+    tm: (N,) int32
+        > 0 for valid columns of *tp_t*
+    cd_t: (d, M) float32
+        candidates in whitened space, one row per axis
+    r2: float
+        squared radius, compared in float32
+
+    Returns
+    -------
+    (M,) int32, 1 where some valid live point lies within r2
+    """
+    if _on_cpu(tp_t, tm, cd_t):
+        PLAIN_CALLS['radius_member_t'] += 1
+        return radius_member_t_plain(tp_t, tm, cd_t, r2)
+    _check(tp_t, 'tp_t', torch.float32, 2)
+    _check(tm, 'tm', torch.int32, 1)
+    _check(cd_t, 'cd_t', torch.float32, 2)
+    d, n = tp_t.shape
+    m = cd_t.shape[1]
+    if cd_t.shape[0] != d or tm.shape[0] != n:
+        raise ValueError('shape mismatch: tp_t %s, tm %s, cd_t %s'
+                         % (tuple(tp_t.shape), tuple(tm.shape),
+                            tuple(cd_t.shape)))
+    if d > MAX_MEMBER_T_DIM:
+        raise ValueError('radius_member_t stages d x 128 candidates in '
+                         'shared memory: d %d > %d' % (d, MAX_MEMBER_T_DIM))
+    out = torch.empty(m, dtype=torch.int32, device=cd_t.device)
+    _launch('radius_member_t', _lib().un_radius_member_t,
+            tp_t.data_ptr(), tm.data_ptr(), n, cd_t.data_ptr(), m, d,
             ctypes.c_float(r2), out.data_ptr())
     return out
 
