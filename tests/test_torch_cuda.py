@@ -326,3 +326,82 @@ def test_asymgauss_spec_run_on_card(cuda):
     assert kernels.LAUNCHES['consume_scan'] > 0
     assert sum(kernels.PLAIN_CALLS.values()) == 0
     assert abs(res['logz']) < max(4 * res['logzerr'], 1.5)
+
+
+@pytest.mark.parametrize('engine', ['sync', 'async', 'rwalk'])
+def test_engine_dispatch_reads_the_host_as_stated(cuda, engine):
+    """Each engine's segment dispatch waits for the card only in the
+    flag reads of :func:`ultranest_torch.popfused._drive`.
+
+    Under ``set_sync_debug_mode('error')`` any implicit synchronisation
+    raises. The async walk is the spec walk at depth 1: ``reads ==
+    rounds // SPEC_CHECK_EVERY - 1``. The sync walk drives one shrink
+    loop per step, each read with no lag: ``reads == rounds //
+    SYNC_CHECK_EVERY``. The random walk has a fixed trip count and reads
+    nothing.
+    """
+    from ultranest_torch.popfused import (FusedPopulationRandomWalkSampler,
+                                          SPEC_CHECK_EVERY,
+                                          SYNC_CHECK_EVERY)
+    s, region, u, L = _spec_sampler(cuda)
+    if engine == 'rwalk':
+        s = FusedPopulationRandomWalkSampler(
+            popsize=s.popsize, nsteps=s.nsteps, scale=0.1,
+            torch_loglike=s.torch_loglike, seed=3, device=cuda)
+    else:
+        s.engine = engine
+    s.segment_start(u, L)
+    s.segment_launch(region)              # warm: caches, pinned blocks
+    torch.cuda.synchronize()
+    kernels.reset_counts()
+    stats = []
+    torch.cuda.set_sync_debug_mode('error')
+    try:
+        for _ in range(3):
+            s.segment_launch(region)
+            stats.append(s.walk_log[-1])
+    finally:
+        torch.cuda.set_sync_debug_mode('default')
+    assert kernels.LAUNCHES['consume_scan'] == 3
+    for st in stats:
+        assert st['nsteps'] == s.nsteps
+        if engine == 'rwalk':
+            assert st['reads'] == 0 and st['rounds'] == s.nsteps, st
+        elif engine == 'sync':
+            assert s.max_it % SYNC_CHECK_EVERY == 0
+            assert st['rounds'] % SYNC_CHECK_EVERY == 0, st
+            assert st['reads'] == st['rounds'] // SYNC_CHECK_EVERY, st
+        else:
+            assert st['reads'] == st['rounds'] // SPEC_CHECK_EVERY - 1, st
+    for _ in range(4):
+        rec = s.segment_fetch()
+        assert rec['done_frac'] == 1.0 and rec['accept'].any()
+        assert np.isfinite(rec['jump2']).all()
+        assert rec['nc_useful'] == rec['nc'] > 0
+
+
+def test_governed_gauss_run_on_card(cuda):
+    """A small adaptive-nsteps run on the card: nsteps grows, every walk
+    ran at the nsteps of its dispatch, logZ within the bench gate."""
+    from ultranest_torch import ReactiveNestedSampler
+    from ultranest_torch.mlfriends import ScalingLayer, SimpleRegion
+    from ultranest_torch.models.problems import gauss
+    from ultranest_torch.popfused import FusedPopulationSliceSampler
+    prob = gauss(ndim=10, sigma=0.1)
+    s = ReactiveNestedSampler(prob.param_names, prob.loglike,
+                              vectorized=True, seed=1, device=cuda)
+    s.transform_layer_class = ScalingLayer
+    ss = s.stepsampler = FusedPopulationSliceSampler(
+        popsize=256, nsteps=2, torch_loglike=prob.torch_loglike, seed=1,
+        adaptive_nsteps=True, max_nsteps=64, device=cuda)
+    kernels.reset_counts()
+    res = s.run(min_num_live_points=200, viz_callback=False,
+                show_status=False, max_num_improvement_loops=0, min_ess=0,
+                dlogz=2.0, frac_remain=0.1, region_class=SimpleRegion,
+                cluster_num_live_points=0)
+    assert s._segment_exits and ss.nsteps > 2, ss.nsteps
+    walked = [w['nsteps'] for w in ss.walk_log]
+    assert walked == sorted(walked) and walked[-1] == ss.nsteps
+    assert kernels.LAUNCHES['consume_scan'] > 0
+    assert sum(kernels.PLAIN_CALLS.values()) == 0
+    assert abs(res['logz']) < max(4 * res['logzerr'], 2.0)

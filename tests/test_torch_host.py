@@ -155,25 +155,85 @@ def test_logz_sequence_and_combine_identical_to_jax_package(random):
                                   res_j['weighted_samples']['weights'])
 
 
-@pytest.mark.parametrize('name', ['gauss', 'corrgauss', 'eggbox'])
-def test_problems_match_jax_forms(name):
-    """Each problem's numpy and torch forms against the JAX package's."""
+@pytest.mark.parametrize('cls,row', [('SingleCounter', 1.5),
+                                     ('MultiCounter', [1.5, 2.5, 3.5])])
+def test_counter_appends_after_empty_logweights(cls, row):
+    """An empty logweights assignment, then appends, grow the buffer.
+
+    The JAX package's counters keep their fault here (growing 2 * 0
+    rows raises IndexError, ``netiter.py:519``); the port's grow to 16.
+    """
+    def make(mod):
+        if cls == 'SingleCounter':
+            return mod.SingleCounter()
+        return mod.MultiCounter(nroots=3, nbootstraps=2, random=False)
+
+    ref = make(jax_netiter)
+    ref.logweights = []
+    with pytest.raises(IndexError):
+        ref._logw_append(np.asarray(row))
+    c = make(port_netiter)
+    c.logweights = []
+    for i in range(40):
+        c._logw_append(np.asarray(row) + i)
+    w = np.asarray(c.logweights)
+    assert len(w) == 40
+    np.testing.assert_array_equal(w[-1], np.asarray(row) + 39)
+    np.testing.assert_array_equal(w[0], row)
+
+
+PROBLEMS = [('gauss', {}), ('corrgauss', {}), ('eggbox', {}),
+            ('asymgauss', dict(ndim=8)), ('multigauss', dict(ndim=3)),
+            ('rosenbrock', dict(ndim=8)), ('multishell', dict(ndim=8)),
+            ('shell', dict(ndim=3)), ('loggamma', dict(ndim=30)),
+            ('funnel', dict(ndim=4)), ('pyramid', dict(ndim=3)),
+            ('sine', {}), ('slantedeggbox', dict(ndim=3)),
+            ('corrpeak', {}), ('hyperrect', dict(ndim=3)),
+            ('dirichlet', {})]
+
+
+@pytest.mark.parametrize('name,kw', PROBLEMS,
+                         ids=[name for name, _ in PROBLEMS])
+def test_problems_match_jax_forms(name, kw):
+    """Each problem's numpy and torch forms against the JAX package's.
+
+    On the same seeded points: the numpy forms within 1e-10 in f64, the
+    torch form within rtol 1e-5 of the jax form in f32. Only where the
+    f32 sum cancels (sine's phases of ~2e4 radians, slantedeggbox's
+    eggbox term against its slant near their sum's zero) does each
+    point also get 4 times the jax form's own error against the f64
+    form at that point.
+    """
+    import jax.numpy as jnp
     import torch
     import ultranest_torch.models.problems as tprob
     import ultranest_tpu.models.problems as jprob
-    port, ref = getattr(tprob, name)(), getattr(jprob, name)()
+    port, ref = getattr(tprob, name)(**kw), getattr(jprob, name)(**kw)
     assert port.param_names == ref.param_names and port.logz == ref.logz
+    assert getattr(port, 'wrapped_params', None) == \
+        getattr(ref, 'wrapped_params', None)
     u = np.random.RandomState(2).uniform(size=(500, port.ndim))
     p = u if port.transform is None else port.transform(u)
-    np.testing.assert_array_equal(p, u if ref.transform is None
-                                  else ref.transform(u))
-    np.testing.assert_array_equal(port.loglike(p), ref.loglike(p))
+    np.testing.assert_allclose(p, u if ref.transform is None
+                               else ref.transform(u), rtol=1e-10)
+    np.testing.assert_allclose(port.loglike(p), ref.loglike(p), rtol=1e-10)
     u32 = u.astype(np.float32)
     p_t = torch.as_tensor(u32) if port.torch_transform is None \
         else port.torch_transform(torch.as_tensor(u32))
-    p_j = u32 if ref.jax_transform is None else ref.jax_transform(u32)
+    p_j = jnp.asarray(u32) if ref.jax_transform is None \
+        else ref.jax_transform(jnp.asarray(u32))
     np.testing.assert_allclose(p_t.numpy(), np.asarray(p_j), rtol=1e-6)
-    # f32 on both sides, summed in different orders: a few ulp apart
-    np.testing.assert_allclose(port.torch_loglike(p_t).numpy(),
-                               np.asarray(ref.jax_loglike(p_j)),
-                               rtol=2e-6, atol=1e-5)
+    got = port.torch_loglike(p_t).numpy()
+    want = np.asarray(ref.jax_loglike(p_j))
+    assert got.dtype == want.dtype == np.float32
+    assert np.isfinite(got).all()
+    if name in ('gauss', 'corrgauss', 'eggbox'):
+        # f32 on both sides, summed in different orders: a few ulp apart
+        np.testing.assert_allclose(got, want, rtol=2e-6, atol=1e-5)
+    atol = 0.0
+    if name in ('sine', 'slantedeggbox'):
+        p64 = u32.astype(float) if ref.transform is None \
+            else ref.transform(u32.astype(float))
+        atol = 4 * np.abs(want - ref.loglike(p64))
+    excess = np.abs(got - want) - 1e-5 * np.abs(want) - atol
+    assert (excess <= 0).all(), (name, excess.max(), int(excess.argmax()))

@@ -28,6 +28,7 @@ import ultranest_tpu.segmentops as jseg
 from ultranest_torch import convert, popfused, segmentops
 from ultranest_torch.ops import kernels
 from ultranest_torch.ops.pairwise import pad_rows, round_up
+from ultranest_torch.parallel.launch import start_fetch
 
 P, D, NSTEPS = 64, 8, 8
 CENTER = (0.5, 0.45, 0.55)
@@ -74,10 +75,13 @@ def _split_banks(key, nlive, xshape, ishape):
 
 
 def _banks_for(key, nlive, d, max_rounds):
+    """The reference's draws for *key* under the port's bank names."""
     # shapes ride in as dummy arrays so jit sees them as static
     xs = np.zeros((max_rounds, P, D, d), np.int8)
-    return [np.asarray(a) for a in _split_banks(
-        key, np.int32(nlive), xs, np.zeros((NSTEPS,), np.int8))]
+    return dict(zip(('xibank', 'i1', 'i2', 'jx', 'pick', 'idx0'),
+                    (np.asarray(a) for a in _split_banks(
+                        key, np.int32(nlive), xs,
+                        np.zeros((NSTEPS,), np.int8)))))
 
 
 def _state(d, seed, nlive=50):
@@ -134,13 +138,15 @@ def test_spec_walk_matches_reference_banks(d, seed, treg_on):
         treg)]
 
     max_rounds = popfused.spec_max_rounds(NSTEPS, port.max_it, D)
-    banks = convert.spec_banks(*_banks_for(key, nlive, d, max_rounds),
-                               device='cpu')
+    banks = convert.walk_banks('cpu', **_banks_for(key, nlive, d,
+                                                   max_rounds))
     axes_t, _, treg_t = convert.walk_inputs(axes, axes, treg, 'cpu')
     got = [a.numpy() for a in port._walk(
         banks, torch.as_tensor(live_u), torch.as_tensor(live_L), nlive,
         axes_t, float(Lmin), 1.0, treg_t)]
-    uf, Lf, done, idx0, nc, nu, width = got
+    uf, Lf, done, idx0, nc, nu, width, eff = got
+    assert nc.dtype == nu.dtype == np.int64
+    assert eff == done.mean()
     np.testing.assert_array_equal(idx0, want[3])
     np.testing.assert_array_equal(done, want[2])
     assert nc == want[4] and nu == want[5], (nc, want[4], nu, want[5])
@@ -169,15 +175,17 @@ def test_segment_kernel_matches_reference(d, seed, treg_on):
         tpack)]
 
     max_rounds = popfused.spec_max_rounds(NSTEPS, port.max_it, D)
-    banks = convert.spec_banks(*_banks_for(key, nlive, d, max_rounds),
-                               device='cpu')
+    banks = convert.walk_banks('cpu', **_banks_for(key, nlive, d,
+                                                   max_rounds))
     axes_t, tpack_t, treg_t = convert.walk_inputs(axes, tpack, treg, 'cpu')
     kernels.reset_counts()
     got = [a.numpy() for a in port._run_segment(
         banks, torch.as_tensor(live_u), torch.as_tensor(live_L), nlive,
         axes_t, 1.0, treg_t, tpack_t)]
     assert kernels.PLAIN_CALLS['consume_scan'] == 1
-    lu2, lL2, packed = got
+    lu2, lL2, packed, counts = got
+    assert counts.dtype == np.int64
+    assert list(counts) == list(want[2][-1, [0, 3]])
     np.testing.assert_allclose(lu2, want[0], rtol=0, atol=1e-6)
     np.testing.assert_allclose(lL2, want[1], rtol=0, atol=1e-6)
     rows, scal = packed[:-1], packed[-1]
@@ -262,21 +270,67 @@ def test_walk_stops_at_the_round_cap_and_reads_every_k_rounds():
 
 
 def test_unported_options_raise():
-    for kw in (dict(engine='async'), dict(engine='sync'),
-               dict(mesh=object()), dict(spec_depth_auto=True)):
-        with pytest.raises(NotImplementedError):
-            popfused.FusedPopulationSliceSampler(
-                popsize=8, nsteps=2, torch_loglike=_loglike_torch,
-                device='cpu', **kw)
+    """Only ``mesh=`` is left unported; an unknown engine is refused."""
+    with pytest.raises(NotImplementedError):
+        popfused.FusedPopulationSliceSampler(
+            popsize=8, nsteps=2, torch_loglike=_loglike_torch,
+            device='cpu', mesh=object())
     with pytest.raises(NotImplementedError):
         popfused.FusedPopulationRandomWalkSampler(
-            popsize=8, nsteps=2, torch_loglike=_loglike_torch, device='cpu')
+            popsize=8, nsteps=2, torch_loglike=_loglike_torch, device='cpu',
+            mesh=object())
+    with pytest.raises(ValueError):
+        popfused.FusedPopulationSliceSampler(
+            popsize=8, nsteps=2, torch_loglike=_loglike_torch,
+            device='cpu', engine='rwalk')
+    for kw in (dict(engine='async'), dict(engine='sync'),
+               dict(spec_depth_auto=True)):
+        popfused.FusedPopulationSliceSampler(
+            popsize=8, nsteps=2, torch_loglike=_loglike_torch,
+            device='cpu', **kw)
+    popfused.FusedPopulationRandomWalkSampler(
+        popsize=8, nsteps=2, torch_loglike=_loglike_torch, device='cpu')
 
 
-def test_f32_count_overflow_is_refused():
-    with pytest.raises(OverflowError):
-        popfused.FusedPopulationSliceSampler._check_counts(2.0 ** 24, 1.0)
-    popfused.FusedPopulationSliceSampler._check_counts(2.0 ** 24 - 1, 1.0)
+def _forged_counts(nc, nu):
+    """An int64 (billed, useful) pair as a finished dispatch hands it."""
+    return start_fetch(torch.tensor([nc, nu], dtype=torch.int64))
+
+
+def test_counts_past_f32_exact_range_come_home_exact():
+    """A dispatch billing more than 2**24 evaluations keeps its count.
+
+    Float32 rounds 2**24 + 1 to 2**24; the counts travel as int64 beside
+    the float32 pack, through ``segment_fetch`` and the classic
+    ``_harvest`` alike.
+    """
+    from ultranest_torch.mlfriends import ScalingLayer, SimpleRegion
+    big, useful = 2 ** 24 + 1, 2 ** 24 + 3
+    assert float(np.float32(big)) != big
+    d, nlive = 2, 50
+    u, L, axes, tpack = _state(d, 7)
+    port = popfused.FusedPopulationSliceSampler(
+        popsize=P, nsteps=NSTEPS, torch_loglike=_loglike_torch,
+        spec_depth=D, seed=1, device='cpu')
+    port.segment_start(u, L)
+    layer = ScalingLayer()
+    layer.optimize(u.astype(float), u.astype(float))
+    region = SimpleRegion(u.astype(float), layer, device='cpu')
+    port.segment_launch(region)
+    handle, _, at_nsteps, reg = port._seg_queue.pop()
+    port._seg_queue.append((handle, _forged_counts(big, useful), at_nsteps,
+                            reg))
+    rec = port.segment_fetch()
+    assert (rec['nc'], rec['nc_useful']) == (big, useful)
+    assert (port.ncalls, port.ncalls_useful) == (big, useful)
+
+    port._pending = port._launch(region, float(np.sort(L)[5]),
+                                 u.astype(float), L.astype(float))
+    handle, _, us, at_nsteps = port._pending
+    port._pending = (handle, _forged_counts(big, useful), us, at_nsteps)
+    assert port._harvest(region, lambda x: x, _loglike_np,
+                         float(np.sort(L)[5])) == big
+    assert (port.ncalls, port.ncalls_useful) == (2 * big, 2 * useful)
 
 
 def test_banks_have_the_reference_layout():

@@ -6,11 +6,10 @@ Carrying region state across from the JAX package
 :func:`region_from_reference` rebuilds the port's transform layer and
 region from the arrays of a reference (``ultranest_tpu``) region, given
 as numpy, so that both packages filter candidates against the same
-region. :func:`spec_banks` and :func:`walk_inputs` move the random
-draws and the packed geometry of one reference spec-walk dispatch onto
-the port's device, so both walks run on the same state. Nothing here
-imports the reference: the caller passes its arrays (see
-:func:`reference_state`).
+region. :func:`walk_banks` and :func:`walk_inputs` move the random
+draws and the packed geometry of one reference walk dispatch onto the
+port's device, so both walks run on the same state. Nothing here imports the reference: the caller passes
+its arrays (see :func:`reference_state`).
 """
 
 import numpy as np
@@ -21,7 +20,7 @@ from .mlfriends import (AffineLayer, LocalAffineLayer, MLFriends,
                         WrappingEllipsoid)
 
 __all__ = ['reference_state', 'region_from_reference', 'live_from_state',
-           'spec_banks', 'walk_inputs']
+           'walk_banks', 'walk_inputs']
 
 _LAYERS = {'ScalingLayer': ScalingLayer, 'AffineLayer': AffineLayer,
            'LocalAffineLayer': LocalAffineLayer}
@@ -101,23 +100,23 @@ def live_from_state(state):
     return np.array(state['u']), np.array(state['live_L'])
 
 
-def spec_banks(xibank, i1, i2, jx, pick, idx0, device):
-    """The raw draws of one spec dispatch as the port's walk takes them.
+def walk_banks(device, **draws):
+    """Raw numpy draws of one walk dispatch as the port's walk takes them.
 
-    Arguments are numpy arrays in the layout of
-    :func:`ultranest_torch.popfused.draw_spec_banks` (the reference draws
-    them at ``ultranest_tpu/popfused.py:547-558``): float32 uniforms
-    ``xibank`` (max_rounds, P, D) and ``pick`` (nsteps, P), and the
-    integer draws ``i1``, ``i2``, ``jx`` (nsteps, P) and ``idx0`` (P,),
-    before ``i2`` is shifted past ``i1``.
+    Floats become float32 and integers int64 tensors on *device*, under
+    the keys of the port's ``draw_*_banks`` (``ultranest_torch.popfused``):
+    the sync engine's ``tbank`` (nsteps, max_it, P), the shrink uniforms
+    the reference draws inside its loops (``popfused.py:826-863``); the
+    spec walk's ``xibank`` (max_rounds, P, D) (the async engine's
+    ``tbank`` (max_rounds, P) goes in as ``xibank[..., None]``); the step
+    draws ``i1``, ``i2``, ``jx`` (nsteps, P) and ``idx0`` (P,), before
+    ``i2`` is shifted past ``i1``, and ``pick`` (nsteps, P)
+    (``popfused.py:547-558``); the random walk's ``eps`` (nsteps, P, d)
+    and ``idx0`` (``popfused.py:1603-1608``).
     """
-    def f32(a):
-        return torch.as_tensor(np.array(a, np.float32)).to(device)
-
-    def i64(a):
-        return torch.as_tensor(np.array(a, np.int64)).to(device)
-    return dict(xibank=f32(xibank), i1=i64(i1), i2=i64(i2), jx=i64(jx),
-                pick=f32(pick), idx0=i64(idx0))
+    return {k: torch.as_tensor(np.array(
+        a, np.float32 if np.asarray(a).dtype.kind == 'f' else np.int64)
+    ).to(device) for k, a in draws.items()}
 
 
 def walk_inputs(axes, tpack, treg, device):

@@ -15,12 +15,15 @@ in segment mode (the default on a CUDA device) each dispatch also
 consumes its batch into the device live set (kernel K3), and the host
 replays the records. Region rebuilds bootstrap the MLFriends radius in
 kernel K2 on the same device. A step sampler set as ``sampler.stepsampler``
-(:class:`ultranest_torch.popfused.FusedPopulationSliceSampler`) takes
+(:class:`ultranest_torch.popfused.FusedPopulationSliceSampler` with its
+spec, async and sync engines, or
+:class:`ultranest_torch.popfused.FusedPopulationRandomWalkSampler`) takes
 the place of the region proposal, with the same segment path. Accepted
 points are re-checked in f64 on the host before they enter the tree.
 
 Not ported yet: ``NestedSampler``, ``read_file``, warm starts and
-resume-similar, ``plot()`` and multi-device runs.
+resume-similar, ``plot()``, the host step samplers of ``stepsampler.py``
+and multi-device runs.
 """
 
 import json

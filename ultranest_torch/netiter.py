@@ -396,7 +396,9 @@ class SingleCounter:
     def _logw_append(self, w):
         buf, n = self._logw_buf, self._logw_n
         if n >= len(buf):
-            grown = np.empty(2 * len(buf))
+            # at least 16: the setter may leave an empty buffer (the
+            # reference grows 2 * 0 there and raises, netiter.py:519)
+            grown = np.empty(max(2 * len(buf), 16))
             grown[:n] = buf[:n]
             self._logw_buf = buf = grown
         buf[n] = w
@@ -516,7 +518,7 @@ class MultiCounter:
     def _logw_append(self, row):
         buf, n = self._logw_buf, self._logw_n
         if n >= len(buf):
-            grown = np.empty((2 * len(buf), buf.shape[1]))
+            grown = np.empty((max(2 * len(buf), 16), buf.shape[1]))
             grown[:n] = buf[:n]
             self._logw_buf = buf = grown
         buf[n] = row

@@ -1,41 +1,53 @@
 # noqa: D400 D205
 """
-Device-resident population slice sampler
-----------------------------------------
+Device-resident population samplers
+-----------------------------------
 
-Counterpart of ``ultranest_tpu/popfused.py`` with ``engine='spec'``, on
-one device. A whole walker population advances through all its slice
-steps in one dispatch, with the batched likelihood called once per
-shrink round on (popsize x spec_depth) rows; one dispatch yields
-``popsize`` independent samples.
+Counterpart of ``ultranest_tpu/popfused.py`` on one device. A whole
+walker population advances through all its steps in one dispatch, with
+the batched likelihood called once per round on every walker's rows;
+one dispatch yields ``popsize`` independent samples. Four walks:
 
-The reference runs the walk as one ``lax.while_loop`` whose condition
-lives on the device. Eager torch has no device-side loop, so here the
-rounds are a host loop of torch ops (:func:`spec_walk`), and the host
-reads the "all walkers done" flag once every :data:`SPEC_CHECK_EVERY`
-rounds, through a pinned copy and a CUDA event, one check behind the
-rounds already queued (the card never waits for that read). Extra rounds
-after every walker is done are exact no-ops: every state update is
-masked by ``~done`` or ``anyhit``, and the round counter is not an
-output. So the results are the reference's, bit for bit in the integer
-outputs, and no round past ``max_rounds`` ever runs.
+* ``engine='spec'`` (:func:`spec_walk`): each round evaluates a
+  depth-``spec_depth`` precomputed shrink chain per walker;
+* ``engine='async'``: the same walk at depth 1, one candidate per
+  walker per round, walkers at independent steps;
+* ``engine='sync'`` (:func:`sync_walk`): all walkers in lockstep per
+  step, a shrink loop per step;
+* :class:`FusedPopulationRandomWalkSampler` (:func:`rwalk_walk`):
+  Gaussian Metropolis steps in region-axes space.
 
-All randomness of a dispatch is drawn up front (:func:`draw_spec_banks`)
-from a ``torch.Generator`` on the sampler's device, seeded per dispatch
-from the host PCG64 stream the reference draws its per-dispatch keys
-from. The walk takes those banks as inputs, so a test can feed it the
+The reference runs its shrink loops as ``lax.while_loop`` with the
+condition on the device. Eager torch has no device-side loop, so here
+the rounds are a host loop of torch ops (:func:`_drive`). The spec and
+async walks read the loop's "done" flag once every
+:data:`SPEC_CHECK_EVERY` rounds, through a pinned copy and a CUDA event,
+one check behind the rounds already queued (the card never waits for
+that read); a sync step reads its flag once every
+:data:`SYNC_CHECK_EVERY` shrink iterations with no lag. Extra rounds
+after the flag turned true are exact no-ops: every state update and
+every billed count is masked by it. So the results are the reference's, bit
+for bit in the integer outputs, and no round past the cap ever runs.
+
+All randomness of a dispatch is drawn up front (``draw_*_banks``) from a
+``torch.Generator`` on the sampler's device, seeded per dispatch from
+the host PCG64 stream the reference draws its per-dispatch keys from.
+The walks take those banks as inputs, so a test can feed them the
 reference's own draws.
 
-Not ported yet, each raising ``NotImplementedError`` that names its
-ROADMAP item: the ``async`` and ``sync`` engines and
-:class:`FusedPopulationRandomWalkSampler` (queue A item 9), ``mesh=``
-(item 13) and the spec-depth probe (``spec_depth_auto``, item 9). The
-doubled-nsteps prewarm thread and the fingerprint-keyed kernel cache
-have no counterpart: eager torch does not compile per shape.
+Each dispatch's billed and useful evaluation counts travel home as an
+int64 pair beside the float32 result, so they stay exact past 2**24
+(the reference rounds them to float32).
+
+Not ported yet: ``mesh=`` (ROADMAP queue A item 13), which raises
+``NotImplementedError``. The doubled-nsteps prewarm thread and the
+fingerprint-keyed kernel cache have no counterpart: eager torch does
+not compile per shape.
 """
 
 import logging
 import math
+import time
 
 import numpy as np
 import torch
@@ -52,15 +64,58 @@ from .segmentops import (consume_scan, pack_segment, whitened_cloud_var,
                          whitened_jump2)
 
 __all__ = ['FusedPopulationSliceSampler', 'FusedPopulationRandomWalkSampler',
-           'draw_spec_banks', 'spec_walk', 'spec_max_rounds',
-           'SPEC_CHECK_EVERY']
+           'draw_spec_banks', 'draw_sync_banks', 'draw_rwalk_banks',
+           'spec_walk', 'sync_walk', 'rwalk_walk', 'spec_max_rounds',
+           'optimal_spec_depth', 'SPEC_CHECK_EVERY', 'SYNC_CHECK_EVERY',
+           'ROUND_OVERHEAD_S']
 
-# rounds between two host reads of the walk's "all done" flag
+# rounds between two host reads of a walk's "done" flag
 SPEC_CHECK_EVERY = 8
-# the billed and useful counts travel home as float32
-F32_EXACT_COUNT = 2 ** 24
+# shrink iterations between two host reads of a sync step's flag, read
+# with no lag: each step ends in a read anyway. On an NVIDIA H100 80GB
+# HBM3 at a 700 W power limit, sync at d 8 (popsize 128, nsteps 16, 200
+# live points) took 2.09-2.20 s at 2, 2.00-2.52 s at 4, 2.31-2.33 s at
+# 1 and 3.70-4.15 s read every 8 one check behind, with equal results.
+SYNC_CHECK_EVERY = 2
+# Fixed cost of one spec-walk round on the card, the A of
+# optimal_spec_depth: the host enqueue of the round's ~115 torch ops,
+# which the device (idle ~90% of the time) never hides. Measured as the
+# segment launch phase summed over the spec-walk bench problems
+# (asymgauss50, rosenbrock8, multishell8, loggamma30, gauss100, as
+# chip_smoke.py runs them) over their rounds: 97.43 s over 51 616
+# rounds, 1.888 ms per round (1.68-2.36 ms per problem) on an NVIDIA
+# H100 80GB HBM3 at a 700 W power limit. The reference's 350 us was
+# taken on a TPU.
+ROUND_OVERHEAD_S = 1.888e-3
 
 _LOG = logging.getLogger('ultranest_torch.popfused')
+# likelihood-cost probe results: (loglike, transform, popsize, x_dim,
+# device) -> seconds per popsize-row batch
+_PROBE_CACHE = {}
+
+
+def optimal_spec_depth(t_row_s, dmax, round_overhead_s=ROUND_OVERHEAD_S,
+                       p_accept=0.35, min_win=0.8):
+    """Speculation depth minimizing device time per accepted slice step.
+
+    The reference's model (``popfused.py:43-76``): one round costs
+    ``A + D * t_row`` and completes a walker's step with probability
+    ``1 - (1 - p)**D``, so the cost per completed step is::
+
+        cost(D) = (A + D * t_row) / (1 - (1 - p)**D)
+
+    A smaller depth than *dmax* is returned only when its modeled cost
+    beats *dmax*'s by at least ``1/min_win``: near-ties keep the user's
+    configuration. The default ``A`` is the port's measured round cost
+    (:data:`ROUND_OVERHEAD_S`), not the reference's TPU figure.
+    """
+    q = 1.0 - p_accept
+    cost = {d: (round_overhead_s + d * t_row_s) / (1.0 - q ** d)
+            for d in range(1, int(dmax) + 1)}
+    best = min(cost, key=cost.get)
+    if best < dmax and cost[best] < min_win * cost[dmax]:
+        return best
+    return int(dmax)
 
 
 def spec_max_rounds(nsteps, max_it, depth):
@@ -73,14 +128,26 @@ def spec_max_rounds(nsteps, max_it, depth):
     return nsteps * max(4, (max_it + depth - 1) // depth)
 
 
-def draw_spec_banks(generator, P, D, nsteps, max_rounds, nlive, x_dim):
-    """All random draws of one spec dispatch, on the generator's device.
+def _step_draws(g, dev, nsteps, P, nlive, x_dim):
+    """The direction draws of every step (``popfused.py:548-555``)."""
+    return dict(
+        i1=torch.randint(0, nlive, (nsteps, P), generator=g, device=dev),
+        i2=torch.randint(0, max(nlive - 1, 1), (nsteps, P), generator=g,
+                         device=dev),
+        jx=torch.randint(0, x_dim, (nsteps, P), generator=g, device=dev),
+        pick=torch.rand((nsteps, P), generator=g, device=dev))
 
-    Returns a dict of raw draws, as the reference makes them
-    (``popfused.py:547-558``) before any use:
+
+def draw_spec_banks(generator, P, D, nsteps, max_rounds, nlive, x_dim):
+    """All random draws of one spec (or async) dispatch.
+
+    Returns a dict of raw draws on the generator's device, as the
+    reference makes them (``popfused.py:547-558``, ``:736-747``) before
+    any use:
 
     * ``xibank`` (max_rounds, P, D) float32 uniforms: the D speculative
-      slice positions of every walker in each round;
+      slice positions of every walker in each round (the async engine's
+      ``tbank`` is the D = 1 case);
     * ``i1`` (nsteps, P) in [0, nlive) and ``i2`` (nsteps, P) in
       [0, nlive - 1): the differential-evolution pair of each step
       (the walk shifts ``i2 >= i1`` up by one);
@@ -89,14 +156,53 @@ def draw_spec_banks(generator, P, D, nsteps, max_rounds, nlive, x_dim):
     * ``idx0`` (P,) in [0, nlive): each walker's start.
     """
     g, dev = generator, generator.device
+    banks = dict(xibank=torch.rand((max_rounds, P, D), generator=g,
+                                   device=dev))
+    banks.update(_step_draws(g, dev, nsteps, P, nlive, x_dim))
+    banks['idx0'] = torch.randint(0, nlive, (P,), generator=g, device=dev)
+    return banks
+
+
+def draw_sync_banks(generator, P, nsteps, max_it, nlive, x_dim):
+    """All random draws of one sync dispatch (``popfused.py:821-863``).
+
+    The step draws ``i1``, ``i2``, ``jx``, ``pick`` and ``idx0`` as in
+    :func:`draw_spec_banks`, and ``tbank`` (nsteps, max_it, P) float32
+    uniforms: the slice position of every walker in each shrink
+    iteration of each step (the reference splits a key per iteration
+    inside its loop).
+    """
+    g, dev = generator, generator.device
+    banks = dict(tbank=torch.rand((nsteps, max_it, P), generator=g,
+                                  device=dev))
+    banks.update(_step_draws(g, dev, nsteps, P, nlive, x_dim))
+    banks['idx0'] = torch.randint(0, nlive, (P,), generator=g, device=dev)
+    return banks
+
+
+def draw_rwalk_banks(generator, P, nsteps, nlive, x_dim):
+    """All random draws of one random-walk dispatch (``popfused.py:1603-1608``).
+
+    ``eps`` (nsteps, P, x_dim) standard normal proposal noise and
+    ``idx0`` (P,) in [0, nlive), each walker's start.
+    """
+    g, dev = generator, generator.device
     return dict(
-        xibank=torch.rand((max_rounds, P, D), generator=g, device=dev),
-        i1=torch.randint(0, nlive, (nsteps, P), generator=g, device=dev),
-        i2=torch.randint(0, max(nlive - 1, 1), (nsteps, P), generator=g,
-                         device=dev),
-        jx=torch.randint(0, x_dim, (nsteps, P), generator=g, device=dev),
-        pick=torch.rand((nsteps, P), generator=g, device=dev),
+        eps=torch.randn((nsteps, P, x_dim), generator=g, device=dev),
         idx0=torch.randint(0, nlive, (P,), generator=g, device=dev))
+
+
+def _direction_bank(banks, live_u, axes, scale):
+    """(nsteps, P, d) direction of every walker's every step.
+
+    A 50/50 mix of differential-evolution pairs and region axes, scaled
+    (``popfused.py:549-556``).
+    """
+    i1 = banks['i1']
+    i2 = torch.where(banks['i2'] >= i1, banks['i2'] + 1, banks['i2'])
+    dirbank = torch.where((banks['pick'] < 0.5)[..., None],
+                          live_u[i1] - live_u[i2], axes[banks['jx']])
+    return dirbank.mul_(scale)
 
 
 def _cube_intersection(u, v):
@@ -130,6 +236,42 @@ def _finish_flag(handle):
     return bool(host)
 
 
+def _median(x):
+    """``jnp.median`` of a 1-d tensor: the midpoint of the middle pair."""
+    s = torch.sort(x).values
+    n = s.shape[0]
+    return (s[(n - 1) // 2] + s[n // 2]) * 0.5
+
+
+def _drive(body, state, max_rounds, finished, every=1, lagged=False):
+    """Host loop standing in for the reference's ``lax.while_loop``.
+
+    Runs ``state = body(it, *state)`` for ``it = 0, 1, ...`` until the
+    0-d bool tensor ``finished(state)`` reads True, or *max_rounds*
+    rounds ran. The flag is read once every *every* rounds; with
+    *lagged*, on a card, one check behind the rounds already queued, so
+    the card never waits for the read. Unless *every* is 1 and *lagged*
+    is false, rounds run past the flag and must be exact no-ops.
+
+    Returns ``(state, reads, rounds)``: the blocking host reads made and
+    the rounds run, no-op rounds included.
+    """
+    lag = 1 if lagged and state[0].device.type == 'cuda' else 0
+    flags = []
+    reads = 0
+    it = 0
+    while it < max_rounds:
+        for _ in range(min(every, max_rounds - it)):
+            state = body(it, *state)
+            it += 1
+        flags.append(_start_flag(finished(state)))
+        if len(flags) > lag:
+            reads += 1
+            if _finish_flag(flags.pop(0)):
+                break
+    return state, reads, it
+
+
 def spec_walk(banks, live_u, live_L, nlive, axes, Lmin, scale, evaluate,
               nsteps, target_done=None, stats=None):
     """Speculative-shrink population walk (``popfused.py:538-650``).
@@ -138,7 +280,9 @@ def spec_walk(banks, live_u, live_L, nlive, axes, Lmin, scale, evaluate,
     value, so the next D candidate positions of every walker's shrink
     chain are known in advance and evaluated in ONE batched likelihood
     call per round; the first candidate above *Lmin* wins, and the
-    accepted chain is exactly the sequential sampler's.
+    accepted chain is exactly the sequential sampler's. At D = 1 this is
+    the async engine's walk (``popfused.py:697-812``): one row per
+    walker per round, shrinking on rejection.
 
     Parameters
     ----------
@@ -171,7 +315,7 @@ def spec_walk(banks, live_u, live_L, nlive, axes, Lmin, scale, evaluate,
     -------
     uf, Lf, done, idx0, nc, nuseful, width: final points (P, d), their
     likelihoods, completion flags, start indices, billed and useful
-    evaluation counts (0-d float32) and the mean slice width (0-d
+    evaluation counts (0-d int64) and the mean slice width (0-d
     float32)
     """
     xibank = banks['xibank']
@@ -179,12 +323,7 @@ def spec_walk(banks, live_u, live_L, nlive, axes, Lmin, scale, evaluate,
     dev = live_u.device
     if target_done is None:
         target_done = P
-    i1 = banks['i1']
-    i2 = torch.where(banks['i2'] >= i1, banks['i2'] + 1, banks['i2'])
-    v_de = live_u[i1] - live_u[i2]
-    v_ax = axes[banks['jx']]
-    dirbank = torch.where((banks['pick'] < 0.5)[..., None], v_de,
-                          v_ax) * scale
+    dirbank = _direction_bank(banks, live_u, axes, scale)
     idx0 = banks['idx0']
     u = live_u[idx0]
     L = live_L[idx0]
@@ -252,31 +391,128 @@ def spec_walk(banks, live_u, live_L, nlive, axes, Lmin, scale, evaluate,
         tr = torch.where(renew, trn, tr)
         return u, L, v, tl, tr, step, done, widths, nw, ncr, nur
 
-    # Only with every walker required to finish are extra rounds no-ops;
-    # then the host reads the flag every SPEC_CHECK_EVERY rounds, one
-    # check behind on a card so that the next rounds are already queued.
+    # Only with every walker required to finish are extra rounds no-ops
+    # (every update is masked by ~done or anyhit)
     exact = target_done < P
-    k = 1 if exact else SPEC_CHECK_EVERY
-    lag = 1 if (dev.type == 'cuda' and not exact) else 0
-    flags = []
-    reads = 0
-    it = 0
-    state = (u, L, v, tl, tr, step, done, widths, nw, ncr, nur)
-    while it < max_rounds:
-        for _ in range(min(k, max_rounds - it)):
-            state = round_body(it, *state)
-            it += 1
-        flags.append(_start_flag(state[6].sum() >= target_done))
-        if len(flags) > lag:
-            reads += 1
-            if _finish_flag(flags.pop(0)):
-                break
+    state, reads, rounds = _drive(
+        round_body, (u, L, v, tl, tr, step, done, widths, nw, ncr, nur),
+        max_rounds, lambda st: st[6].sum() >= target_done,
+        every=1 if exact else SPEC_CHECK_EVERY, lagged=not exact)
     if stats is not None:
-        stats.update(reads=reads, rounds=it)
+        stats.update(reads=reads, rounds=rounds)
     uf, Lf, _, tl, tr, step, done, widths, nw, ncr, nur = state
     width = widths / torch.clamp(nw, min=1)
-    return (uf, Lf, done, idx0, ncr.to(torch.float32),
-            nur.to(torch.float32), width)
+    return uf, Lf, done, idx0, ncr, nur, width
+
+
+def sync_walk(banks, live_u, live_L, axes, Lmin, scale, evaluate,
+              stats=None):
+    """Lockstep population walk (``popfused.py:814-877``).
+
+    Every walker takes its step s before any takes step s + 1: per step,
+    a direction and a full chord through the cube, then a shrink loop
+    that evaluates one row per walker per iteration until every walker
+    accepted or ``max_it`` iterations ran. Walkers that never accept
+    keep their point. Every iteration bills all P rows the p-space
+    filter lets through, finished walkers included, as the reference
+    does. The host reads a step's flag once every
+    :data:`SYNC_CHECK_EVERY` iterations, waiting for them: ``reads ==
+    rounds // SYNC_CHECK_EVERY`` while that divides ``max_it``.
+
+    *banks* are the draws of :func:`draw_sync_banks`; the other
+    arguments are as for :func:`spec_walk`. Returns ``uf, Lf, done,
+    idx0, nc, nuseful, width, acc_rate``: ``done`` all True,
+    ``nuseful == nc`` (0-d int64; lockstep rounds evaluate no
+    speculative rows), ``width`` the mean over steps of each step's
+    median final bracket and ``acc_rate`` the mean over steps of the
+    accepting fraction.
+    """
+    tbank = banks['tbank']
+    nsteps, max_it, P = tbank.shape
+    dev = live_u.device
+    dirbank = _direction_bank(banks, live_u, axes, scale)
+    idx0 = banks['idx0']
+    u = live_u[idx0]
+    L = live_L[idx0]
+    nc = torch.zeros((), dtype=torch.int64, device=dev)
+    acc_rates, widths = [], []
+    reads = rounds = 0
+    for s in range(nsteps):
+        v = dirbank[s]
+        tl, tr = _cube_intersection(u, v)
+
+        def shrink(it, tlc, trc, unew, Lnew, done, nc, t0=tbank[s], u=u,
+                   v=v):
+            # the reference's loop ends once every walker accepted; the
+            # rounds past that point bill nothing and change nothing
+            running = ~done.all()
+            t = tlc + t0[it] * (trc - tlc)
+            up = u + t[:, None] * v
+            Lp, tin = evaluate(up)
+            billed = P if tin is None else tin.sum()
+            nc = nc + running * billed
+            acc = (Lp > Lmin) & ~done
+            unew = torch.where(acc[:, None], up, unew)
+            Lnew = torch.where(acc, Lp, Lnew)
+            done = done | acc
+            rej = ~done
+            tlc = torch.where(rej & (t < 0), t, tlc)
+            trc = torch.where(rej & (t >= 0), t, trc)
+            return tlc, trc, unew, Lnew, done, nc
+
+        done = torch.zeros(P, dtype=torch.bool, device=dev)
+        (tlf, trf, u, L, done, nc), r, n = _drive(
+            shrink, (tl, tr, u, L, done, nc), max_it,
+            lambda st: st[4].all(), every=SYNC_CHECK_EVERY)
+        reads += r
+        rounds += n
+        acc_rates.append(done.to(torch.float32).mean())
+        widths.append(_median(trf - tlf))
+    if stats is not None:
+        stats.update(reads=reads, rounds=rounds)
+    done = torch.ones(P, dtype=torch.bool, device=dev)
+    return (u, L, done, idx0, nc, nc, torch.stack(widths).mean(),
+            torch.stack(acc_rates).mean())
+
+
+def rwalk_walk(banks, live_u, live_L, axes, Lmin, scale, evaluate,
+               stats=None):
+    """Population Metropolis random walk (``popfused.py:1602-1631``).
+
+    Each of the ``nsteps`` steps proposes ``u + scale * eps @ axes.T``
+    for every walker (``eps`` from :func:`draw_rwalk_banks`) and accepts
+    proposals inside the unit cube above *Lmin*. The loop has a fixed
+    trip count, so the host reads nothing. The matmul runs in full
+    float32 (TF32 stays off).
+
+    Returns ``uf, Lf, done, idx0, nc, nuseful, acc_rate``: ``done`` all
+    True, ``nuseful == nc`` (0-d int64; proposals outside the cube are
+    not billed) and the acceptance rate (0-d float32).
+    """
+    eps = banks['eps']
+    nsteps, P, _ = eps.shape
+    dev = live_u.device
+    idx0 = banks['idx0']
+    u = live_u[idx0]
+    L = live_L[idx0]
+    nacc = torch.zeros((), dtype=torch.int64, device=dev)
+    nc = torch.zeros((), dtype=torch.int64, device=dev)
+    axes_t = axes.T
+    for s in range(nsteps):
+        up = u + scale * (eps[s] @ axes_t)
+        inside = ((up > 0) & (up < 1)).all(dim=1)
+        Lev, tin = evaluate(up)
+        Lp = torch.where(inside, Lev, -math.inf)
+        acc = inside & (Lp > Lmin)
+        u = torch.where(acc[:, None], up, u)
+        L = torch.where(acc, Lp, L)
+        nacc = nacc + acc.sum()
+        nc = nc + (inside if tin is None else inside & tin).sum()
+    if stats is not None:
+        stats.update(reads=0, rounds=nsteps)
+    acc_rate = nacc.to(torch.float32) / float(P * nsteps)
+    done = torch.ones(P, dtype=torch.bool, device=dev)
+    return u, L, done, idx0, nc, nc, acc_rate
 
 
 class FusedPopulationSliceSampler(GenericPopulationSampler):
@@ -286,7 +522,7 @@ class FusedPopulationSliceSampler(GenericPopulationSampler):
     differential-evolution pairs and region principal axes), intersects
     it with the unit cube, and shrink-samples its slice until it finds a
     point above the threshold. All walkers and all steps run in one
-    dispatch (:func:`spec_walk`).
+    dispatch.
 
     Parameters
     ----------
@@ -310,30 +546,35 @@ class FusedPopulationSliceSampler(GenericPopulationSampler):
     seed: int
         seed of the host stream the per-dispatch generator seeds come from
     engine: str
-        only 'spec' is ported: each round evaluates a depth-``spec_depth``
-        precomputed shrink chain per walker in one batched call
+        'spec' (default, :func:`spec_walk`): each round evaluates a
+        depth-``spec_depth`` precomputed shrink chain per walker in one
+        batched call, fewest rounds;
+        'async': walkers advance at independent steps, one likelihood
+        row per walker per round, fewest evaluations (the spec walk at
+        depth 1);
+        'sync' (:func:`sync_walk`): all walkers in lockstep per step.
     harvest_frac: float
-        end the dispatch when this fraction of walkers completed their
-        chains. Values below 1.0 bias logZ (the reference's warning) and
-        exclude segment mode.
+        spec and async engines: end the dispatch when this fraction of
+        walkers completed their chains. Values below 1.0 bias logZ (the
+        reference's warning) and exclude segment mode.
     spec_depth: int
-        candidates per walker per round
+        candidates per walker per round of the spec engine
     adaptive_nsteps: bool
         govern the chain length online from the jump-distance and
         insertion-rank diagnostics (see :meth:`_adapt_nsteps`,
         :meth:`observe_insertion_ranks`)
     max_nsteps: int
         adaptation ceiling
-    spec_depth_auto: None or False
-        the reference's likelihood-cost probe that may lower
-        ``spec_depth`` on accelerators. Its round-overhead constant
-        (350 us) was measured on a TPU, so the port keeps the
-        configured depth; True raises until the probe is re-derived
-        for the GPU (ROADMAP queue A item 9).
+    spec_depth_auto: None or bool
+        the likelihood-cost probe (:meth:`_resolve_spec_depth`) that may
+        lower ``spec_depth`` once, before the first dispatch, when the
+        likelihood is expensive enough; None runs it on a CUDA device
+        only, True and False force it on or off
     device: str or torch.device
         where the walk and the live set of segment mode live
     """
 
+    ENGINES = ('spec', 'async', 'sync')
     # rows handed to the integrator per __next__ call
     HANDOFF_CHUNK = 64
     # GM relative jump must reach this fraction of the decorrelated
@@ -352,18 +593,13 @@ class FusedPopulationSliceSampler(GenericPopulationSampler):
                  engine='spec', harvest_frac=1.0, spec_depth=8, mesh=None,
                  axis_name=None, adaptive_nsteps=False, max_nsteps=1000,
                  spec_depth_auto=None, device='cuda'):
-        if engine != 'spec':
-            raise NotImplementedError(
-                "engine=%r is not ported to ultranest_torch yet (ROADMAP "
-                "queue A item 9); use engine='spec'" % (engine,))
+        if engine not in self.ENGINES:
+            raise ValueError('engine must be one of %s, not %r'
+                             % (self.ENGINES, engine))
         if mesh is not None or axis_name is not None:
             raise NotImplementedError(
                 'mesh= is not ported to ultranest_torch yet (ROADMAP '
                 'queue A item 13)')
-        if spec_depth_auto:
-            raise NotImplementedError(
-                'spec_depth_auto: the likelihood-cost probe is not ported '
-                'to ultranest_torch yet (ROADMAP queue A item 9)')
         self.popsize = popsize
         self.nsteps = nsteps
         self.nsteps_min = nsteps
@@ -381,12 +617,15 @@ class FusedPopulationSliceSampler(GenericPopulationSampler):
         self.harvest_frac = harvest_frac
         self.spec_depth = spec_depth
         self.spec_depth_auto = spec_depth_auto
+        self._depth_resolved = False
         self._pending = None
         self._last_yield = 0
         self._buf = None
         self._buf_i = 0
         self._buf_sufmax = None
         self.torch_loglike = torch_loglike
+        # the transform as given: the probe's memo key
+        self._user_transform = torch_transform
         self.torch_transform = torch_transform if torch_transform is not None \
             else (lambda u: u)
         self.scale = float(scale)
@@ -411,7 +650,7 @@ class FusedPopulationSliceSampler(GenericPopulationSampler):
         # (has_tregion, num_params): whether the walk fuses the p-space
         # wrapping-ellipsoid filter
         self._treg_key = (False, 0)
-        # host reads and rounds of every walk, in dispatch order
+        # nsteps, host reads and rounds of every walk, in dispatch order
         self.walk_log = []
 
     def __str__(self):
@@ -527,34 +766,136 @@ class FusedPopulationSliceSampler(GenericPopulationSampler):
         axes = np.asarray(region.transformLayer.axes, np.float32)
         return np.diag(axes) if axes.ndim == 1 else axes
 
-    def _max_rounds(self):
-        return spec_max_rounds(self.nsteps, self.max_it, self.spec_depth)
+    # --- the likelihood-cost probe ---------------------------------------
 
-    def _draw_banks(self, nlive, x_dim):
+    def _probe_likelihood_cost(self, x_dim):
+        """Warm device cost of the likelihood per (popsize, x_dim) batch.
+
+        Times one call of the transform and likelihood on the rows a
+        spec round evaluates at the configured depth (popsize x
+        spec_depth), the best of three after a warm-up call, and divides
+        by the depth: CUDA events on a card, the host clock on the CPU.
+        Returns seconds. The reference instead times ``reps`` popsize-row
+        batches in one jitted loop and subtracts a null dispatch's
+        latency; here a spec round's rows go in one call, so their
+        batch's cost is the one a round pays, and the events also hold
+        any wait of the card for the host's enqueue of the likelihood's
+        ops (ROADMAP §C).
+        """
+        D = self.spec_depth
+        ll, tr = self.torch_loglike, self.torch_transform
+        u = torch.full((self.popsize * D, x_dim), 0.5, dtype=torch.float32,
+                       device=self.device)
+        on_card = self.device.type == 'cuda'
+        best = math.inf
+        for i in range(4):
+            if on_card:
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                ll(tr(u))
+                end.record()
+                end.synchronize()
+                t = start.elapsed_time(end) * 1e-3
+            else:
+                t0 = time.perf_counter()
+                ll(tr(u))
+                t = time.perf_counter() - t0
+            if i:               # the first call warms caches and allocator
+                best = min(best, t)
+        return best / D
+
+    def _resolve_spec_depth(self, x_dim):
+        """One-time auto-tune of ``spec_depth`` before the first dispatch.
+
+        Probes the likelihood's per-batch device cost and lowers the
+        speculation depth when the billed extra rows cost more than the
+        rounds they save (:func:`optimal_spec_depth`,
+        ``popfused.py:408-451``). The probe runs once per (likelihood,
+        transform, popsize, x_dim, device) in a process.
+        """
+        if self._depth_resolved:
+            return
+        self._depth_resolved = True
+        auto = self.spec_depth_auto
+        if auto is None:
+            auto = self.device.type == 'cuda'
+        if not auto or self.engine != 'spec' or self.spec_depth <= 1:
+            return
+        memo = (self.torch_loglike, self._user_transform, self.popsize,
+                x_dim, self.spec_depth, self.device)
+        t_row = _PROBE_CACHE.get(memo)
+        if t_row is None:
+            try:
+                t_row = self._probe_likelihood_cost(x_dim)
+            except Exception:
+                # an unprobeable likelihood keeps the configured depth
+                _LOG.warning('spec_depth probe failed; keeping depth %d',
+                             self.spec_depth, exc_info=True)
+                return
+            _PROBE_CACHE[memo] = t_row
+        d = optimal_spec_depth(t_row, self.spec_depth)
+        if d < self.spec_depth:
+            _LOG.info('spec_depth auto-tuned %d -> %d (likelihood batch '
+                      'cost %.3f ms)', self.spec_depth, d, 1e3 * t_row)
+            if self.logfile:
+                self.logfile.write('spec-depth\t%d\t%d\t%g\n'
+                                   % (self.spec_depth, d, t_row))
+            self.spec_depth = d
+
+    # --- the walks ----------------------------------------------------------
+
+    def _draw_banks(self, nlive, x_dim, segment=True):
+        """Seed the generator and draw one dispatch's banks.
+
+        The async engine's classic walk caps its rounds at ``max_it *
+        nsteps`` (``popfused.py:721``); in segment mode it is the spec
+        walk at depth 1 with the spec cap (``popfused.py:1236-1241``).
+        """
         self._seed_dispatch()
-        return draw_spec_banks(self._gen, self.popsize, self.spec_depth,
-                               self.nsteps, self._max_rounds(), nlive, x_dim)
+        P, n, g = self.popsize, self.nsteps, self._gen
+        if self.engine == 'sync':
+            return draw_sync_banks(g, P, n, self.max_it, nlive, x_dim)
+        D = 1 if self.engine == 'async' else self.spec_depth
+        max_rounds = self.max_it * n if self.engine == 'async' \
+            and not segment else spec_max_rounds(n, self.max_it, D)
+        return draw_spec_banks(g, P, D, n, max_rounds, nlive, x_dim)
 
     def _walk(self, banks, live_u, live_L, nlive, axes, Lmin, scale, treg):
-        """:func:`spec_walk` with this sampler's evaluator and settings."""
+        """This engine's walk with this sampler's evaluator and settings.
+
+        Returns ``uf, Lf, done, idx0, nc, nuseful, width, efficiency``:
+        the walk-only convention of the reference's segment kernels
+        (``popfused.py:1187-1201``) and the classic harvest's efficiency
+        slot (the done fraction; sync: the mean accepting fraction).
+        """
         ev = self._treg_eval()
-        target = max(1, int(np.ceil(self.harvest_frac * self.popsize)))
-        stats = {}
+        stats = dict(nsteps=self.nsteps)
         self.walk_log.append(stats)
-        return spec_walk(banks, live_u, live_L, nlive, axes, Lmin,
-                         _f32(scale), lambda rows: ev(rows, treg),
-                         self.nsteps, target_done=target, stats=stats)
+
+        def evaluate(rows):
+            return ev(rows, treg)
+        if self.engine == 'sync':
+            return sync_walk(banks, live_u, live_L, axes, Lmin, _f32(scale),
+                             evaluate, stats=stats)
+        target = max(1, int(np.ceil(self.harvest_frac * self.popsize)))
+        out = spec_walk(banks, live_u, live_L, nlive, axes, Lmin,
+                        _f32(scale), evaluate, self.nsteps,
+                        target_done=target, stats=stats)
+        return out + (out[2].to(torch.float32).mean(),)
 
     def _run_segment(self, banks, live_u, live_L, nlive, axes, scale, treg,
                      tpack):
-        """Walk + on-device consumption (``popfused.py:1216-1232``).
+        """Walk + on-device consumption (``popfused.py:1203-1234``).
 
         Each chain's whitened squared travel distance (end vs the
         ``live_u[idx0]`` start, read before the consume scan changes the
-        live set) travels home as one trailing record column.
+        live set) travels home as one trailing record column. Returns
+        the new live state, the packed records and the exact int64
+        (billed, useful) counts.
         """
         Lmin0 = live_L.min()          # padding is +inf
-        uf, Lf, done, idx0, nc, nu, width = self._walk(
+        uf, Lf, done, idx0, nc, nu, width, _ = self._walk(
             banks, live_u, live_L, nlive, axes, Lmin0, scale, treg)
         jump2 = whitened_jump2(live_u[idx0], uf, tpack)
         # decorrelation normalizer from the live cloud the chains
@@ -564,18 +905,10 @@ class FusedPopulationSliceSampler(GenericPopulationSampler):
         donef = done.to(torch.float32)
         live_u2, live_L2, recs = consume_scan(live_u, live_L, uf, Lf, donef)
         recs = torch.cat([recs, jump2[:, None]], dim=1)
-        packed = pack_segment(uf, Lf, recs, nc, donef.mean(), width,
-                              nuseful=nu, ref2=ref2)
-        return live_u2, live_L2, packed
-
-    @staticmethod
-    def _check_counts(nc, nuseful):
-        """The f32 count slots are exact below 2**24: refuse to lose counts."""
-        if max(nc, nuseful) >= F32_EXACT_COUNT:
-            raise OverflowError(
-                'a dispatch billed %d evaluations: float32 counts are '
-                'exact only below 2**24; lower popsize or spec_depth'
-                % max(nc, nuseful))
+        packed = pack_segment(uf, Lf, recs, nc.to(torch.float32),
+                              donef.mean(), width,
+                              nuseful=nu.to(torch.float32), ref2=ref2)
+        return live_u2, live_L2, packed, torch.stack([nc, nu])
 
     # --- classic mode ---------------------------------------------------
 
@@ -586,22 +919,25 @@ class FusedPopulationSliceSampler(GenericPopulationSampler):
         while the integrator consumes the current buffer.
         """
         nlive, ndim = us.shape
+        self._resolve_spec_depth(ndim)
         npad = round_up(nlive)
         self._sync_treg_key(tregion)
         live_u, live_L, axes, treg = self._upload(
             pad_rows(np.asarray(us, np.float32), npad),
             pad_rows(np.asarray(Ls, np.float32), npad, fill=-np.inf),
             self._region_axes(region), self._pack_tregion(tregion))
-        banks = self._draw_banks(nlive, ndim)
-        uf, Lf, done, idx0, nc, nu, width = self._walk(
+        banks = self._draw_banks(nlive, ndim, segment=False)
+        uf, Lf, done, idx0, nc, nu, width, eff = self._walk(
             banks, live_u, live_L, nlive, axes, _f32(Lmin), self.scale, treg)
         donef = done.to(torch.float32)
         rows = torch.cat([uf, Lf[:, None], donef[:, None],
                           idx0[:, None].to(torch.float32)], dim=1)
         scalars = torch.zeros((1, ndim + 3), dtype=torch.float32,
                               device=self.device)
-        scalars[0, :4] = torch.stack([nc, donef.mean(), width, nu])
+        scalars[0, :4] = torch.stack([nc.to(torch.float32), eff, width,
+                                      nu.to(torch.float32)])
         return (start_fetch(torch.cat([rows, scalars])),
+                start_fetch(torch.stack([nc, nu])),
                 np.array(us, np.float32, copy=True), self.nsteps)
 
     def _harvest(self, region, transform, loglike, Lmin):
@@ -611,17 +947,16 @@ class FusedPopulationSliceSampler(GenericPopulationSampler):
         entering the tree; points at or below the *current* Lmin (which
         may have risen since launch) are discarded here.
         """
-        handle, us, at_nsteps = self._pending
+        handle, counts, us, at_nsteps = self._pending
         self._pending = None
         nlive, ndim = us.shape
         packed = finish_fetch(handle).astype(float)
+        nc, nu = (int(c) for c in finish_fetch(counts))
         # column layout: [u(0:d), L, done, idx0]; one trailing scalar
-        # row: [ncall, done_frac, width, nuseful]
+        # row: [ncall, efficiency, width, nuseful] (counts rounded to
+        # float32; the exact ones come in *counts*)
         rows, scalars = packed[:-1], packed[-1]
-        self._check_counts(scalars[0], scalars[3])
-        nc = int(scalars[0])
         acc_rate, width = scalars[1], scalars[2]
-        nu = int(scalars[3])
         done = rows[:, ndim + 1] > 0.5
         uf = rows[:, :ndim][done]
         idx0 = rows[:, ndim + 2][done].astype(int)
@@ -749,7 +1084,7 @@ class FusedPopulationSliceSampler(GenericPopulationSampler):
             self._set_nsteps(min(self.max_nsteps, self.nsteps * 2))
 
     def _set_nsteps(self, nsteps):
-        """Change nsteps (the next dispatch walks at the new length)."""
+        """Change nsteps (the next dispatch draws its banks at it)."""
         if nsteps == self.nsteps:
             return
         _LOG.info('adaptive nsteps: %d -> %d', self.nsteps, nsteps)
@@ -766,16 +1101,19 @@ class FusedPopulationSliceSampler(GenericPopulationSampler):
     # packed record array per dispatch and replays it into the tree.
 
     def segment_ok(self):
-        """Segment mode needs every walker to finish (harvest_frac 1).
+        """Segment mode runs on every engine with harvest_frac 1.
 
-        Segment consumption bills every harvested row, so the dispatch
-        must walk the whole population to completion.
+        The async engine walks as the spec walk at depth 1; sync walks
+        in the shared walk-only convention. Segment consumption bills
+        every harvested row, so the dispatch must walk the whole
+        population to completion.
         """
         return self.harvest_frac >= 1.0
 
     def segment_start(self, us, Ls, ndraw=None):
         """Upload the live set and reset the dispatch queue."""
         nlive, ndim = us.shape
+        self._resolve_spec_depth(ndim)
         npad = round_up(nlive)
         self._seg_nlive = nlive
         self._seg_ndim = ndim
@@ -790,18 +1128,24 @@ class FusedPopulationSliceSampler(GenericPopulationSampler):
         self._pending = None
 
     def segment_launch(self, region, tregion=None):
-        """Run one chained walk+consume segment; its result streams home."""
+        """Run one chained walk+consume segment; its result streams home.
+
+        Reads from the host only what the walk's flag reads need
+        (:func:`_drive`; none for the random walk).
+        """
         self._sync_treg_key(tregion)
         axes, treg, tpack = self._upload(
             self._region_axes(region), self._pack_tregion(tregion),
             self._pack_whiten(region))
         live_u, live_L = self._seg_state
-        banks = self._draw_banks(self._seg_nlive, self._seg_ndim)
-        lu, lL, packed = self._run_segment(
+        banks = self._draw_banks(self._seg_nlive, self._seg_ndim,
+                                 segment=True)
+        lu, lL, packed, counts = self._run_segment(
             banks, live_u, live_L, self._seg_nlive, axes, self.scale, treg,
             tpack)
         self._seg_state = (lu, lL)
-        self._seg_queue.append((start_fetch(packed), self.nsteps, region))
+        self._seg_queue.append((start_fetch(packed), start_fetch(counts),
+                                self.nsteps, region))
 
     def segment_fetch(self):
         """Wait for the oldest queued segment; returns parsed records.
@@ -813,11 +1157,11 @@ class FusedPopulationSliceSampler(GenericPopulationSampler):
         ``nsteps``. Also feeds the jump-distance diagnostics and the
         adaptive nsteps governor, as the classic-mode harvest does.
         """
-        handle, at_nsteps, region = self._seg_queue.pop(0)
+        handle, counts, at_nsteps, region = self._seg_queue.pop(0)
         packed = finish_fetch(handle).astype(float)
+        nc, nu = (int(c) for c in finish_fetch(counts))
         d = self._seg_ndim
         rows, scal = packed[:-1], packed[-1]
-        self._check_counts(scal[0], scal[3])
         # guard against f32 rounding onto the cube boundary (region
         # construction requires strictly interior points)
         np.clip(rows[:, :d], 1e-7, 1 - 1e-7, out=rows[:, :d])
@@ -830,8 +1174,8 @@ class FusedPopulationSliceSampler(GenericPopulationSampler):
             rank=rows[:, d + 4].astype(np.int64),
             plateau=flags >= 2, dup=(flags % 2) >= 1,
             jump2=rows[:, d + 6],
-            nc=int(scal[0]), done_frac=float(scal[1]),
-            width=float(scal[2]), nc_useful=int(scal[3]),
+            nc=nc, done_frac=float(scal[1]),
+            width=float(scal[2]), nc_useful=nu,
             ref2_dev=float(scal[4]),
             nsteps=int(at_nsteps))
         self.ncalls += rec['nc']
@@ -919,12 +1263,60 @@ class FusedPopulationSliceSampler(GenericPopulationSampler):
 
 
 class FusedPopulationRandomWalkSampler(FusedPopulationSliceSampler):
-    """Device-resident population Metropolis random walk (not ported yet).
+    """Device-resident population Metropolis random walk.
 
-    Counterpart of ``ultranest_tpu.popfused.FusedPopulationRandomWalkSampler``.
+    Counterpart of ``ultranest_tpu.popfused.FusedPopulationRandomWalkSampler``
+    (``popfused.py:1564-1671``): every walker performs ``nsteps``
+    Gaussian steps in region-axes space (:func:`rwalk_walk`), accepting
+    moves inside the unit cube above the likelihood threshold; the scale
+    adapts towards a target acceptance rate between dispatches. The
+    acceptance rate travels in the slice engine's width slot, so classic
+    and segment mode, the prefetch and the f64 re-check are shared with
+    the slice sampler.
     """
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            'FusedPopulationRandomWalkSampler is not ported to '
-            'ultranest_torch yet (ROADMAP queue A item 9)')
+    ENGINES = ('rwalk',)
+
+    def __init__(self, popsize, nsteps, torch_loglike, torch_transform=None,
+                 scale=1.0, scale_adapt_factor=0.9, target_acceptance=0.234,
+                 seed=0, logfile=None, mesh=None, axis_name=None,
+                 adaptive_nsteps=False, max_nsteps=1000, device='cuda'):
+        super().__init__(
+            popsize, nsteps, torch_loglike, torch_transform=torch_transform,
+            scale=scale, scale_adapt_factor=scale_adapt_factor, seed=seed,
+            logfile=logfile, engine='rwalk', mesh=mesh, axis_name=axis_name,
+            adaptive_nsteps=adaptive_nsteps, max_nsteps=max_nsteps,
+            device=device)
+        self.target_acceptance = target_acceptance
+
+    def __str__(self):
+        """Return string representation."""
+        return ('FusedPopulationRandomWalkSampler(popsize=%d, nsteps=%d, '
+                'scale=%g)' % (self.popsize, self.nsteps, self.scale))
+
+    def _draw_banks(self, nlive, x_dim, segment=True):
+        self._seed_dispatch()
+        return draw_rwalk_banks(self._gen, self.popsize, self.nsteps, nlive,
+                                x_dim)
+
+    def _walk(self, banks, live_u, live_L, nlive, axes, Lmin, scale, treg):
+        ev = self._treg_eval()
+        stats = dict(nsteps=self.nsteps)
+        self.walk_log.append(stats)
+        out = rwalk_walk(banks, live_u, live_L, axes, Lmin, _f32(scale),
+                         lambda rows: ev(rows, treg), stats=stats)
+        # the acceptance rate fills both the width and efficiency slots
+        return out + (out[-1],)
+
+    def segment_ok(self):
+        """The random walk always walks the full population."""
+        return True
+
+    def _adapt_scale(self, acceptance_rate):
+        """Steer the proposal scale towards the target acceptance rate."""
+        if self.scale_adapt_factor == 1.0:
+            return
+        if acceptance_rate < self.target_acceptance:
+            self.scale *= self.scale_adapt_factor
+        else:
+            self.scale /= self.scale_adapt_factor

@@ -110,9 +110,10 @@ def pack_segment(rows_u, rows_L, recs, nc, done_frac, width, nuseful=None,
     have needed; engines without speculation omit it and report the
     billed count) and the dispatch-time whitened cloud variance
     (:func:`whitened_cloud_var`; engines without jump diagnostics omit
-    it and the slot stays 0). The counts travel as float32, exact below
-    2**24. Every scalar is a 0-d float32 device tensor: nothing is
-    copied from the host.
+    it and the slot stays 0). The count slots are float32, exact below
+    2**24; the population sampler fetches its exact counts beside the
+    pack. Every scalar is a 0-d float32 device tensor: nothing is copied
+    from the host.
     """
     rows = torch.cat([rows_u, rows_L[:, None], recs], dim=1)
     vals = [nc, done_frac, width, nc if nuseful is None else nuseful]
