@@ -8,7 +8,12 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
 2. builds the four CUDA kernels with nvcc (one compiler per source, all
    started together) and prints the build time;
 3. holds each kernel against its plain torch version on the card, at
-   the shapes its paths give it, and times both with CUDA events;
+   the shapes its paths give it (K3 also with every row accepted, at
+   npad 1024 to 32768, with no rows, and with signed zeros, NaN and
+   infinities, bit for bit), times both with CUDA events (the kernel
+   also on the device alone, its calls queued behind a spin kernel), and
+   prints each shape's bound: the larger of its float32 operations at
+   67 TFLOP/s and its bytes at 3.35 TB/s;
 4. drives the paths, each with every kernel count set to 0 just before
    it and read just after it:
 
@@ -33,8 +38,14 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    and checks that each path's kernels were launched in its run (K3 on
    every segment path; the classic run consumes on the host and
    launches K2 in its region rebuilds);
-5. prints one JSON line describing the kernels, then the result line
-   ``{"ok": true, "device": {...}}`` last.
+5. replays each segment path's K3 calls, kept during its run: K3 on
+   real traffic, held against the plain version and timed per call; then
+   prints the kernels ranked by launches x (device ms - bound ms);
+6. prints one JSON line describing the kernels (each at its first
+   shape), then the result line ``{"ok": true, "device": {...}}`` last.
+
+``--save-traffic FILE`` also saves the kept K3 calls, for
+``scripts/bench_consume_scan.py``.
 
 Any failed check raises, which exits non-zero before the last line.
 """
@@ -57,9 +68,51 @@ KERNEL_NOTES = {
                      'ultranest_tpu/segmentops.py:78'),
 }
 EGGBOX_LOGZ = 235.856
+# the card's published peaks (H100 SXM, at a 700 W power limit): float32
+# outside the tensor cores, and HBM3 bytes per second
+F32_OPS_PER_S = 67e12
+BYTES_PER_S = 3.35e12
+
+
+def bound(ops, nbytes):
+    """(ms, 'operations' or 'bytes'): the least time the card could take
+    for *ops* float32 operations and *nbytes* bytes moved."""
+    t_ops, t_bytes = ops / F32_OPS_PER_S, nbytes / BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), \
+        'operations' if t_ops >= t_bytes else 'bytes'
+
+
+def member_bound(npts, nvalid, m, d, nmember):
+    """Bound of a radius membership test (K1, K1t): a candidate outside
+    needs its distance to every valid point, one inside at least one;
+    each distance costs 3 d operations and a compare."""
+    ops = ((m - nmember) * nvalid + nmember) * (3 * d + 1)
+    return bound(ops, 4 * (npts * d + npts + m * d + m))
+
+
+def bootstrap_bound(valid, masks, d):
+    """Bound of K2 on these masks: in each round, the distance from each
+    valid unselected point to each selected one (3 d operations and a
+    min), and a max over the unselected points."""
+    valid = valid.bool()
+    sel = masks.bool()
+    nsel = sel.sum(dim=1).double()
+    nout = (valid[None, :] & ~sel).sum(dim=1).double()
+    ops = float((nsel * nout * (3 * d + 1) + nout).sum())
+    npad, nrounds = masks.shape[1], masks.shape[0]
+    return bound(ops, 4 * npad * d + npad + nrounds * npad + 4)
+
+
+def scan_bound(npad, P, nseq):
+    """Bound of K3: three compares per live value for each row up to the
+    last valid one (min, rank, dup), two for each row after it."""
+    ops = npad * (3 * nseq + 2 * (P - nseq))
+    return bound(ops, 4 * (2 * npad + 2 * P + 5 * P))
 
 
 def check_radius_member(kernels, rng, npad, m, d):
+    """K1 against its plain version at 65 boundary radii. Returns (0.0,
+    kernel ms, plain ms, bound ms, what bounds it, device ms)."""
     import torch
     from ultranest_torch.evaluate.bench_membership import (boundary_radii,
                                                            cuda_ms)
@@ -89,15 +142,20 @@ def check_radius_member(kernels, rng, npad, m, d):
                  .float().mean())
     assert 0.05 < frac < 0.95, ('degenerate membership test case', frac)
     ms = cuda_ms(lambda: kernels.radius_member(tp_t, tm_t, c_t, r2), 50)
+    dev = queued_ms([lambda: kernels.radius_member(tp_t, tm_t, c_t, r2)] * 50)
     plain = cuda_ms(lambda: kernels.radius_member_plain(tp_t, tm_t, c_t, r2),
                     5)
+    bms, by = member_bound(npad, nvalid, m, d, round(frac * m))
     print('K1 radius_member npad=%d M=%d d=%d: equal at %d radii with %d '
-          'candidates exactly on the boundary, kernel %.4f ms, plain '
-          '%.4f ms' % (npad, m, d, len(r2s), nboundary, ms, plain))
-    return 0.0, ms, plain
+          'candidates exactly on the boundary, kernel %.4f ms, device %.4f '
+          'ms, plain %.4f ms, bound %.6f ms (%s)' % (
+              npad, m, d, len(r2s), nboundary, ms, dev, plain, bms, by))
+    return 0.0, ms, plain, bms, by, dev
 
 
 def check_bootstrap_radius(kernels, rng, n, nrounds, d):
+    """K2 against its plain version within rtol 1e-6. Returns (|err|,
+    kernel ms, plain ms, bound ms, what bounds it, device ms)."""
     from ultranest_torch.evaluate.bench_membership import cuda_ms
     from ultranest_torch.ops.bootstrap import (_numpy_radius,
                                                make_bootstrap_masks,
@@ -111,48 +169,202 @@ def check_bootstrap_radius(kernels, rng, n, nrounds, d):
     assert err <= 1e-6 * abs(want), ('bootstrap_radius disagrees', got,
                                      want)
     ms = cuda_ms(lambda: kernels.bootstrap_radius(*args), 50)
+    dev = queued_ms([lambda: kernels.bootstrap_radius(*args)] * 50)
     plain = cuda_ms(lambda: kernels.bootstrap_radius_plain(*args), 5)
+    bms, by = bootstrap_bound(args[1], args[2], d)
     t0 = time.perf_counter()
     for _ in range(10):
         host = _numpy_radius(tp, masks)
     host_ms = (time.perf_counter() - t0) * 100
     print('K2 bootstrap_radius N=%d B=%d d=%d: %.9g vs plain %.9g '
-          '(|err| %.3g), kernel %.4f ms, plain %.4f ms, host KNN path '
-          '%.4f ms (value %.9g)' % (n, len(masks), d, got, want, err, ms,
-                                    plain, host_ms, host))
-    return err, ms, plain
+          '(|err| %.3g), kernel %.4f ms, device %.4f ms, plain %.4f ms, '
+          'bound %.6f ms (%s), host KNN path %.4f ms (value %.9g)' % (
+              n, len(masks), d, got, want, err, ms, dev, plain, bms, by,
+              host_ms, host))
+    return err, ms, plain, bms, by, dev
 
 
-def check_consume_scan(kernels, rng, npad, P, all_valid=False):
-    """K3 against its plain version; *all_valid*: every row a finished
-    walker, as on the spec path."""
+def queued_ms(fns):
+    """Mean device milliseconds per call of the calls *fns*.
+
+    The calls are enqueued behind a spin kernel (``torch.cuda._sleep``),
+    so that the card runs them back to back and the host's enqueue does
+    not pace them, as it does in :func:`cuda_ms`'s mean at small shapes.
+    NaN (not measured) if the host could not get ahead of the card.
+    """
     import torch
-    from ultranest_torch.evaluate.bench_membership import cuda_ms
+    for f in fns[:1]:
+        f()
+    cycles = 20_000_000
+    for _ in range(4):
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
+        for f in fns:
+            f()
+        stop.record()
+        behind = not start.query()
+        torch.cuda.synchronize()
+        if behind:
+            return start.elapsed_time(stop) / len(fns)
+        cycles *= 4
+    return float('nan')
+
+
+# K3's shapes (npad, P, kind of scan_inputs): an eggbox dispatch (1024
+# candidates into 400 live points padded to 512); the population
+# paths' (every row a finished walker): P 4096 (asymgauss50), 128
+# (rosenbrock8, multishell8), 256 (loggamma30) and 2048 (gauss100) into
+# 512, the engine runs' P 64 into 128 (sync, 100 live) and P 128 into
+# 256 (200 live); then the edges: every row accepted (the chain's worst
+# case), the largest live set in registers (1024) and live sets in
+# shared memory (4096 to 32768), no rows, and signed zeros, NaN and inf
+# among the live values and rows
+SCAN_SHAPES = (
+    (512, 1024, 'mixed'), (512, 4096, 'valid'), (512, 128, 'valid'),
+    (512, 256, 'valid'), (512, 2048, 'valid'), (128, 64, 'valid'),
+    (256, 128, 'valid'), (512, 4096, 'ascending'), (512, 2048, 'ascending'),
+    (1024, 1024, 'mixed'), (1024, 2048, 'valid'), (4096, 1024, 'mixed'),
+    (16384, 256, 'mixed'), (32768, 256, 'mixed'), (512, 0, 'mixed'),
+    (512, 1024, 'special'), (512, 2048, 'special_valid'))
+
+
+# K3 input kinds: 'mixed' (the first third of the rows valid, 80% of
+# those, as an eggbox dispatch), 'valid' (every row a finished walker,
+# as on the spec path), 'special' (-0.0 and +0.0 live values, a plateau
+# of both at the minimum, and -0.0, +0.0, NaN and +-inf rows; with
+# 'valid': every row valid), 'ascending' (every row valid and above the
+# one before, so that every row is accepted: the chain's worst case)
+def scan_inputs(rng, npad, P, kind='mixed'):
+    """(live_L, rows_L, rows_valid) float32 numpy arrays for K3."""
     nlive = npad * 25 // 32
     live_L = np.full(npad, np.inf, np.float32)
     live_L[:nlive] = rng.uniform(-5, 0, nlive).astype(np.float32)
     live_L[[3, 17, 40]] = live_L[:nlive].min() - 1   # plateau at the min
     rows_L = rng.uniform(-5, 2, P).astype(np.float32)
     rows_L[::7] = live_L[rng.randint(nlive, size=len(rows_L[::7]))]  # dups
-    rows_L[5] = live_L[3]                                # plateau value
+    rows_L[5:6] = live_L[3]                              # plateau value
+    if kind.startswith('special'):
+        live_L[:nlive] = np.abs(live_L[:nlive])
+        live_L[[3, 17, 40, 66]] = np.array([-0.0, 0.0, -0.0, 0.0],
+                                           np.float32)
+        rows_L[::5] = np.array([-0.0, 0.0, np.nan, np.inf, -np.inf],
+                               np.float32)[np.arange(len(rows_L[::5])) % 5]
+    if kind == 'ascending':
+        rows_L = np.linspace(-4, 6, P).astype(np.float32)
     rows_valid = np.zeros(P, np.float32)
-    if all_valid:
+    if kind in ('valid', 'special_valid', 'ascending'):
         rows_valid[:] = 1.0
     else:
         rows_valid[:P // 3] = rng.uniform(size=P // 3) < 0.8
+    return live_L, rows_L, rows_valid
+
+
+def nseq_of(rows_valid):
+    """Rows up to the last valid one (the rows K3 runs in order)."""
+    valid = np.nonzero(np.asarray(rows_valid) > 0.5)[0]
+    return int(valid.max()) + 1 if len(valid) else 0
+
+
+def scan_equal(kernels, fn, a):
+    """Whether K3 *fn* gives the plain version's live set and records on
+    the tensors *a*, bit for bit (as int32 views: torch.equal takes -0.0
+    for +0.0); returns (equal, the plain records)."""
+    import torch
+    gL, grec = fn(*a)
+    wL, wrec = kernels.consume_scan_plain(*a)
+    return (torch.equal(gL.view(torch.int32), wL.view(torch.int32)) and
+            torch.equal(grec.view(torch.int32), wrec.view(torch.int32)),
+            wrec)
+
+
+def check_consume_scan(kernels, rng, npad, P, kind='mixed'):
+    """K3 against its plain version, bit for bit (signed zeros too), on
+    :func:`scan_inputs` of *kind*. Returns (0.0, kernel ms, plain ms,
+    bound ms, what bounds it, device ms)."""
+    import torch
+    from ultranest_torch.evaluate.bench_membership import cuda_ms
+    live_L, rows_L, rows_valid = scan_inputs(rng, npad, P, kind)
     a = [torch.as_tensor(x, device='cuda') for x in (live_L, rows_L,
                                                       rows_valid)]
-    gL, grec = kernels.consume_scan(*a)
-    wL, wrec = kernels.consume_scan_plain(*a)
-    assert torch.equal(gL, wL) and torch.equal(grec, wrec), \
-        'consume_scan records differ'
+    ok, wrec = scan_equal(kernels, kernels.consume_scan, a)
+    assert ok, ('consume_scan records differ', npad, P, kind)
     ms = cuda_ms(lambda: kernels.consume_scan(*a), 50)
+    dev = queued_ms([lambda: kernels.consume_scan(*a)] * 50)
     plain = cuda_ms(lambda: kernels.consume_scan_plain(*a), 3)
-    print('K3 consume_scan npad=%d P=%d: records bit-equal (%d accepted, '
-          '%d plateau, %d dup), kernel %.4f ms, plain %.4f ms'
-          % (npad, P, int(wrec[:, 0].sum()), int((wrec[:, 4] >= 2).sum()),
-             int((wrec[:, 4] % 2).sum()), ms, plain))
-    return 0.0, ms, plain
+    bms, by = scan_bound(npad, P, nseq_of(rows_valid))
+    print('K3 consume_scan npad=%d P=%d %s: records bit-equal (%d accepted, '
+          '%d plateau, %d dup), kernel %.4f ms, device %.4f ms, plain %.4f '
+          'ms, bound %.6f ms (%s)' % (
+              npad, P, kind, int(wrec[:, 0].sum()),
+              int((wrec[:, 4] >= 2).sum()), int((wrec[:, 4] % 2).sum()), ms,
+              dev, plain, bms, by))
+    return 0.0, ms, plain, bms, by, dev
+
+
+class ScanCapture:
+    """Keeps a copy of the inputs of every K3 call made inside the block.
+
+    Wraps :func:`ultranest_torch.ops.kernels.consume_scan`, through which
+    every segment path consumes its rows; each call still launches K3
+    once. The copies (``calls``) are a path's real traffic for
+    :func:`check_scan_traffic`.
+    """
+
+    def __init__(self, kernels):
+        self.kernels = kernels
+        self.calls = []
+
+    def __enter__(self):
+        self.orig = orig = self.kernels.consume_scan
+
+        def capture(live_L, rows_L, rows_valid):
+            self.calls.append((live_L.clone(), rows_L.clone(),
+                               rows_valid.clone()))
+            return orig(live_L, rows_L, rows_valid)
+
+        self.kernels.consume_scan = capture
+        return self
+
+    def __exit__(self, *exc):
+        self.kernels.consume_scan = self.orig
+
+
+def check_scan_traffic(kernels, name, calls):
+    """K3 on a path's real calls: the records of its first, middle and
+    last call held against the plain version bit for bit, then every
+    call replayed in order, timed as a mean per call with CUDA events
+    (host-paced, and on the device alone with :func:`queued_ms`), beside
+    the mean bound of its calls and the share of valid rows accepted.
+    Returns these numbers as a dict."""
+    from ultranest_torch.evaluate.bench_membership import cuda_ms
+    for k in sorted({0, len(calls) // 2, len(calls) - 1}):
+        assert scan_equal(kernels, kernels.consume_scan, calls[k])[0], \
+            ('consume_scan records differ on a real call', name, k)
+    nseqs = [nseq_of(c[2].cpu().numpy()) for c in calls]
+    nvalid = sum(int((c[2] > 0.5).sum()) for c in calls)
+    naccept = sum(int(kernels.consume_scan(*c)[1][:, 0].sum())
+                  for c in calls)
+    fns = [lambda c=c: kernels.consume_scan(*c) for c in calls]
+    reps = max(1, -(-50 // len(calls)))
+    out = dict(
+        calls=len(calls), P=sorted({int(c[1].shape[0]) for c in calls}),
+        npad=sorted({int(c[0].shape[0]) for c in calls}),
+        valid_rows=nvalid, accepted=naccept,
+        ms=cuda_ms(lambda: [f() for f in fns], reps) / len(calls),
+        device_ms=queued_ms(fns * reps),
+        bound_ms=float(np.mean([scan_bound(int(c[0].shape[0]),
+                                           int(c[1].shape[0]), n)[0]
+                                for c, n in zip(calls, nseqs)])))
+    print('K3 on %s\'s %d real calls (npad %s, P %s): records bit-equal at '
+          'the first, middle and last call; %d of %d valid rows accepted '
+          '(%.1f%%); per call kernel %.4f ms, device %.4f ms, bound %.6f ms'
+          % (name, out['calls'], out['npad'], out['P'], naccept, nvalid,
+             100.0 * naccept / max(nvalid, 1), out['ms'], out['device_ms'],
+             out['bound_ms']))
+    return out
 
 
 def run_eggbox(seed=42):
@@ -207,6 +419,7 @@ def check_membership_shootout(kernels):
     and runs the shootout's timing, the path that launches K1t.
     Returns (per-shape timing rows, K1t launches of that run).
     """
+    import torch
     from ultranest_torch.evaluate import bench_membership
     for npts, m, d in bench_membership.SHAPES:
         nb = bench_membership.check_shape(npts, m, d, 'cuda')
@@ -217,6 +430,19 @@ def check_membership_shootout(kernels):
     rows = bench_membership.run()
     launches = kernels.LAUNCHES['radius_member_t']
     assert launches > 0, 'the shootout never launched K1t'
+    for row in rows:
+        # the bound at the shootout's own radius, r2 = 4 d
+        tp, tm, cd, r2 = bench_membership.make_inputs(row['npts'], row['m'],
+                                                      row['d'])
+        nmember = int(kernels.radius_member_plain(
+            *(torch.as_tensor(a, device='cuda') for a in (tp, tm, cd)),
+            float(r2)).sum())
+        row['bound_ms'], row['bound_by'] = member_bound(
+            row['npts'], row['npts'], row['m'], row['d'], nmember)
+        print('K1t radius_member_t N=%d M=%d d=%d at r2 = 4 d: %d of %d '
+              'candidates inside, bound %.6f ms (%s)' % (
+                  row['npts'], row['m'], row['d'], nmember, row['m'],
+                  row['bound_ms'], row['bound_by']))
     return rows, launches
 
 
@@ -434,7 +660,35 @@ def run_engine(name):
     return out
 
 
-def main():
+# K2's shape (index into main's list) on each path's region rebuilds;
+# K1 takes its first shape (M 4096, the eggbox's smallest draw) on all
+K2_SHAPE_OF_PATH = {'sync': 1, 'async_classic': 2}
+
+
+def print_ranking(shapes, real, path_launches):
+    """Prints each kernel's launches x (device ms - bound ms) summed over
+    the sampler paths of this run, largest first: K3 at each path's own
+    replayed calls, K1 and K2 at the shapes their paths give them."""
+    gap = {'consume_scan': sum(r['calls'] * (r['device_ms'] - r['bound_ms'])
+                               for r in real.values()),
+           'radius_member_t': 0.0}
+    for k in ('radius_member', 'bootstrap_radius'):
+        gap[k] = 0.0
+        for path, counts in path_launches.items():
+            res = shapes[k][K2_SHAPE_OF_PATH.get(path, 0)
+                            if k == 'bootstrap_radius' else 0]
+            gap[k] += counts.get(k, 0) * (res[5] - res[3])
+    print('ranking by launches x (device ms - bound ms) over the sampler '
+          'paths: ' + ', '.join('%s %.3f ms' % (k, v) for k, v in sorted(
+              gap.items(), key=lambda kv: -kv[1])))
+
+
+def main(argv=()):
+    """*argv*: ``--save-traffic PATH`` also saves every path's K3 inputs
+    (``torch.save``, a dict of lists of CPU tensors) for
+    ``scripts/bench_consume_scan.py``."""
+    save_traffic = argv[argv.index('--save-traffic') + 1] \
+        if '--save-traffic' in argv else None
     import torch
     t_start = time.time()
     if not torch.cuda.is_available():
@@ -460,42 +714,43 @@ def main():
             print('  ptxas:', line.strip())
 
     rng = np.random.RandomState(0)
-    errs, times = {}, {}
-    launches = {}
+    # each kernel's numbers at each shape: (max |err|, kernel ms, plain
+    # ms, bound ms, what bounds it, device ms); the JSON line takes the
+    # first shape's
+    errs, launches, shapes = {}, {}, {}
     for npad, m, d in ((512, 4096, 2), (512, 131072, 2), (512, 4096, 16),
                        (2048, 16384, 8)):
-        err, ms, plain = check_radius_member(kernels, rng, npad, m, d)
-        errs['radius_member'] = max(errs.get('radius_member', 0.0), err)
-        times.setdefault('radius_member', (ms, plain))
+        res = check_radius_member(kernels, rng, npad, m, d)
+        errs['radius_member'] = max(errs.get('radius_member', 0.0), res[0])
+        shapes.setdefault('radius_member', []).append(res)
     # the region rebuilds' shapes (30 bootstrap rounds): the eggbox's 400
     # live points, the sync d-2 engine run's 100 (one block, padded to
     # 128) and the classic async run's 200 in d 8 (padded to 256); 2048
     # in d 8 as a large case
     for n, nrounds, d in ((400, 30, 2), (100, 30, 2), (200, 30, 8),
                           (2048, 30, 8)):
-        err, ms, plain = check_bootstrap_radius(kernels, rng, n, nrounds, d)
+        res = check_bootstrap_radius(kernels, rng, n, nrounds, d)
         errs['bootstrap_radius'] = max(errs.get('bootstrap_radius', 0.0),
-                                       err)
-        times.setdefault('bootstrap_radius', (ms, plain))
-    err, ms, plain = check_consume_scan(kernels, rng, 512, 1024)
-    errs['consume_scan'] = err
-    times['consume_scan'] = (ms, plain)
-    # the population paths' shapes (every row a finished walker): P 4096
-    # (asymgauss50), 128 (rosenbrock8, multishell8), 256 (loggamma30) and
-    # 2048 (gauss100) into 400 live points padded to 512; the engine
-    # runs' P 64 into 128 (sync, 100 live) and P 128 into 256 (200 live)
-    for npad, P in ((512, 4096), (512, 128), (512, 256), (512, 2048),
-                    (128, 64), (256, 128)):
-        check_consume_scan(kernels, rng, npad, P, all_valid=True)
+                                       res[0])
+        shapes.setdefault('bootstrap_radius', []).append(res)
+    shapes['consume_scan'] = [check_consume_scan(kernels, rng, *shape)
+                              for shape in SCAN_SHAPES]
+    errs['consume_scan'] = 0.0
     torch.cuda.synchronize()
 
     rows, launches['radius_member_t'] = check_membership_shootout(kernels)
     errs['radius_member_t'] = 0.0
-    times['radius_member_t'] = (rows[0]['k1t_ms'], rows[0]['plain_ms'])
+    shapes['radius_member_t'] = [(0.0, rows[0]['k1t_ms'], rows[0]['plain_ms'],
+                                  rows[0]['bound_ms'], rows[0]['bound_by'])]
     print('membership shootout kernel launches: %d of K1t'
           % launches['radius_member_t'])
 
-    run = run_eggbox()
+    # every segment path's K3 calls are kept (ScanCapture) and replayed
+    # after the runs: K3 on real traffic
+    traffic, path_launches = {}, {}
+    with ScanCapture(kernels) as cap:
+        run = run_eggbox()
+    traffic['eggbox'] = cap.calls
     print('eggbox: logZ %.4f +- %.4f (quadrature %.3f), wall %.3f s, '
           'ncall %d, %.0f evals/s, niter %d' % (
               run['logz'], run['logzerr'], EGGBOX_LOGZ, run['wall_s'],
@@ -503,17 +758,17 @@ def main():
     print('eggbox phases (s):', json.dumps(run['phases_s']))
     print('eggbox segment exits:', json.dumps(run['segment_exits']))
     print('eggbox kernel launches:', json.dumps(run['launches']))
+    path_launches['eggbox'] = run['launches']
     for name in kernels.REGION_KERNELS:
         launches[name] = run['launches'][name]
 
-    spec = run_asymgauss50()
-    print_population_run(spec)
-    # K3 runs on every path from here on: its count is the sum of the runs
-    launches['consume_scan'] += spec['launches']['consume_scan']
-
-    launch_s, rounds = spec['phases_s']['launch'], spec['rounds']
-    for name in ('rosenbrock8', 'multishell8', 'loggamma30', 'gauss100'):
-        run = run_population_problem(name)
+    launch_s, rounds = 0.0, 0
+    for name in ('asymgauss50', 'rosenbrock8', 'multishell8', 'loggamma30',
+                 'gauss100'):
+        with ScanCapture(kernels) as cap:
+            run = run_population_problem(name)
+        traffic[name] = cap.calls
+        path_launches[name] = run['launches']
         print_population_run(run)
         launch_s += run['phases_s']['launch']
         rounds += run['rounds']
@@ -522,6 +777,7 @@ def main():
                   '+- 0.483 (BENCH_r05.json), an algorithmic yardstick')
         if name == 'gauss100':
             assert run['nsteps_final'] > 100, 'the governor never grew nsteps'
+        # K3 runs on every path from here on: its count is the sum
         launches['consume_scan'] += run['launches']['consume_scan']
     print('spec-walk round cost over the five problems: launch %.3f s over '
           '%d rounds, %.4f ms per round (popfused.ROUND_OVERHEAD_S %.4f ms)'
@@ -530,7 +786,11 @@ def main():
 
     engines = {}
     for name in ('sync', 'async', 'sync8', 'rwalk', 'async_classic'):
-        run = engines[name] = run_engine(name)
+        with ScanCapture(kernels) as cap:
+            run = engines[name] = run_engine(name)
+        if cap.calls:
+            traffic[name] = cap.calls
+        path_launches[name] = run['launches']
         print('engine %s: logZ %.4f +- %.4f, wall %.3f s, ncall %d, niter '
               '%d, ncall/niter %.3f, %d dispatches, %d rounds, %d host '
               'reads, scale %.4g' % (
@@ -552,13 +812,26 @@ def main():
               engines['async']['ncall_per_iter'],
               engines['sync8']['ncall_per_iter'], ratio))
     assert ratio < 0.7, ('async not cheaper than sync', ratio)
+
+    real = {name: check_scan_traffic(kernels, name, calls)
+            for name, calls in traffic.items()}
+    for name, r in real.items():
+        assert r['calls'] == path_launches[name]['consume_scan'], \
+            ('K3 calls kept and launched differ', name)
+    if save_traffic:
+        torch.save({name: [tuple(t.cpu() for t in c) for c in calls]
+                     for name, calls in traffic.items()}, save_traffic)
+    print_ranking(shapes, real, path_launches)
     print('chip_smoke: every phase passed in %.1f s' % (time.time() - t_start))
 
+    # no single PyTorch call computes any of the four functions, so none
+    # has a library yardstick (library_ms null)
     print(json.dumps({'kernels': [
         dict(name=name, route='cuda', source=KERNEL_NOTES[name][0],
              replaces=KERNEL_NOTES[name][1], launches=launches[name],
-             max_abs_err=errs[name], ms=times[name][0],
-             plain_ms=times[name][1])
+             max_abs_err=errs[name], ms=shapes[name][0][1],
+             plain_ms=shapes[name][0][2], bound_ms=shapes[name][0][3],
+             bound_by=shapes[name][0][4], library_ms=None)
         for name in kernels.KERNELS]}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
@@ -567,4 +840,4 @@ def main():
 
 
 if __name__ == '__main__':
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -64,10 +64,19 @@ def test_bootstrap_radius_equals_plain(cuda, n, d):
     np.testing.assert_allclose(got, want, rtol=1e-6)
 
 
-# 16384: the live set needs the opt-in dynamic shared memory above 48 KB
-@pytest.mark.parametrize('npad,P', [(512, 1024), (64, 200), (4096, 1024),
-                                    (16384, 256)])
-def test_consume_scan_equals_plain(cuda, npad, P):
+# npad <= 1024: the live set in one warp's registers (128, 256, 512 as
+# the port runs them, 1024 the largest); above it in one CTA's shared
+# memory, past 48 KB (16384, 32768) with the opt-in attribute. 'valid':
+# every row a finished walker, as on the spec path; 'ascending': every
+# row valid and accepted, the chain's longest; 'special': signed zeros
+# at the minimum, and -0.0, +0.0, NaN and +-inf rows.
+@pytest.mark.parametrize('npad,P,kind', [
+    (512, 1024, 'mixed'), (64, 200, 'mixed'), (4096, 1024, 'mixed'),
+    (16384, 256, 'mixed'), (128, 300, 'mixed'), (256, 600, 'mixed'),
+    (1024, 1024, 'mixed'), (32768, 256, 'mixed'), (512, 4096, 'valid'),
+    (512, 1024, 'special'), (512, 0, 'mixed'), (512, 4096, 'ascending'),
+    (4096, 1024, 'ascending')])
+def test_consume_scan_equals_plain(cuda, npad, P, kind):
     rng = np.random.RandomState(npad)
     nlive = npad * 3 // 4
     live_L = np.full(npad, np.inf, np.float32)
@@ -75,16 +84,31 @@ def test_consume_scan_equals_plain(cuda, npad, P):
     live_L[[1, 4, 7]] = live_L[:nlive].min() - 1
     rows_L = rng.uniform(-6, 2, P).astype(np.float32)
     rows_L[::9] = live_L[rng.randint(nlive, size=len(rows_L[::9]))]
-    rows_L[-3:] = -np.inf
+    rows_L[P - 3:] = -np.inf
     rows_valid = (rng.uniform(size=P) < 0.8).astype(np.float32)
-    rows_valid[-P // 4:] = 0.0
+    rows_valid[P - P // 4:] = 0.0
+    if kind in ('valid', 'ascending'):
+        rows_valid[:] = 1.0
+    if kind == 'ascending':
+        rows_L = np.linspace(-4, 6, P).astype(np.float32)
+    if kind == 'special':
+        live_L[:nlive] = np.abs(live_L[:nlive]) + 0.25
+        live_L[[1, 4, 7, 40]] = np.array([0.0, -0.0, 0.0, -0.0], np.float32)
+        rows_L[::4] = np.array([-0.0, 0.0, np.nan, np.inf, -np.inf],
+                               np.float32)[np.arange(len(rows_L[::4])) % 5]
     live_u = rng.uniform(size=(npad, 2)).astype(np.float32)
     rows_u = rng.uniform(size=(P, 2)).astype(np.float32)
     a = [torch.as_tensor(x, device=cuda) for x in (live_L, rows_L,
                                                     rows_valid)]
+    kernels.reset_counts()
     gL, grec = kernels.consume_scan(*a)
+    assert kernels.LAUNCHES['consume_scan'] == 1
     wL, wrec = kernels.consume_scan_plain(*a)
-    assert torch.equal(gL, wL) and torch.equal(grec, wrec)
+    # bit for bit: torch.equal alone takes -0.0 for +0.0
+    assert torch.equal(gL.view(torch.int32), wL.view(torch.int32))
+    assert torch.equal(grec.view(torch.int32), wrec.view(torch.int32))
+    if P == 0:
+        return
     gu = segmentops.consume_scan(torch.as_tensor(live_u, device=cuda),
                                  a[0], torch.as_tensor(rows_u, device=cuda),
                                  a[1], a[2])
@@ -92,7 +116,7 @@ def test_consume_scan_equals_plain(cuda, npad, P):
                                                         rows_u, rows_L,
                                                         rows_valid)))
     for x, y in zip(gu, cu):
-        assert torch.equal(x.cpu(), y)
+        assert torch.equal(x.cpu().view(torch.int32), y.view(torch.int32))
 
 
 def test_wrappers_check_inputs(cuda):

@@ -1,7 +1,9 @@
 """The port's population spec walk against the JAX package, on the CPU.
 
 * ``whitened_jump2``, ``whitened_cloud_var`` and ``pack_segment``
-  against ``ultranest_tpu.segmentops``, within rtol 1e-6;
+  against ``ultranest_tpu.segmentops``, within rtol 1e-6, except that
+  the port's ``whitened_cloud_var`` measures wrapped axes from the
+  circular mean on purpose (held to a float64 numpy version there);
 * the spec walk (``popfused.spec_walk``) fed the random banks that the
   reference's own key splits give (``ultranest_tpu/popfused.py:539-558``),
   against the reference's walk with that key: ``done``, ``idx0`` and the
@@ -209,6 +211,20 @@ def test_segment_kernel_matches_reference(d, seed, treg_on):
     assert rows[:, d + 1].sum() > 0
 
 
+def _cloud_var_wrapped(live_u, nlive, tpack):
+    """The port's whitened cloud variance in float64 numpy: wrapped axes
+    as minimal-image offsets from the valid rows' circular mean."""
+    u = live_u[:nlive].astype(np.float64)
+    wrap = tpack[-1] > 0.5
+    ang = 2 * np.pi * u
+    c = np.arctan2(np.sin(ang).mean(axis=0), np.cos(ang).mean(axis=0)) \
+        / (2 * np.pi)
+    delta = u - c
+    delta -= np.round(delta)
+    w = np.where(wrap, delta, u) @ tpack[:-1].astype(np.float64)
+    return float(((w - w.mean(axis=0)) ** 2).sum() / nlive)
+
+
 @pytest.mark.parametrize('seed,wrapped', [(0, False), (1, True), (2, True)])
 def test_whitening_and_pack_match_reference(seed, wrapped):
     rng = np.random.RandomState(seed)
@@ -225,9 +241,15 @@ def test_whitening_and_pack_match_reference(seed, wrapped):
     np.testing.assert_allclose(
         segmentops.whitened_jump2(tt[0], tt[1], tt[2]).numpy(),
         np.asarray(jseg.whitened_jump2(live_u, uf, tpack)), rtol=1e-6)
-    np.testing.assert_allclose(
-        float(segmentops.whitened_cloud_var(tt[0], nlive, tt[2])),
-        float(jseg.whitened_cloud_var(live_u, nlive, tpack)), rtol=1e-6)
+    got = float(segmentops.whitened_cloud_var(tt[0], nlive, tt[2]))
+    if wrapped:
+        # the port measures wrapped axes from the circular mean on purpose
+        np.testing.assert_allclose(
+            got, _cloud_var_wrapped(live_u, nlive, tpack), rtol=1e-6)
+    else:
+        np.testing.assert_allclose(
+            got, float(jseg.whitened_cloud_var(live_u, nlive, tpack)),
+            rtol=1e-6)
 
     recs = rng.uniform(size=(npad, 6)).astype(np.float32)
     rows_L = rng.normal(size=npad).astype(np.float32)
@@ -240,6 +262,29 @@ def test_whitening_and_pack_match_reference(seed, wrapped):
             *map(torch.tensor, scal[:3]),
             **{k: torch.tensor(v) for k, v in kw.items()}).numpy()
         np.testing.assert_allclose(got, want, rtol=1e-6)
+
+
+def test_cloud_var_is_shift_invariant_on_wrapped_axes():
+    """A cloud straddling the seam of a wrapped axis has the variance of
+    the same cloud rotated by half a period; the reference's differs."""
+    rng = np.random.RandomState(4)
+    npad, nlive, d = 64, 50, 3
+    live_u = rng.uniform(0.3, 0.7, size=(npad, d)).astype(np.float32)
+    live_u[:nlive, 1] = np.mod(0.5 + 0.08 * rng.normal(size=nlive), 1.0)
+    live_u[nlive:] = 7.7                      # padding must not count
+    seam = live_u.copy()                      # axis 1 now straddles u = 0
+    seam[:nlive, 1] = np.mod(live_u[:nlive, 1] + 0.5, 1.0).astype(np.float32)
+    assert (seam[:nlive, 1] < 0.1).any() and (seam[:nlive, 1] > 0.9).any()
+    T = (rng.normal(size=(d, d)) + 3 * np.eye(d)).astype(np.float32)
+    tpack = np.vstack([T, [[0.0, 1.0, 0.0]]]).astype(np.float32)
+    got = [float(segmentops.whitened_cloud_var(
+        torch.as_tensor(x), nlive, torch.as_tensor(tpack)))
+        for x in (live_u, seam)]
+    np.testing.assert_allclose(got[1], got[0], rtol=1e-5)
+    ref = [float(jseg.whitened_cloud_var(x, nlive, tpack))
+           for x in (live_u, seam)]
+    np.testing.assert_allclose(ref[0], got[0], rtol=1e-5)
+    assert ref[1] > 5 * ref[0]
 
 
 def test_walk_stops_at_the_round_cap_and_reads_every_k_rounds():

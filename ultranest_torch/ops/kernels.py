@@ -59,7 +59,8 @@ SOURCES = ('radius_member.cu', 'radius_member_t.cu', 'bootstrap_radius.cu',
            'consume_scan.cu')
 NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-Xcompiler', '-fPIC', '-Xptxas', '-v']
-# largest live set K3 keeps in shared memory (128 KB of the 227 KB)
+# largest live set K3 takes: one 1024-thread CTA keeps live sets above
+# 1024 in shared memory (128 KB of the 227 KB)
 MAX_SCAN_NPAD = 32768
 # largest dimension K1t stages in shared memory (200 KB of the 227 KB)
 MAX_MEMBER_T_DIM = 200
@@ -418,6 +419,12 @@ def consume_scan(live_L, rows_L, rows_valid):
         the live likelihoods after all rows
     recs: (P, 5) float32
         [accept, worst slot, Lmin, rank, 2*plateau + dup] per row
+
+    *live_L* must hold no NaN. On the card this is two kernels on the
+    current stream: the chain (the live set in one warp's registers for
+    npad <= 1024, in one CTA's shared memory above it) writes accept,
+    worst slot and Lmin, then the counts write rank and the flags
+    (``csrc/consume_scan.cu`` says how). One call counts one launch.
     """
     if _on_cpu(live_L, rows_L, rows_valid):
         PLAIN_CALLS['consume_scan'] += 1
@@ -428,9 +435,9 @@ def consume_scan(live_L, rows_L, rows_valid):
     npad, P = live_L.shape[0], rows_L.shape[0]
     if rows_valid.shape[0] != P:
         raise ValueError('rows_L and rows_valid differ in length')
-    if npad > MAX_SCAN_NPAD:
-        raise ValueError('consume_scan keeps the live set in shared memory: '
-                         'npad %d > %d' % (npad, MAX_SCAN_NPAD))
+    if not 0 < npad <= MAX_SCAN_NPAD:
+        raise ValueError('consume_scan takes 1 <= npad <= %d, got %d'
+                         % (MAX_SCAN_NPAD, npad))
     live_L2 = torch.empty_like(live_L)
     recs = torch.empty((P, 5), dtype=torch.float32, device=live_L.device)
     _launch('consume_scan', _lib().un_consume_scan,

@@ -53,14 +53,28 @@ def whitened_cloud_var(live_u, nlive, tpack):
 
     The decorrelation normalizer of the jump-distance diagnostics, taken
     from the dispatch-time live set. ``live_u`` is padded; rows past
-    ``nlive`` are masked out. As in the reference, the wrapped-dimension
-    mask row of ``tpack`` is not applied here (``whitened_jump2`` does
-    apply it), so the variance is inflated on wrapped axes.
+    ``nlive`` are masked out.
+
+    Wrapped axes (mask row ``tpack[-1]`` 1, period 1) are measured as
+    ``whitened_jump2`` measures a jump: each valid coordinate becomes its
+    minimal-image offset ``(u - c) - round(u - c)`` from the cloud's
+    circular mean ``c = atan2(mean sin 2 pi u, mean cos 2 pi u) / 2 pi``,
+    so a cloud that straddles the seam has the variance it has anywhere
+    else on the circle. This differs from the reference on purpose: the
+    reference ignores the mask here, its variance comes out inflated on
+    wrapped axes and its governor over-doubles nsteps (ROADMAP §C).
+    Unwrapped axes are taken as they are, as in the reference.
     """
-    w = live_u @ tpack[:-1]
     m = (torch.arange(live_u.shape[0], device=live_u.device)
          < nlive).to(torch.float32)
     n = torch.clamp(m.sum(), min=1.0)
+    wmask = tpack[-1] > 0.5
+    ang = (2 * torch.pi) * live_u
+    c = torch.atan2((torch.sin(ang) * m[:, None]).sum(dim=0),
+                    (torch.cos(ang) * m[:, None]).sum(dim=0)) / (2 * torch.pi)
+    delta = live_u - c[None, :]
+    delta = delta - torch.round(delta)
+    w = torch.where(wmask[None, :], delta, live_u) @ tpack[:-1]
     mean = (w * m[:, None]).sum(dim=0) / n
     dev = (w - mean[None, :]) * m[:, None]
     return (dev * dev).sum() / n
