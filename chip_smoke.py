@@ -8,7 +8,9 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
 2. builds the four CUDA kernels with nvcc (one compiler per source, all
    started together) and prints the build time;
 3. holds each kernel against its plain torch version on the card, at
-   the shapes its paths give it (K3 also with every row accepted, at
+   the shapes its paths give it (K1 also at d 40, its path for d > 32,
+   and with 32768 live rows, in tiles; K2, bit for bit, also with 50
+   rounds, two words of bits; K3 also with every row accepted, at
    npad 1024 to 32768, with no rows, and with signed zeros, NaN and
    infinities, bit for bit), times both with CUDA events (the kernel
    also on the device alone, its calls queued behind a spin kernel), and
@@ -38,19 +40,22 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    and checks that each path's kernels were launched in its run (K3 on
    every segment path; the classic run consumes on the host and
    launches K2 in its region rebuilds);
-5. replays each segment path's K3 calls, kept during its run: K3 on
-   real traffic, held against the plain version and timed per call; then
-   prints the kernels ranked by launches x (device ms - bound ms);
+5. replays every path's K1, K2 and K3 calls, kept during its run: each
+   kernel on real traffic, held against the plain version (K1 and K2 on
+   every call, K2 bit for bit) and timed per call beside the bound of
+   those inputs; then prints the kernels ranked by launches x (device ms
+   - bound ms) over the replayed calls;
 6. prints one JSON line describing the kernels (each at its first
    shape), then the result line ``{"ok": true, "device": {...}}`` last.
 
-``--save-traffic FILE`` also saves the kept K3 calls, for
-``scripts/bench_consume_scan.py``.
+``--save-traffic FILE`` also saves the kept calls, for
+``scripts/bench_kernels.py``.
 
 Any failed check raises, which exits non-zero before the last line.
 """
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -74,6 +79,30 @@ F32_OPS_PER_S = 67e12
 BYTES_PER_S = 3.35e12
 
 
+def ptxas_summary(log):
+    """[(kernel and its template arguments, registers, bytes spilled)]
+    from the output of ``nvcc -Xptxas -v``, one entry per instantiation."""
+    out = []
+    lines = log.splitlines()
+    for i, line in enumerate(lines):
+        m = re.search(r"Compiling entry function '\w*?_cu_[0-9a-f]{8}(\d+)",
+                      line)
+        if not m:
+            continue
+        rest = line[m.end():]
+        name, rest = rest[:int(m.group(1))], rest[int(m.group(1)):]
+        args = re.findall(r'Li(\d+)E', rest.split('Ev')[0])
+        if args:
+            name += '<%s>' % ', '.join(args)
+        # the entry's properties follow, up to the next entry's
+        props = ' '.join(lines[i + 1:i + 5]).split('Compiling entry')[0]
+        out.append((name,
+                    int(re.search(r'Used (\d+) registers', props).group(1)),
+                    int(re.search(r'(\d+) bytes spill stores',
+                                  props).group(1))))
+    return out
+
+
 def bound(ops, nbytes):
     """(ms, 'operations' or 'bytes'): the least time the card could take
     for *ops* float32 operations and *nbytes* bytes moved."""
@@ -90,15 +119,27 @@ def member_bound(npts, nvalid, m, d, nmember):
     return bound(ops, 4 * (npts * d + npts + m * d + m))
 
 
-def bootstrap_bound(valid, masks, d):
-    """Bound of K2 on these masks: in each round, the distance from each
-    valid unselected point to each selected one (3 d operations and a
-    min), and a max over the unselected points."""
+def bootstrap_bound(valid, masks, d, per_round=False):
+    """Bound of K2 on these masks. Each distance that some round needs
+    (from a point i the round selected to a valid point j it did not)
+    is computed once, 3 d operations; then one min per (round, selected
+    i, unselected j) and one max per (round, unselected j).
+
+    *per_round* gives the yardstick this one replaced, which counted
+    every distance anew in every round that needs it.
+    """
     valid = valid.bool()
     sel = masks.bool()
+    out = valid[None, :] & ~sel
     nsel = sel.sum(dim=1).double()
-    nout = (valid[None, :] & ~sel).sum(dim=1).double()
-    ops = float((nsel * nout * (3 * d + 1) + nout).sum())
+    nout = out.sum(dim=1).double()
+    mins = float((nsel * nout).sum())
+    if per_round:
+        pairs = mins
+    else:
+        # pairs (i, j) that at least one round needs
+        pairs = float(((sel.T.float() @ out.float()) > 0).sum())
+    ops = pairs * 3 * d + mins + float(nout.sum())
     npad, nrounds = masks.shape[1], masks.shape[0]
     return bound(ops, 4 * npad * d + npad + nrounds * npad + 4)
 
@@ -110,18 +151,48 @@ def scan_bound(npad, P, nseq):
     return bound(ops, 4 * (2 * npad + 2 * P + 5 * P))
 
 
-def check_radius_member(kernels, rng, npad, m, d):
-    """K1 against its plain version at 65 boundary radii. Returns (0.0,
-    kernel ms, plain ms, bound ms, what bounds it, device ms)."""
+# K1's shapes (npad, M, d): the eggbox's smallest draw and the largest
+# batch of its segments; d 16 and a larger live set; then d 40 (above
+# d 32 the block stages its candidates in shared memory) and 32768 live
+# rows (in tiles)
+MEMBER_SHAPES = ((512, 4096, 2), (512, 131072, 2), (512, 4096, 16),
+                 (2048, 16384, 8), (512, 4096, 40), (32768, 4096, 2))
+# K2's shapes (N, rounds, d), the region rebuilds' (30 bootstrap rounds):
+# the eggbox's 400 live points, the sync d-2 engine run's 100 (padded to
+# 128) and the classic async run's 200 in d 8 (padded to 256); 2048 in
+# d 8 as a large case; 50 rounds (the default of
+# MLFriends.compute_maxradiussq), two words of bits
+BOOTSTRAP_SHAPES = ((400, 30, 2), (100, 30, 2), (200, 30, 8), (2048, 30, 8),
+                    (400, 50, 2))
+
+
+def member_inputs(rng, npad, m, d):
+    """(tpoints, tmask, cands) on the card for K1, unit normals with the
+    first 25/32 of the rows valid; and the number of valid rows."""
     import torch
-    from ultranest_torch.evaluate.bench_membership import (boundary_radii,
-                                                           cuda_ms)
     nvalid = npad * 25 // 32
     tp = rng.normal(size=(npad, d)).astype(np.float32)
     tmask = (np.arange(npad) < nvalid).astype(np.int32)
     cands = rng.normal(size=(m, d)).astype(np.float32)
-    tp_t, tm_t, c_t = (torch.as_tensor(a, device='cuda')
-                       for a in (tp, tmask, cands))
+    return tuple(torch.as_tensor(a, device='cuda')
+                 for a in (tp, tmask, cands)), nvalid
+
+
+def bootstrap_inputs(rng, n, nrounds, d):
+    """(tpoints numpy, masks numpy, K2's padded inputs on the card)."""
+    from ultranest_torch.ops.bootstrap import (make_bootstrap_masks,
+                                               radius_inputs)
+    tp = rng.normal(size=(n, d)).astype(np.float32)
+    masks = make_bootstrap_masks(n, nrounds, rng=np.random.RandomState(n))
+    return tp, masks, radius_inputs(tp, masks, 'cuda')
+
+
+def check_radius_member(kernels, rng, npad, m, d):
+    """K1 against its plain version at 65 boundary radii. Returns (0.0,
+    kernel ms, plain ms, bound ms, what bounds it, device ms)."""
+    from ultranest_torch.evaluate.bench_membership import (boundary_radii,
+                                                           cuda_ms)
+    (tp_t, tm_t, c_t), nvalid = member_inputs(rng, npad, m, d)
     # squared radii taken from candidates' own nearest-valid-point
     # distances (65 quantiles from 0.1 to 0.9): each puts candidates
     # exactly on the boundary, where a sum rounded differently (an FMA,
@@ -153,35 +224,44 @@ def check_radius_member(kernels, rng, npad, m, d):
     return 0.0, ms, plain, bms, by, dev
 
 
+def bits_equal(a, b):
+    """Whether two float32 tensors, or two tuples of them, hold the same
+    bits (torch.equal alone takes -0.0 for +0.0)."""
+    import torch
+    if torch.is_tensor(a):
+        a, b = (a,), (b,)
+    return all(torch.equal(x.view(torch.int32), y.view(torch.int32))
+               for x, y in zip(a, b))
+
+
 def check_bootstrap_radius(kernels, rng, n, nrounds, d):
-    """K2 against its plain version within rtol 1e-6. Returns (|err|,
-    kernel ms, plain ms, bound ms, what bounds it, device ms)."""
+    """K2 against its plain version, bit for bit. Returns (0.0, kernel
+    ms, plain ms, bound ms, what bounds it, device ms)."""
     from ultranest_torch.evaluate.bench_membership import cuda_ms
-    from ultranest_torch.ops.bootstrap import (_numpy_radius,
-                                               make_bootstrap_masks,
-                                               radius_inputs)
-    tp = rng.normal(size=(n, d)).astype(np.float32)
-    masks = make_bootstrap_masks(n, nrounds, rng=np.random.RandomState(n))
-    args = radius_inputs(tp, masks, 'cuda')
-    got = float(kernels.bootstrap_radius(*args))
-    want = float(kernels.bootstrap_radius_plain(*args))
-    err = abs(got - want)
-    assert err <= 1e-6 * abs(want), ('bootstrap_radius disagrees', got,
-                                     want)
+    from ultranest_torch.ops.bootstrap import _numpy_radius
+    tp, masks, args = bootstrap_inputs(rng, n, nrounds, d)
+    got = kernels.bootstrap_radius(*args)
+    want = kernels.bootstrap_radius_plain(*args)
+    assert bits_equal(got, want) and float(got) > 0, \
+        ('bootstrap_radius disagrees', n, nrounds, d, float(got),
+         float(want))
+    got, want = float(got), float(want)
     ms = cuda_ms(lambda: kernels.bootstrap_radius(*args), 50)
     dev = queued_ms([lambda: kernels.bootstrap_radius(*args)] * 50)
     plain = cuda_ms(lambda: kernels.bootstrap_radius_plain(*args), 5)
     bms, by = bootstrap_bound(args[1], args[2], d)
+    old_bms = bootstrap_bound(args[1], args[2], d, per_round=True)[0]
     t0 = time.perf_counter()
     for _ in range(10):
         host = _numpy_radius(tp, masks)
     host_ms = (time.perf_counter() - t0) * 100
-    print('K2 bootstrap_radius N=%d B=%d d=%d: %.9g vs plain %.9g '
-          '(|err| %.3g), kernel %.4f ms, device %.4f ms, plain %.4f ms, '
-          'bound %.6f ms (%s), host KNN path %.4f ms (value %.9g)' % (
-              n, len(masks), d, got, want, err, ms, dev, plain, bms, by,
+    print('K2 bootstrap_radius N=%d B=%d d=%d: %.9g, bit-equal to plain, '
+          'kernel %.4f ms, device %.4f ms, plain %.4f ms, bound %.6f ms (%s; '
+          'each distance counted once: counted per round it was %.6f ms), '
+          'host KNN path %.4f ms (value %.9g)' % (
+              n, len(masks), d, got, ms, dev, plain, bms, by, old_bms,
               host_ms, host))
-    return err, ms, plain, bms, by, dev
+    return 0.0, ms, plain, bms, by, dev
 
 
 def queued_ms(fns):
@@ -270,14 +350,9 @@ def nseq_of(rows_valid):
 
 def scan_equal(kernels, fn, a):
     """Whether K3 *fn* gives the plain version's live set and records on
-    the tensors *a*, bit for bit (as int32 views: torch.equal takes -0.0
-    for +0.0); returns (equal, the plain records)."""
-    import torch
-    gL, grec = fn(*a)
-    wL, wrec = kernels.consume_scan_plain(*a)
-    return (torch.equal(gL.view(torch.int32), wL.view(torch.int32)) and
-            torch.equal(grec.view(torch.int32), wrec.view(torch.int32)),
-            wrec)
+    the tensors *a*, bit for bit; returns (equal, the plain records)."""
+    want = kernels.consume_scan_plain(*a)
+    return bits_equal(fn(*a), want), want[1]
 
 
 def check_consume_scan(kernels, rng, npad, P, kind='mixed'):
@@ -304,32 +379,41 @@ def check_consume_scan(kernels, rng, npad, P, kind='mixed'):
     return 0.0, ms, plain, bms, by, dev
 
 
-class ScanCapture:
-    """Keeps a copy of the inputs of every K3 call made inside the block.
+class KernelCapture:
+    """Keeps a copy of the inputs of every K1, K2 and K3 call made inside
+    the block.
 
-    Wraps :func:`ultranest_torch.ops.kernels.consume_scan`, through which
-    every segment path consumes its rows; each call still launches K3
-    once. The copies (``calls``) are a path's real traffic for
-    :func:`check_scan_traffic`.
+    Wraps the wrappers of :mod:`ultranest_torch.ops.kernels` through
+    which the paths reach the kernels; each call still launches its
+    kernel once. The copies (``calls``, by kernel name) are a path's real
+    traffic for :func:`check_scan_traffic`, :func:`check_member_traffic`
+    and :func:`check_bootstrap_traffic`.
     """
+
+    NAMES = ('consume_scan', 'radius_member', 'bootstrap_radius')
 
     def __init__(self, kernels):
         self.kernels = kernels
-        self.calls = []
+        self.calls = {name: [] for name in self.NAMES}
 
     def __enter__(self):
-        self.orig = orig = self.kernels.consume_scan
+        import torch
+        self.orig = {name: getattr(self.kernels, name) for name in self.NAMES}
 
-        def capture(live_L, rows_L, rows_valid):
-            self.calls.append((live_L.clone(), rows_L.clone(),
-                               rows_valid.clone()))
-            return orig(live_L, rows_L, rows_valid)
+        def wrap(name, orig):
+            def capture(*args):
+                self.calls[name].append(tuple(
+                    a.clone() if torch.is_tensor(a) else a for a in args))
+                return orig(*args)
+            return capture
 
-        self.kernels.consume_scan = capture
+        for name, orig in self.orig.items():
+            setattr(self.kernels, name, wrap(name, orig))
         return self
 
     def __exit__(self, *exc):
-        self.kernels.consume_scan = self.orig
+        for name, orig in self.orig.items():
+            setattr(self.kernels, name, orig)
 
 
 def check_scan_traffic(kernels, name, calls):
@@ -339,7 +423,6 @@ def check_scan_traffic(kernels, name, calls):
     (host-paced, and on the device alone with :func:`queued_ms`), beside
     the mean bound of its calls and the share of valid rows accepted.
     Returns these numbers as a dict."""
-    from ultranest_torch.evaluate.bench_membership import cuda_ms
     for k in sorted({0, len(calls) // 2, len(calls) - 1}):
         assert scan_equal(kernels, kernels.consume_scan, calls[k])[0], \
             ('consume_scan records differ on a real call', name, k)
@@ -347,14 +430,12 @@ def check_scan_traffic(kernels, name, calls):
     nvalid = sum(int((c[2] > 0.5).sum()) for c in calls)
     naccept = sum(int(kernels.consume_scan(*c)[1][:, 0].sum())
                   for c in calls)
-    fns = [lambda c=c: kernels.consume_scan(*c) for c in calls]
-    reps = max(1, -(-50 // len(calls)))
+    ms, dev = replay_ms(kernels.consume_scan, calls)
     out = dict(
         calls=len(calls), P=sorted({int(c[1].shape[0]) for c in calls}),
         npad=sorted({int(c[0].shape[0]) for c in calls}),
         valid_rows=nvalid, accepted=naccept,
-        ms=cuda_ms(lambda: [f() for f in fns], reps) / len(calls),
-        device_ms=queued_ms(fns * reps),
+        ms=ms, device_ms=dev,
         bound_ms=float(np.mean([scan_bound(int(c[0].shape[0]),
                                            int(c[1].shape[0]), n)[0]
                                 for c, n in zip(calls, nseqs)])))
@@ -364,6 +445,84 @@ def check_scan_traffic(kernels, name, calls):
           % (name, out['calls'], out['npad'], out['P'], naccept, nvalid,
              100.0 * naccept / max(nvalid, 1), out['ms'], out['device_ms'],
              out['bound_ms']))
+    return out
+
+
+def replay_ms(fn, calls):
+    """(CUDA-event ms, device-only ms) per call of *fn* over *calls*, each
+    call replayed in order, repeated to at least 50 calls."""
+    from ultranest_torch.evaluate.bench_membership import cuda_ms
+    fns = [lambda c=c: fn(*c) for c in calls]
+    reps = max(1, -(-50 // len(calls)))
+    return (cuda_ms(lambda: [f() for f in fns], reps) / len(calls),
+            queued_ms(fns * reps))
+
+
+def member_call_bound(kernels, call):
+    """Bound (ms) of one K1 call from its own valid rows and members."""
+    tpoints, tmask, cands, r2 = call
+    nmember = int(kernels.radius_member_plain(*call).sum())
+    return member_bound(tpoints.shape[0], int((tmask != 0).sum()),
+                        cands.shape[0], tpoints.shape[1], nmember)[0]
+
+
+def check_member_traffic(kernels, name, calls):
+    """K1 on a path's real calls: every call equal to the plain version,
+    then the calls replayed in order and by candidate count M, timed as a
+    mean per call (host-paced, and on the device alone) beside the mean
+    bound of those calls' own valid rows and members. Returns these
+    numbers as a dict (``by_m``: M -> calls, device ms, bound ms)."""
+    for k, c in enumerate(calls):
+        assert bool((kernels.radius_member(*c) ==
+                     kernels.radius_member_plain(*c)).all()), \
+            ('radius_member disagrees on a real call', name, k)
+    bounds = [member_call_bound(kernels, c) for c in calls]
+    ms, dev = replay_ms(kernels.radius_member, calls)
+    by_m = {}
+    for m in sorted({int(c[2].shape[0]) for c in calls}):
+        idx = [k for k, c in enumerate(calls) if c[2].shape[0] == m]
+        by_m[m] = dict(
+            calls=len(idx),
+            device_ms=replay_ms(kernels.radius_member,
+                                [calls[k] for k in idx])[1],
+            bound_ms=float(np.mean([bounds[k] for k in idx])))
+    out = dict(calls=len(calls), ms=ms, device_ms=dev,
+               bound_ms=float(np.mean(bounds)), by_m=by_m,
+               npad=sorted({int(c[0].shape[0]) for c in calls}),
+               d=int(calls[0][0].shape[1]))
+    print('K1 on %s\'s %d real calls (npad %s, d %d): every call equal to '
+          'plain; per call kernel %.4f ms, device %.4f ms, bound %.6f ms; by '
+          'M: %s' % (name, out['calls'], out['npad'], out['d'], ms, dev,
+                     out['bound_ms'], '; '.join(
+                         'M %d x %d device %.4f ms (bound %.6f)' % (
+                             m, r['calls'], r['device_ms'], r['bound_ms'])
+                         for m, r in by_m.items())))
+    return out
+
+
+def check_bootstrap_traffic(kernels, name, calls):
+    """K2 on a path's real calls: every call bit-equal to the plain
+    version, then the calls replayed in order, timed as a mean per call
+    (host-paced, and on the device alone) beside the mean bound of those
+    calls' own masks. Returns these numbers as a dict."""
+    for k, c in enumerate(calls):
+        assert bits_equal(kernels.bootstrap_radius(*c),
+                          kernels.bootstrap_radius_plain(*c)), \
+            ('bootstrap_radius disagrees on a real call', name, k)
+    d = int(calls[0][0].shape[1])
+    ms, dev = replay_ms(kernels.bootstrap_radius, calls)
+    out = dict(
+        calls=len(calls), ms=ms, device_ms=dev, d=d,
+        bound_ms=float(np.mean([bootstrap_bound(c[1], c[2], d)[0]
+                                for c in calls])),
+        npad=sorted({int(c[0].shape[0]) for c in calls}),
+        nvalid=sorted({int(c[1].sum()) for c in calls}),
+        rounds=sorted({int(c[2].shape[0]) for c in calls}))
+    print('K2 on %s\'s %d real calls (npad %s, valid rows %s, rounds %s, d '
+          '%d): every call bit-equal to plain; per call kernel %.4f ms, '
+          'device %.4f ms, bound %.6f ms' % (
+              name, out['calls'], out['npad'], out['nvalid'], out['rounds'],
+              d, ms, dev, out['bound_ms']))
     return out
 
 
@@ -416,7 +575,8 @@ def check_membership_shootout(kernels):
 
     Holds K1 and K1t against the plain version at 65 boundary radii per
     shape (those launches are comparisons), then sets the counts to 0
-    and runs the shootout's timing, the path that launches K1t.
+    and runs the shootout's timing, the path that launches K1t, and
+    reads K1t's count; then times K1t and K1 on the device alone.
     Returns (per-shape timing rows, K1t launches of that run).
     """
     import torch
@@ -439,10 +599,29 @@ def check_membership_shootout(kernels):
             float(r2)).sum())
         row['bound_ms'], row['bound_by'] = member_bound(
             row['npts'], row['npts'], row['m'], row['d'], nmember)
+        # on the device alone, at the shootout's radius (where almost
+        # every candidate has a hit within the first rows, so the time
+        # is the launch's floor) and at the candidates' median nearest
+        # distance (half of them walk every row): K1t beside K1
+        tp_d, tm_d, cd_d = (torch.as_tensor(a, device='cuda')
+                            for a in (tp, tm, cd))
+        tp_t, cd_t = tp_d.T.contiguous(), cd_d.T.contiguous()
+        r2m = bench_membership.boundary_radii(tp_d, cd_d, nradii=3)[0][1]
+        for key, radius in (('', float(r2)), ('_median', r2m)):
+            row['k1t_device_ms' + key] = queued_ms(
+                [lambda: kernels.radius_member_t(tp_t, tm_d, cd_t,
+                                                 radius)] * 50)
+            row['k1_device_ms' + key] = queued_ms(
+                [lambda: kernels.radius_member(tp_d, tm_d, cd_d,
+                                               radius)] * 50)
         print('K1t radius_member_t N=%d M=%d d=%d at r2 = 4 d: %d of %d '
-              'candidates inside, bound %.6f ms (%s)' % (
+              'candidates inside, bound %.6f ms (%s), device %.4f ms (K1 '
+              '%.4f); at the median nearest distance: device %.4f ms (K1 '
+              '%.4f)' % (
                   row['npts'], row['m'], row['d'], nmember, row['m'],
-                  row['bound_ms'], row['bound_by']))
+                  row['bound_ms'], row['bound_by'], row['k1t_device_ms'],
+                  row['k1_device_ms'], row['k1t_device_ms_median'],
+                  row['k1_device_ms_median']))
     return rows, launches
 
 
@@ -660,33 +839,24 @@ def run_engine(name):
     return out
 
 
-# K2's shape (index into main's list) on each path's region rebuilds;
-# K1 takes its first shape (M 4096, the eggbox's smallest draw) on all
-K2_SHAPE_OF_PATH = {'sync': 1, 'async_classic': 2}
-
-
-def print_ranking(shapes, real, path_launches):
+def print_ranking(real):
     """Prints each kernel's launches x (device ms - bound ms) summed over
-    the sampler paths of this run, largest first: K3 at each path's own
-    replayed calls, K1 and K2 at the shapes their paths give them."""
-    gap = {'consume_scan': sum(r['calls'] * (r['device_ms'] - r['bound_ms'])
-                               for r in real.values()),
-           'radius_member_t': 0.0}
-    for k in ('radius_member', 'bootstrap_radius'):
-        gap[k] = 0.0
-        for path, counts in path_launches.items():
-            res = shapes[k][K2_SHAPE_OF_PATH.get(path, 0)
-                            if k == 'bootstrap_radius' else 0]
-            gap[k] += counts.get(k, 0) * (res[5] - res[3])
+    the sampler paths of this run, largest first, every term from the
+    path's own replayed calls (*real*: kernel -> path -> its numbers)."""
+    gap = {k: sum(r['calls'] * (r['device_ms'] - r['bound_ms'])
+                  for r in paths.values()) for k, paths in real.items()}
+    gap['radius_member_t'] = 0.0
     print('ranking by launches x (device ms - bound ms) over the sampler '
-          'paths: ' + ', '.join('%s %.3f ms' % (k, v) for k, v in sorted(
-              gap.items(), key=lambda kv: -kv[1])))
+          'paths\' replayed calls: ' + ', '.join(
+              '%s %.3f ms' % (k, v) for k, v in sorted(
+                  gap.items(), key=lambda kv: -kv[1])))
+    return gap
 
 
 def main(argv=()):
-    """*argv*: ``--save-traffic PATH`` also saves every path's K3 inputs
-    (``torch.save``, a dict of lists of CPU tensors) for
-    ``scripts/bench_consume_scan.py``."""
+    """*argv*: ``--save-traffic PATH`` also saves every path's K1, K2 and
+    K3 inputs (``torch.save``: path -> kernel -> list of calls, the
+    tensors on the CPU) for ``scripts/bench_kernels.py``."""
     save_traffic = argv[argv.index('--save-traffic') + 1] \
         if '--save-traffic' in argv else None
     import torch
@@ -709,26 +879,21 @@ def main(argv=()):
     t0 = time.time()
     so = kernels.build()
     print('built %s in %.2f s' % (so.rsplit('/', 1)[-1], time.time() - t0))
-    for line in kernels.BUILD_LOG.splitlines():
-        if 'Used' in line or 'spill' in line:
-            print('  ptxas:', line.strip())
+    for name, regs, spill in ptxas_summary(kernels.BUILD_LOG):
+        print('  ptxas: %s: %d registers, %d bytes spilled' % (name, regs,
+                                                              spill))
+        assert spill == 0, ('a kernel spills registers', name)
 
     rng = np.random.RandomState(0)
     # each kernel's numbers at each shape: (max |err|, kernel ms, plain
     # ms, bound ms, what bounds it, device ms); the JSON line takes the
     # first shape's
     errs, launches, shapes = {}, {}, {}
-    for npad, m, d in ((512, 4096, 2), (512, 131072, 2), (512, 4096, 16),
-                       (2048, 16384, 8)):
+    for npad, m, d in MEMBER_SHAPES:
         res = check_radius_member(kernels, rng, npad, m, d)
         errs['radius_member'] = max(errs.get('radius_member', 0.0), res[0])
         shapes.setdefault('radius_member', []).append(res)
-    # the region rebuilds' shapes (30 bootstrap rounds): the eggbox's 400
-    # live points, the sync d-2 engine run's 100 (one block, padded to
-    # 128) and the classic async run's 200 in d 8 (padded to 256); 2048
-    # in d 8 as a large case
-    for n, nrounds, d in ((400, 30, 2), (100, 30, 2), (200, 30, 8),
-                          (2048, 30, 8)):
+    for n, nrounds, d in BOOTSTRAP_SHAPES:
         res = check_bootstrap_radius(kernels, rng, n, nrounds, d)
         errs['bootstrap_radius'] = max(errs.get('bootstrap_radius', 0.0),
                                        res[0])
@@ -745,10 +910,10 @@ def main(argv=()):
     print('membership shootout kernel launches: %d of K1t'
           % launches['radius_member_t'])
 
-    # every segment path's K3 calls are kept (ScanCapture) and replayed
-    # after the runs: K3 on real traffic
+    # every path's K1, K2 and K3 calls are kept (KernelCapture) and
+    # replayed after the runs: the kernels on real traffic
     traffic, path_launches = {}, {}
-    with ScanCapture(kernels) as cap:
+    with KernelCapture(kernels) as cap:
         run = run_eggbox()
     traffic['eggbox'] = cap.calls
     print('eggbox: logZ %.4f +- %.4f (quadrature %.3f), wall %.3f s, '
@@ -765,7 +930,7 @@ def main(argv=()):
     launch_s, rounds = 0.0, 0
     for name in ('asymgauss50', 'rosenbrock8', 'multishell8', 'loggamma30',
                  'gauss100'):
-        with ScanCapture(kernels) as cap:
+        with KernelCapture(kernels) as cap:
             run = run_population_problem(name)
         traffic[name] = cap.calls
         path_launches[name] = run['launches']
@@ -786,10 +951,9 @@ def main(argv=()):
 
     engines = {}
     for name in ('sync', 'async', 'sync8', 'rwalk', 'async_classic'):
-        with ScanCapture(kernels) as cap:
+        with KernelCapture(kernels) as cap:
             run = engines[name] = run_engine(name)
-        if cap.calls:
-            traffic[name] = cap.calls
+        traffic[name] = cap.calls
         path_launches[name] = run['launches']
         print('engine %s: logZ %.4f +- %.4f, wall %.3f s, ncall %d, niter '
               '%d, ncall/niter %.3f, %d dispatches, %d rounds, %d host '
@@ -813,15 +977,22 @@ def main(argv=()):
               engines['sync8']['ncall_per_iter'], ratio))
     assert ratio < 0.7, ('async not cheaper than sync', ratio)
 
-    real = {name: check_scan_traffic(kernels, name, calls)
-            for name, calls in traffic.items()}
-    for name, r in real.items():
-        assert r['calls'] == path_launches[name]['consume_scan'], \
-            ('K3 calls kept and launched differ', name)
+    checks = {'consume_scan': check_scan_traffic,
+              'radius_member': check_member_traffic,
+              'bootstrap_radius': check_bootstrap_traffic}
+    real = {k: {name: check(kernels, name, calls[k])
+                for name, calls in traffic.items() if calls[k]}
+            for k, check in checks.items()}
+    for k, paths in real.items():
+        for name, counts in path_launches.items():
+            assert paths.get(name, {'calls': 0})['calls'] == \
+                counts.get(k, 0), ('calls kept and launched differ', k, name)
     if save_traffic:
-        torch.save({name: [tuple(t.cpu() for t in c) for c in calls]
-                     for name, calls in traffic.items()}, save_traffic)
-    print_ranking(shapes, real, path_launches)
+        torch.save({name: {k: [tuple(t.cpu() if torch.is_tensor(t) else t
+                                     for t in c) for c in kcalls]
+                           for k, kcalls in calls.items()}
+                    for name, calls in traffic.items()}, save_traffic)
+    print_ranking(real)
     print('chip_smoke: every phase passed in %.1f s' % (time.time() - t_start))
 
     # no single PyTorch call computes any of the four functions, so none

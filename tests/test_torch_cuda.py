@@ -26,9 +26,19 @@ def cuda():
     return torch.device('cuda')
 
 
+GROUPS = (1, 2, 4, 8, 16, 32)
+
+
+# d <= 32: the candidate in registers (instantiations for d <= 4, 8, 16,
+# 32); d 33, 40 and 100: the generic path, candidates staged in shared
+# memory; npad 32768: the live set in several tiles; M 1 and 33: ragged
+# last warps and groups
 @pytest.mark.parametrize('npad,m,d', [(512, 4096, 2), (512, 4096, 16),
                                       (2048, 16384, 8), (64, 130, 3),
-                                      (512, 128, 100)])
+                                      (512, 128, 100), (512, 1000, 33),
+                                      (512, 4096, 40), (32768, 4096, 2),
+                                      (32768, 300, 24), (512, 1, 2),
+                                      (512, 33, 5), (100, 33, 32)])
 def test_radius_member_equals_plain(cuda, npad, m, d):
     rng = np.random.RandomState(npad + d)
     tp = torch.as_tensor(rng.normal(size=(npad, d)).astype(np.float32),
@@ -52,16 +62,117 @@ def test_radius_member_equals_plain(cuda, npad, m, d):
         if r2 in boundary:
             on = mind.values == r2
             assert bool(on.any()) and bool(want[on].all())
+    # every group size the wrapper can choose, forced
+    for r2 in boundary[::8]:
+        want = kernels.radius_member_plain(tp, tmask, cands, r2)
+        for group in GROUPS:
+            got = kernels._radius_member_cuda(tp, tmask, cands, r2, group)
+            assert torch.equal(got, want), (group, r2)
 
 
-@pytest.mark.parametrize('n,d', [(400, 2), (2048, 8), (37, 3), (300, 40)])
-def test_bootstrap_radius_equals_plain(cuda, n, d):
+@pytest.mark.parametrize('d', [2, 8, 40])
+@pytest.mark.parametrize('case', ['all_masked', 'nan_rows', 'nan_candidates',
+                                  'r2_zero', 'r2_max', 'scattered_mask'])
+def test_radius_member_edges(cuda, case, d):
+    rng = np.random.RandomState(d)
+    tp = rng.normal(size=(300, d)).astype(np.float32)
+    tmask = np.ones(300, np.int32)
+    cands = rng.normal(size=(777, d)).astype(np.float32)
+    # about half of the candidates inside
+    r2 = float(np.median(((tp[:, None, :] - cands[None, :, :]) ** 2)
+                         .sum(axis=2).min(axis=0)))
+    if case == 'all_masked':
+        tmask[:] = 0
+    elif case == 'nan_rows':
+        tp[::3] = np.nan
+    elif case == 'nan_candidates':
+        cands[::5, d - 1] = np.nan
+    elif case == 'r2_zero':
+        r2 = 0.0
+        cands[10], tmask[7] = tp[20], 0
+        cands[11] = tp[7]
+    elif case == 'r2_max':
+        r2 = float(np.finfo(np.float32).max)
+        cands[3] = 3e19
+    else:
+        tmask[:] = rng.uniform(size=300) < 0.4
+    a = [torch.as_tensor(x, device=cuda) for x in (tp, tmask, cands)]
+    want = kernels.radius_member_plain(*a, r2)
+    assert torch.equal(kernels.radius_member(*a, r2), want)
+    for group in GROUPS:
+        assert torch.equal(kernels._radius_member_cuda(*a, r2, group), want)
+    if case == 'all_masked':
+        assert int(want.sum()) == 0
+    if case == 'r2_zero':
+        assert int(want[10]) == 1 and int(want[11]) == 0
+    if case == 'r2_max':
+        assert int(want[3]) == 0 and int(want.sum()) == 776
+    if case == 'nan_candidates':
+        assert int(want[::5].sum()) == 0 and int(want.sum()) > 0
+
+
+def test_radius_member_refuses_bad_group_and_dim(cuda):
+    tp = torch.zeros((8, 2), device=cuda)
+    tmask = torch.ones(8, dtype=torch.int32, device=cuda)
+    cands = torch.zeros((4, 2), device=cuda)
+    for group in (0, 3, 64):
+        with pytest.raises(RuntimeError):
+            kernels._radius_member_cuda(tp, tmask, cands, 1.0, group)
+    big = kernels.MAX_MEMBER_DIM + 1
+    with pytest.raises(ValueError):
+        kernels.radius_member(torch.zeros((8, big), device=cuda), tmask,
+                              torch.zeros((4, big), device=cuda), 1.0)
+
+
+# B 30: one word of rounds; 32 and 33: the word's edge; 50 (the default
+# of MLFriends.compute_maxradiussq) and 64: two words; 70: a second pass
+# over the rows; d 40: the column read from shared memory; (3000, 100):
+# rows in several tiles
+@pytest.mark.parametrize('nrounds', [1, 30, 32, 33, 50, 64, 70])
+@pytest.mark.parametrize('n,d', [(400, 2), (2048, 8), (37, 3), (300, 40),
+                                 (100, 2), (200, 8), (3000, 100)])
+def test_bootstrap_radius_equals_plain(cuda, n, d, nrounds):
     rng = np.random.RandomState(n)
     tp = rng.normal(size=(n, d)).astype(np.float32)
-    args = radius_inputs(tp, make_bootstrap_masks(n, 30, rng=rng), cuda)
-    got = float(kernels.bootstrap_radius(*args))
-    want = float(kernels.bootstrap_radius_plain(*args))
-    np.testing.assert_allclose(got, want, rtol=1e-6)
+    tp[[5, 11]] = tp[[6, 12]]
+    masks = make_bootstrap_masks(n, nrounds, rng=rng)
+    masks[-1] = True
+    masks[-1, n // 2] = False            # a round that leaves one point out
+    args = radius_inputs(tp, masks, cuda)
+    kernels.reset_counts()
+    got = kernels.bootstrap_radius(*args)
+    assert kernels.LAUNCHES['bootstrap_radius'] == 1
+    want = kernels.bootstrap_radius_plain(*args)
+    # bit for bit: the kernel rounds as the plain version does, and min
+    # and max are exact in any order
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32)), \
+        (float(got), float(want))
+    assert float(got) > 0
+
+
+def test_bootstrap_radius_edges(cuda):
+    """No rounds and all points equal give 0.0; a round that selects
+    nothing gives the sentinel, as the plain version does; a second call
+    does not see the first one's result."""
+    tp = np.random.RandomState(0).normal(size=(64, 3)).astype(np.float32)
+    masks = make_bootstrap_masks(64, 30, rng=np.random.RandomState(1))
+    args = radius_inputs(tp, masks, cuda)
+    first = kernels.bootstrap_radius(*args)
+    for a in (radius_inputs(tp, masks[:0], cuda),
+              radius_inputs(np.full((64, 3), 0.5, np.float32), masks, cuda),
+              radius_inputs(tp, np.zeros((3, 64), bool), cuda),
+              radius_inputs(0.1 * tp, masks, cuda)):
+        got, want = kernels.bootstrap_radius(*a), \
+            kernels.bootstrap_radius_plain(*a)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert float(first) > float(got) > 0
+    # valid rows need not be a prefix
+    tpv, valid, mk = args
+    valid = valid.clone()
+    valid[::3] = 0
+    got = kernels.bootstrap_radius(tpv, valid, mk)
+    want = kernels.bootstrap_radius_plain(tpv, valid, mk)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
 
 
 # npad <= 1024: the live set in one warp's registers (128, 256, 512 as

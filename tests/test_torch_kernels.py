@@ -13,11 +13,22 @@ plain torch version; these tests hold those against the reference:
   order-preserving keys, the lowest-slot rule across lanes, one chain
   step per accepted row, and rank, dup and plateau counted from the
   initial live set and the accepted rows' swaps) against the same
-  reference on tie-heavy inputs.
+  reference on tie-heavy inputs;
+* numpy models of what the redesigned K2 and K1 do beyond the plain
+  versions' arithmetic (K2: the rounds as bits, each distance once,
+  per-word minima merged on the uint bits; K1: the valid rows squeezed
+  out, G lanes a candidate, the chunked vote) against the plain versions
+  exactly and against the reference; K1's group-size function;
+* the port's own copies of the host C sources against the reference's,
+  and that no module of the port names a path of the JAX package.
 
 The CUDA kernels themselves are held against these plain versions on a
 card by tests/test_torch_cuda.py.
 """
+import ast
+import os
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -322,3 +333,301 @@ def test_consume_scan_warp_model_matches_reference(case, npad):
         # the plateau of zeros is consumed lowest slot first, across lanes
         zero_slots = mrec[(mrec[:, 0] > 0.5) & (mrec[:, 2] == 0), 1]
         np.testing.assert_array_equal(zero_slots[:5], [5, 12, 37, 70, 99])
+
+
+# ----------------------------- K2's decomposition: rounds as bits -----
+# numpy models of what csrc/bootstrap_radius.cu and csrc/radius_member.cu
+# do beyond the plain versions' arithmetic, held against the plain
+# versions exactly and against the reference.
+
+def _plain_sqdist(a, b):
+    """(len(a), len(b)) float32 squared distances, summed axis by axis
+    with the product and the sum each rounded (numpy float32 has no FMA):
+    the arithmetic of the kernels and the plain versions."""
+    d2 = np.zeros((len(a), len(b)), np.float32)
+    with np.errstate(invalid='ignore', over='ignore'):
+        for k in range(a.shape[1]):
+            diff = a[:, k, None] - b[None, :, k]
+            d2 = d2 + diff * diff
+    return d2
+
+
+def _k2_model(tp, valid, masks, lanes=32):
+    """numpy model of ``csrc/bootstrap_radius.cu``.
+
+    The rounds become bits (one uint32 word per row and 32 rounds); each
+    distance is computed once; lane g of a column's warp takes rows g,
+    g + 32, ... and holds one minimum per round of the word, updated
+    where the row's bit is set; the lanes' minima merge as uint32 bits;
+    column j counts in round b where it is valid and its bit is clear;
+    the maximum is taken on the bits, from the bits of 0.0.
+    """
+    npad = len(tp)
+    assert npad % lanes == 0
+    B = len(masks)
+    nwords = -(-B // 32)
+    selbits = np.zeros((nwords, npad), np.uint32)
+    for b in range(B):
+        selbits[b // 32] |= (masks[b] != 0).astype(np.uint32) << np.uint32(
+            b % 32)
+    bits = _plain_sqdist(tp, tp).view(np.uint32)       # [row i, column j]
+    big = np.array(1e30, np.float32).view(np.uint32)
+    colmax = np.zeros(npad, np.uint32)
+    for w in range(nwords):
+        nb = min(32, B - 32 * w)
+        rounds = np.uint32(0xffffffff if nb == 32 else (1 << nb) - 1)
+        need = np.where(valid != 0, ~selbits[w] & rounds, np.uint32(0))
+        for b in range(nb):
+            rowsel = ((selbits[w] >> np.uint32(b)) & 1).astype(bool)
+            lane_min = np.where(rowsel[:, None], bits, big).reshape(
+                -1, lanes, npad).min(axis=0)            # (lane, column)
+            u = lane_min.min(axis=0)                    # the warp's merge
+            counts = ((need >> np.uint32(b)) & 1).astype(bool)
+            colmax = np.where(counts, np.maximum(colmax, u), colmax)
+    return colmax.max(initial=np.uint32(0)).view(np.float32), selbits
+
+
+def _k2_inputs(n, d, B, seed):
+    """Padded (tpoints, valid, masks) numpy arrays: normal points with
+    three duplicated pairs, masks selecting ~63% of the rows, the last
+    round selecting all but one point."""
+    rng = np.random.RandomState(seed)
+    tp = rng.normal(size=(n, d)).astype(np.float32)
+    tp[[5, 11, 20]] = tp[[6, 12, 21]]
+    masks = rng.uniform(size=(B, n)) < 0.63
+    masks[:, 0] = True
+    masks[:, 1] = False
+    masks[-1] = True
+    masks[-1, (7 * B) % n] = False
+    npd = round_up(n)
+    mk = np.zeros((B, npd), np.uint8)
+    mk[:, :n] = masks
+    return pad_rows(tp, npd), pad_rows(np.ones(n, np.uint8), npd, 0), mk
+
+
+@pytest.mark.parametrize('d', [2, 8, 40])
+@pytest.mark.parametrize('n', [37, 100, 400])
+@pytest.mark.parametrize('B', [1, 30, 32, 33, 50, 64])
+def test_bootstrap_radius_bit_model(B, n, d):
+    """Rounds as bits, distances once, per-word minima on the uint bits:
+    equal to the plain version bit for bit, and to the reference (the
+    XLA kernel and the Pallas kernel in interpret mode) within 1e-6,
+    because XLA on the CPU contracts ``a + b * c`` into an FMA."""
+    tp, valid, mk = _k2_inputs(n, d, B, seed=1000 * B + n + d)
+    got, selbits = _k2_model(tp, valid, mk)
+    assert selbits.shape == (-(-B // 32), len(tp))
+    assert not (selbits[-1] >> np.uint32((B - 1) % 32 + 1)).any() \
+        or B % 32 == 0
+    want = kernels.bootstrap_radius_plain(*map(torch.as_tensor,
+                                               (tp, valid, mk))).numpy()
+    assert got.view(np.uint32) == want.view(np.uint32), (got, want)
+    assert got > 0
+    masks = mk[:, :n].astype(bool)
+    xla = float(_radius_kernel(tp, valid.astype(bool), mk.astype(bool)))
+    pallas = bootstrap_radius_pallas(tp[:n], masks, interpret=True)
+    np.testing.assert_allclose(got, xla, rtol=1e-6)
+    np.testing.assert_allclose(got, pallas, rtol=1e-6)
+
+
+def test_bootstrap_radius_bit_model_duplicates_give_zero():
+    """Every point equal: every nearest selected neighbour is at distance
+    0, and the result is the carry's start, +0.0."""
+    tp = np.full((64, 3), 0.25, np.float32)
+    valid = np.ones(64, np.uint8)
+    mk = (np.random.RandomState(0).uniform(size=(33, 64)) < 0.5).astype(
+        np.uint8)
+    got, _ = _k2_model(tp, valid, mk)
+    want = kernels.bootstrap_radius_plain(*map(torch.as_tensor,
+                                               (tp, valid, mk))).numpy()
+    assert got.view(np.uint32) == want.view(np.uint32) == 0
+
+
+# ------------------- K1's decomposition: compaction, groups, the vote -----
+
+def _k1_model(tp, tmask, cands, r2, G, rows_at_a_time=8, seed=0):
+    """numpy model of ``csrc/radius_member.cu`` on one tile.
+
+    The valid rows are squeezed out (in an order the kernel does not fix:
+    here a permutation); G lanes share a candidate, lane g testing rows
+    g, g + G, ..., eight at a time; after each chunk the warp (32 / G
+    candidates) votes, a group with a hit stops testing, and the warp
+    leaves once all its groups have one. Groups past the last candidate
+    count as hit from the start. Returns (member, rows tested).
+    """
+    rows = np.random.RandomState(seed).permutation(np.nonzero(tmask != 0)[0])
+    live = tp[rows]
+    nv, M = len(live), len(cands)
+    within = _plain_sqdist(live, cands) <= np.float32(r2)
+    per_warp = 32 // G
+    nwarps = -(-M // per_warp)
+    hit = np.ones(nwarps * per_warp, bool)
+    hit[:M] = False
+    within = np.pad(within, ((0, 0), (0, len(hit) - M)))
+    left = np.zeros(nwarps, bool)
+    tested = 0
+    chunk = G * rows_at_a_time
+    for base in range(0, nv, chunk):
+        testing = ~hit & ~np.repeat(left, per_warp)
+        lane_found = np.zeros((G, len(hit)), bool)
+        for g in range(G):
+            idx = [base + r * G + g for r in range(rows_at_a_time)
+                   if base + r * G + g < nv]
+            lane_found[g] = within[idx].any(axis=0)
+            tested += len(idx) * int(testing.sum())
+        hit |= lane_found.any(axis=0) & testing        # the folded ballot
+        left |= hit.reshape(nwarps, per_warp).all(axis=1)
+        if left.all():
+            break
+    return hit[:M], tested
+
+
+def _k1_inputs(m, seed, npts=200, d=3):
+    rng = np.random.RandomState(seed)
+    tp = rng.normal(size=(npts, d)).astype(np.float32)
+    tmask = (rng.uniform(size=npts) < 0.8).astype(np.int32)
+    cands = rng.normal(size=(m, d)).astype(np.float32)
+    return tp, tmask, cands
+
+
+@pytest.mark.parametrize('m', [1, 33, 4096])
+@pytest.mark.parametrize('G', [1, 2, 8, 32])
+def test_radius_member_group_model(G, m):
+    """Equal to the plain version at radii that put candidates exactly on
+    the boundary; equal to the Pallas kernel in interpret mode at radii
+    just above them (XLA on the CPU contracts ``a + b * c``, which may
+    flip a candidate that sits exactly on the boundary)."""
+    tp, tmask, cands = _k1_inputs(m, seed=G + m)
+    mind = _plain_sqdist(tp[tmask != 0], cands).min(axis=0)
+    radii = np.unique(np.quantile(mind, [0.1, 0.5, 0.9],
+                                  method='nearest'))
+    nlive = int((tmask != 0).sum())
+    for r2 in radii:
+        got, tested = _k1_model(tp, tmask, cands, r2, G)
+        want = kernels.radius_member_plain(
+            torch.as_tensor(tp), torch.as_tensor(tmask),
+            torch.as_tensor(cands), float(r2)).numpy().astype(bool)
+        np.testing.assert_array_equal(got, want)
+        assert want[mind == r2].all() and (mind == r2).any()
+        # the vote ends the walk early where candidates are inside
+        assert tested <= nlive * (-(-m * G // 32) * 32 // G)
+        above = float(np.float32(r2) * np.float32(1.001))
+        got, _ = _k1_model(tp, tmask, cands, above, G)
+        pallas = radius_member_pallas(tp, tmask.astype(bool), cands, above,
+                                      interpret=True)
+        np.testing.assert_array_equal(got, pallas)
+    if m == 4096 and 16 * G <= nlive:       # at least two chunks of rows
+        assert tested < nlive * m
+
+
+@pytest.mark.parametrize('case', ['all_masked', 'r2_zero', 'r2_max',
+                                  'nan_candidate'])
+@pytest.mark.parametrize('G', [1, 2, 8, 32])
+def test_radius_member_group_model_edges(G, case):
+    tp, tmask, cands = _k1_inputs(33, seed=G)
+    r2 = 0.5
+    if case == 'all_masked':
+        tmask[:] = 0
+    elif case == 'r2_zero':
+        r2 = 0.0
+        live = np.nonzero(tmask)[0]
+        cands[4], cands[9] = tp[live[3]], tp[np.nonzero(tmask == 0)[0][0]]
+    elif case == 'r2_max':
+        r2 = float(np.finfo(np.float32).max)
+        cands[7] = 3e19                       # its distances overflow to inf
+    else:
+        cands[5, 1] = np.nan
+    got, _ = _k1_model(tp, tmask, cands, r2, G)
+    want = kernels.radius_member_plain(
+        torch.as_tensor(tp), torch.as_tensor(tmask), torch.as_tensor(cands),
+        r2).numpy().astype(bool)
+    np.testing.assert_array_equal(got, want)
+    pallas = radius_member_pallas(tp, tmask.astype(bool), cands, r2,
+                                  interpret=True)
+    np.testing.assert_array_equal(got, pallas)
+    if case == 'all_masked':
+        assert not got.any()
+    elif case == 'r2_zero':
+        assert got[4] and not got[9] and got.sum() == 1
+    elif case == 'r2_max':
+        assert not got[7] and got.sum() == 32
+    else:
+        assert not got[5] and got.any()
+
+
+@pytest.mark.parametrize('d', [2, 16, 40, 100, 2048, 4096])
+@pytest.mark.parametrize('npts', [3, 64, 512, 32768])
+def test_member_group_size(npts, d):
+    """A power of two in 1..32, non-increasing in M; many lanes at the
+    region path's smallest draw, one at its largest; above d 32 a block's
+    staged candidates stay within their shared memory."""
+    sizes = [kernels.member_group_size(m, npts, d)
+             for m in (1, 33, 4096, 8192, 32768, 131072, 1 << 20, 1 << 24)]
+    assert all(g in (1, 2, 4, 8, 16, 32) for g in sizes)
+    assert sizes == sorted(sizes, reverse=True)
+    if d > 32:
+        assert all((256 // g) * d * 4 <= 128 * 1024 for g in sizes)
+    if npts >= 128 and d <= 32:
+        assert sizes[0] == 32 and sizes[2] == 16 and sizes[4] == 2 \
+            and sizes[5] == 1 and sizes[-1] == 1
+
+
+# ------------------------------------------- the port stands alone -----
+
+_REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.mark.parametrize('name', ['counters.c', 'stepfuncs.c', 'treesweep.c',
+                                  'replay.c'])
+def test_native_sources_equal_the_reference(name):
+    """The port builds its host library from its own copies of the C
+    sources; each stays equal to the reference package's file."""
+    from ultranest_torch import native
+    assert native._SRC_DIR == os.path.join(_REPO, 'ultranest_torch', 'native')
+    assert name in native.SOURCES
+    with open(os.path.join(native._SRC_DIR, name), 'rb') as f:
+        mine = f.read()
+    with open(os.path.join(_REPO, 'ultranest_tpu', 'native', name),
+              'rb') as f:
+        assert mine == f.read()
+
+
+def _port_modules():
+    out = [os.path.join(_REPO, 'chip_smoke.py')]
+    for root, _, files in os.walk(os.path.join(_REPO, 'ultranest_torch')):
+        out += [os.path.join(root, f) for f in files if f.endswith('.py')]
+    return sorted(out)
+
+
+def test_port_names_no_path_of_the_reference_package():
+    """No module of the port, nor chip_smoke.py, imports jax or the JAX
+    package, or names a path under ``ultranest_tpu/`` in code. Docstrings
+    stay free to cite the counterpart, and so does a string that is
+    nothing but such a citation (``file.py:line``)."""
+    citation = re.compile(r'^[\w/.]+\.py:\d+(-\d+)?$')
+    modules = _port_modules()
+    assert len(modules) > 20
+    for path in modules:
+        with open(path) as f:
+            tree = ast.parse(f.read())
+        docstrings = set()
+        for node in ast.walk(tree):
+            if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef)) \
+                    and node.body and isinstance(node.body[0], ast.Expr) \
+                    and isinstance(node.body[0].value, ast.Constant):
+                docstrings.add(id(node.body[0].value))
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or '']
+            else:
+                names = []
+            for name in names:
+                assert name.split('.')[0] not in ('jax', 'jaxlib',
+                                                  'ultranest_tpu'), \
+                    (path, node.lineno, name)
+            if isinstance(node, ast.Constant) and isinstance(node.value, str) \
+                    and id(node) not in docstrings \
+                    and 'ultranest_tpu' in node.value:
+                assert citation.match(node.value), (path, node.lineno,
+                                                    node.value)

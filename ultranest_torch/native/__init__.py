@@ -5,9 +5,10 @@ Native (C) runtime kernels
 
 Host-side hot loops compiled to machine code: the per-iteration
 integrator update (:func:`counter_step`), the tree sweep and the
-segment replay counters. The C sources are the JAX package's own
-(``ultranest_tpu/native/*.c``), read by file path -- importing
-``ultranest_tpu`` would load jax -- and built on first use with the
+segment replay counters. The C sources lie beside this file
+(``counters.c``, ``stepfuncs.c``, ``treesweep.c``, ``replay.c``): the
+port's own copies, byte for byte, of the reference package's native
+sources, which a test holds equal. They are built on first use with the
 system compiler into ``ultranest_torch/native/_build/``. Without a
 working C compiler the numpy implementations serve instead.
 """
@@ -22,9 +23,8 @@ import numpy as np
 __all__ = ['counter_step', 'slice_update', 'tree_sweep', 'available']
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
-# the C sources live beside the reference package's loader
-_SRC_DIR = os.path.join(os.path.dirname(os.path.dirname(_HERE)),
-                        'ultranest_tpu', 'native')
+# the C sources live beside this loader
+_SRC_DIR = _HERE
 _LIB = None
 
 

@@ -21,7 +21,7 @@ import numpy as np
 import torch
 
 from . import kernels
-from .pairwise import pad_rows, round_up
+from .pairwise import round_up
 
 __all__ = ['bootstrap_radius_enlargement', 'make_bootstrap_masks']
 
@@ -84,17 +84,23 @@ def radius_inputs(tpoints, masks, device):
     """Padded kernel inputs (tpoints f32, valid u8, masks u8) on *device*.
 
     Rows are padded to the power-of-two bucket of the reference
-    (``round_up``); padded rows are invalid and never selected.
+    (``round_up``); padded rows are invalid and never selected. The three
+    arrays ship as ONE host-to-device copy of their bytes and are sliced
+    into views (the float32 points first, so that they stay aligned).
     """
     tpoints = np.asarray(tpoints, dtype=np.float32)
-    n = len(tpoints)
+    n, d = tpoints.shape
     npd = round_up(n)
-    valid = pad_rows(np.ones(n, np.uint8), npd, 0)
-    mk = np.zeros((len(masks), npd), dtype=np.uint8)
-    mk[:, :n] = masks
-    return (torch.as_tensor(pad_rows(tpoints, npd), device=device),
-            torch.as_tensor(valid, device=device),
-            torch.as_tensor(mk, device=device))
+    nrounds = len(masks)
+    npts = npd * d * 4
+    flat = np.zeros(npts + npd + nrounds * npd, dtype=np.uint8)
+    flat[:npts].view(np.float32).reshape(npd, d)[:n] = tpoints
+    flat[npts:npts + n] = 1
+    flat[npts + npd:].reshape(nrounds, npd)[:, :n] = masks
+    packed = torch.as_tensor(flat).to(device, non_blocking=True)
+    return (packed[:npts].view(torch.float32).view(npd, d),
+            packed[npts:npts + npd],
+            packed[npts + npd:].view(nrounds, npd))
 
 
 def _bootstrap_radius(tpoints, masks, device):

@@ -16,7 +16,9 @@ Four kernels, sources in ``ultranest_torch/csrc/``:
   scan of ``ultranest_tpu/segmentops.py:78-134``.
 
 Each source file says what bounds its kernel on an H100 and what its
-design does about it.
+design does about it. K1 and K2 share ``csrc/member_core.cuh``: the
+point in registers, the separately rounded distance, the compacted
+axis-major tile of live points and the group vote.
 
 Build: on first use, one ``nvcc -gencode arch=compute_90a,code=sm_90a``
 per source compiles the sources in parallel, and one more links the
@@ -48,7 +50,7 @@ __all__ = ['radius_member', 'radius_member_t', 'bootstrap_radius',
            'consume_scan', 'radius_member_plain', 'radius_member_t_plain',
            'bootstrap_radius_plain', 'consume_scan_plain', 'build',
            'LAUNCHES', 'PLAIN_CALLS', 'reset_counts', 'KERNELS',
-           'REGION_KERNELS']
+           'REGION_KERNELS', 'member_group_size']
 
 KERNELS = ('radius_member', 'radius_member_t', 'bootstrap_radius',
            'consume_scan')
@@ -57,6 +59,8 @@ KERNELS = ('radius_member', 'radius_member_t', 'bootstrap_radius',
 REGION_KERNELS = ('radius_member', 'bootstrap_radius', 'consume_scan')
 SOURCES = ('radius_member.cu', 'radius_member_t.cu', 'bootstrap_radius.cu',
            'consume_scan.cu')
+# headers the sources include: hashed with them, so that an edit rebuilds
+HEADERS = ('member_core.cuh',)
 NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-Xcompiler', '-fPIC', '-Xptxas', '-v']
 # largest live set K3 takes: one 1024-thread CTA keeps live sets above
@@ -64,6 +68,14 @@ NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
 MAX_SCAN_NPAD = 32768
 # largest dimension K1t stages in shared memory (200 KB of the 227 KB)
 MAX_MEMBER_T_DIM = 200
+# largest dimension K1 takes: above d 32 a block stages its candidates in
+# shared memory, at most 128 KB of them (8 candidates at this d)
+MAX_MEMBER_DIM = 4096
+_MEMBER_THREADS = 256
+_MEMBER_CAND_BYTES = 128 * 1024
+# threads a K1 launch aims for (a quarter of what the card holds at once:
+# timed on an H100 at M 4096 to 131072, each lane testing 8 rows at a time)
+_MEMBER_TARGET_THREADS = 1 << 16
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, 'csrc')
@@ -98,7 +110,7 @@ def build():
     global BUILD_LOG
     h = hashlib.sha256(' '.join(NVCC_FLAGS).encode())
     srcs = [os.path.join(_CSRC, s) for s in SOURCES]
-    for s in srcs:
+    for s in srcs + [os.path.join(_CSRC, s) for s in HEADERS]:
         with open(s, 'rb') as f:
             h.update(f.read())
     so = os.path.join(BUILD_DIR, 'libultranest_kernels-%s.so'
@@ -135,12 +147,12 @@ def _lib():
         if _LIB is None:
             lib = ctypes.CDLL(build())
             vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-            lib.un_radius_member.argtypes = [vp, vp, ci, vp, ci, ci, cf, vp,
-                                             vp]
+            lib.un_radius_member.argtypes = [vp, vp, ci, vp, ci, ci, cf, ci,
+                                             vp, vp]
             lib.un_radius_member_t.argtypes = [vp, vp, ci, vp, ci, ci, cf,
                                                vp, vp]
             lib.un_bootstrap_radius.argtypes = [vp, vp, vp, ci, ci, ci, vp,
-                                                vp]
+                                                vp, vp]
             lib.un_consume_scan.argtypes = [vp, ci, vp, vp, ci, vp, vp, vp]
             for fn in (lib.un_radius_member, lib.un_radius_member_t,
                        lib.un_bootstrap_radius, lib.un_consume_scan):
@@ -202,6 +214,37 @@ def radius_member_plain(tpoints, tmask, cands, r2, chunk=16384):
     return torch.cat(out)
 
 
+def member_group_size(m, npts, d):
+    """Lanes that share one candidate in K1: a power of two from 1 to 32.
+
+    Chosen so that *m* candidates put about 65536 threads on the card
+    (16 lanes at m 4096, 2 at 32768, 1 from 65536 on), which timing on
+    an H100 found fastest or within 3% of it; never more lanes than a
+    quarter of the *npts* live rows. Above d 32, where the candidates
+    are read from shared memory, half as many lanes, but enough to keep
+    a block's staged candidates within their shared memory.
+    Non-increasing in *m*.
+    """
+    g = 32
+    while g > 1 and (g * m > _MEMBER_TARGET_THREADS or 4 * g > npts):
+        g //= 2
+    if d > 32:
+        g = max(1, g // 2)
+        while g < 32 and (_MEMBER_THREADS // g) * d * 4 > _MEMBER_CAND_BYTES:
+            g *= 2
+    return g
+
+
+def _radius_member_cuda(tpoints, tmask, cands, r2, group):
+    """Launch K1 on checked CUDA tensors with *group* lanes a candidate."""
+    out = torch.empty(cands.shape[0], dtype=torch.int32, device=cands.device)
+    _launch('radius_member', _lib().un_radius_member,
+            tpoints.data_ptr(), tmask.data_ptr(), tpoints.shape[0],
+            cands.data_ptr(), cands.shape[0], tpoints.shape[1],
+            ctypes.c_float(r2), group, out.data_ptr())
+    return out
+
+
 def radius_member(tpoints, tmask, cands, r2):
     """K1: MLFriends radius membership of *cands*.
 
@@ -232,11 +275,11 @@ def radius_member(tpoints, tmask, cands, r2):
         raise ValueError('shape mismatch: tpoints %s, tmask %s, cands %s'
                          % (tuple(tpoints.shape), tuple(tmask.shape),
                             tuple(cands.shape)))
-    out = torch.empty(m, dtype=torch.int32, device=cands.device)
-    _launch('radius_member', _lib().un_radius_member,
-            tpoints.data_ptr(), tmask.data_ptr(), n, cands.data_ptr(), m, d,
-            ctypes.c_float(r2), out.data_ptr())
-    return out
+    if not 1 <= d <= MAX_MEMBER_DIM:
+        raise ValueError('radius_member takes 1 <= d <= %d, got %d'
+                         % (MAX_MEMBER_DIM, d))
+    return _radius_member_cuda(tpoints, tmask, cands, r2,
+                               member_group_size(m, n, d))
 
 
 # --------------------------------------------------------------- K1t -----
@@ -342,6 +385,10 @@ def bootstrap_radius(tpoints, valid, masks):
     Returns
     -------
     0-d float32 tensor on the input device
+
+    On the card this is two kernels on the current stream (the rounds
+    packed into bits, then the radius; ``csrc/bootstrap_radius.cu`` says
+    how). One call counts one launch.
     """
     if _on_cpu(tpoints, valid, masks):
         PLAIN_CALLS['bootstrap_radius'] += 1
@@ -354,10 +401,15 @@ def bootstrap_radius(tpoints, valid, masks):
         raise ValueError('shape mismatch: tpoints %s, valid %s, masks %s'
                          % (tuple(tpoints.shape), tuple(valid.shape),
                             tuple(masks.shape)))
+    nrounds = masks.shape[0]
     out = torch.empty((), dtype=torch.float32, device=tpoints.device)
+    # the rounds as bits: one 32-bit word per row and 32 rounds, written
+    # by the first of the call's two kernels
+    selbits = torch.empty(-(-nrounds // 32) * npad, dtype=torch.int32,
+                          device=tpoints.device)
     _launch('bootstrap_radius', _lib().un_bootstrap_radius,
             tpoints.data_ptr(), valid.data_ptr(), masks.data_ptr(), npad,
-            masks.shape[0], d, out.data_ptr())
+            nrounds, d, selbits.data_ptr(), out.data_ptr())
     return out
 
 
