@@ -20,7 +20,10 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    it and read just after it:
 
    * the membership shootout (``ultranest_torch.evaluate.bench_membership``,
-     the path of K1t), at its three shapes;
+     the path of K1t), at its three shapes; before it K1t is held against
+     its plain version at 65 boundary radii for every group size 1 to 32,
+     with a mask of 0, 1 and -1, at those shapes, at d 40 (candidates in
+     shared memory) and at 32768 live rows (in tiles);
    * the region-rejection path: the eggbox with the JAX package's bench
      configuration (400 live points, ``bench.py:104-115``) through
      ``ReactiveNestedSampler(..., device='cuda')``, gated on the
@@ -36,6 +39,14 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
      package's engine tests' configurations (``tests/test_popfused.py:
      40-107``), gated as those tests gate, and one classic-mode async
      run (segment path off) on the default MLFriends region;
+   * the classic ``NestedSampler`` (``tests/test_run.py:79-90``: 2-d
+     gauss, 200 live points, seed 5) and ``ReactiveNestedSampler`` with a
+     host ``SliceSampler`` (mixture directions, the settings of
+     ``tests/test_stepsamplers.py:123-131`` on a gauss of d 8), both with
+     ``device='cuda'``, gated as those tests gate: K2 launched at every
+     region rebuild, no plain version called;
+   * ``sampler.plot()`` on the eggbox run's results (Agg backend; only
+     where matplotlib is installed, and said so where it is not);
 
    and checks that each path's kernels were launched in its run (K3 on
    every segment path; the classic run consumes on the host and
@@ -91,7 +102,7 @@ def ptxas_summary(log):
             continue
         rest = line[m.end():]
         name, rest = rest[:int(m.group(1))], rest[int(m.group(1)):]
-        args = re.findall(r'Li(\d+)E', rest.split('Ev')[0])
+        args = re.findall(r'L[ib](\d+)E', rest.split('Ev')[0])
         if args:
             name += '<%s>' % ', '.join(args)
         # the entry's properties follow, up to the next entry's
@@ -526,8 +537,10 @@ def check_bootstrap_traffic(kernels, name, calls):
     return out
 
 
-def run_eggbox(seed=42):
+def run_eggbox(seed=42, keep=None):
     """One eggbox run at the bench configuration on the card.
+
+    *keep*, a list, receives the finished sampler (for the plots).
 
     Every kernel count is set to 0 just before the run and read just
     after it. Raises if logZ is outside the bench gate, the posterior
@@ -567,20 +580,68 @@ def run_eggbox(seed=42):
     for name in kernels.REGION_KERNELS:
         assert out['launches'].get(name, 0) > 0, ('kernel not launched',
                                                   name)
+    if keep is not None:
+        keep.append(sampler)
     return out
+
+
+# K1t's shapes (N, M, d) beside the shootout's three: d 40 (above d 32
+# the block stages its candidates in shared memory) and 32768 live rows
+# (in tiles)
+MEMBER_T_EXTRA_SHAPES = ((512, 4096, 40), (32768, 4096, 2))
+
+
+def check_member_t_groups(kernels, npts, m, d):
+    """K1t with every group size 1 to 32 forced, against its plain
+    version at 65 boundary radii, on the shootout's inputs with a mask
+    of 1, 1, 0, -1, ...: a negative entry is an invalid row for K1t.
+    Returns the number of boundary candidates checked."""
+    import torch
+    from ultranest_torch.evaluate import bench_membership
+    tp, _, cd, _ = bench_membership.make_inputs(npts, m, d)
+    tm = np.array([1, 1, 0, -1], np.int32)[np.arange(npts) % 4]
+    tp_d, tm_d, cd_d = (torch.as_tensor(a, device='cuda')
+                        for a in (tp, tm, cd))
+    tp_t, cd_t = tp_d.T.contiguous(), cd_d.T.contiguous()
+    radii, mind = bench_membership.boundary_radii(tp_d[tm_d > 0], cd_d)
+    nboundary, sign_matters = 0, False
+    for r2 in radii:
+        want = kernels.radius_member_t_plain(tp_t, tm_d, cd_t, r2)
+        for group in (1, 2, 4, 8, 16, 32):
+            got = kernels._radius_member_t_cuda(tp_t, tm_d, cd_t, r2, group)
+            nmis = int((got != want).sum())
+            assert nmis == 0, ('radius_member_t disagrees', npts, m, d, r2,
+                               group, nmis)
+        on = mind == r2
+        assert bool(on.any()) and bool(want[on].all()), \
+            ('no member on the boundary', npts, m, d, r2)
+        nboundary += int(on.sum())
+        # the same rows with -1 taken for valid give another answer
+        sign_matters |= not torch.equal(want, kernels.radius_member_t_plain(
+            tp_t, tm_d.abs(), cd_t, r2))
+    assert sign_matters, 'the mask\'s negative entries changed nothing'
+    print('K1t radius_member_t N=%d M=%d d=%d, mask of 1, 1, 0, -1: equal to '
+          'the plain version at %d radii for each group size 1, 2, 4, 8, 16, '
+          '32, %d candidates exactly on the boundary' % (
+              npts, m, d, len(radii), nboundary))
+    return nboundary
 
 
 def check_membership_shootout(kernels):
     """K1t phase: equality at the shootout's shapes, then its main path.
 
     Holds K1 and K1t against the plain version at 65 boundary radii per
-    shape (those launches are comparisons), then sets the counts to 0
-    and runs the shootout's timing, the path that launches K1t, and
-    reads K1t's count; then times K1t and K1 on the device alone.
+    shape, and K1t with every group size forced and a signed mask, also
+    at :data:`MEMBER_T_EXTRA_SHAPES` (those launches are comparisons),
+    then sets the counts to 0 and runs the shootout's timing, the path
+    that launches K1t, and reads K1t's count; then times K1t and K1 on
+    the device alone, beside the bound at each radius.
     Returns (per-shape timing rows, K1t launches of that run).
     """
     import torch
     from ultranest_torch.evaluate import bench_membership
+    for shape in bench_membership.SHAPES + MEMBER_T_EXTRA_SHAPES:
+        check_member_t_groups(kernels, *shape)
     for npts, m, d in bench_membership.SHAPES:
         nb = bench_membership.check_shape(npts, m, d, 'cuda')
         print('K1t radius_member_t N=%d M=%d d=%d: K1t and K1 equal to the '
@@ -607,6 +668,11 @@ def check_membership_shootout(kernels):
                             for a in (tp, tm, cd))
         tp_t, cd_t = tp_d.T.contiguous(), cd_d.T.contiguous()
         r2m = bench_membership.boundary_radii(tp_d, cd_d, nradii=3)[0][1]
+        row['nmember_median'] = int(kernels.radius_member_plain(
+            tp_d, tm_d, cd_d, r2m).sum())
+        row['bound_ms_median'], row['bound_by_median'] = member_bound(
+            row['npts'], row['npts'], row['m'], row['d'],
+            row['nmember_median'])
         for key, radius in (('', float(r2)), ('_median', r2m)):
             row['k1t_device_ms' + key] = queued_ms(
                 [lambda: kernels.radius_member_t(tp_t, tm_d, cd_t,
@@ -616,12 +682,15 @@ def check_membership_shootout(kernels):
                                                radius)] * 50)
         print('K1t radius_member_t N=%d M=%d d=%d at r2 = 4 d: %d of %d '
               'candidates inside, bound %.6f ms (%s), device %.4f ms (K1 '
-              '%.4f); at the median nearest distance: device %.4f ms (K1 '
-              '%.4f)' % (
+              '%.4f); at the median nearest distance: %d inside, bound %.6f '
+              'ms (%s), device %.4f ms (K1 %.4f), G %d' % (
                   row['npts'], row['m'], row['d'], nmember, row['m'],
                   row['bound_ms'], row['bound_by'], row['k1t_device_ms'],
-                  row['k1_device_ms'], row['k1t_device_ms_median'],
-                  row['k1_device_ms_median']))
+                  row['k1_device_ms'], row['nmember_median'],
+                  row['bound_ms_median'], row['bound_by_median'],
+                  row['k1t_device_ms_median'], row['k1_device_ms_median'],
+                  kernels.member_group_size(row['m'], row['npts'],
+                                            row['d'])))
     return rows, launches
 
 
@@ -839,6 +908,143 @@ def run_engine(name):
     return out
 
 
+def gauss_loglike(theta):
+    """Unit-cube gaussian at 0.5 with sigma 0.1 on every axis (numpy),
+    the likelihood of the reference's sampler tests."""
+    return -0.5 * (((theta - 0.5) / 0.1) ** 2).sum(axis=1)
+
+
+def count_rebuilds(obj, method):
+    """Wraps ``obj.method`` to count its calls; returns the count's list."""
+    orig, calls = getattr(obj, method), []
+
+    def counted(*args, **kwargs):
+        calls.append(1)
+        return orig(*args, **kwargs)
+
+    setattr(obj, method, counted)
+    return calls
+
+
+def run_classic_sampler():
+    """The classic ``NestedSampler`` at the reference test's settings
+    (``tests/test_run.py:79-90``: 2-d gauss, 200 live points, seed 5,
+    4000 iterations at most) with ``device='cuda'`` and no run directory.
+
+    Every kernel count is set to 0 just before the run and read just
+    after it. Raises if logZ is outside that test's tolerance (1.0), if
+    K2 was not launched once per region rebuild or if a plain version
+    was called; returns the run's summary.
+    """
+    import torch
+    from ultranest_torch import NestedSampler
+    from ultranest_torch.ops import kernels
+    sampler = NestedSampler(
+        ['a', 'b'], gauss_loglike, transform=lambda x: x, vectorized=True,
+        num_live_points=200, log_dir=None, seed=5, device='cuda')
+    rebuilds = count_rebuilds(sampler, '_rebuild_region')
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    res = sampler.run(max_iters=4000)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    sampler.print_results()
+    truth = float(np.log(2 * np.pi * 0.1 ** 2))
+    out = dict(wall_s=wall, ncall=int(res['ncall']), niter=int(res['niter']),
+               logz=float(res['logz']), logzerr=float(res['logzerr']),
+               logz_expected=truth, rebuilds=len(rebuilds),
+               launches=dict(kernels.LAUNCHES),
+               plain_calls=dict(kernels.PLAIN_CALLS))
+    assert abs(res['logz'] - truth) < 1.0, ('classic logZ outside the gate',
+                                            res['logz'], truth)
+    assert np.isfinite(res['samples']).all() and \
+        res['samples'].shape[1] == 2, 'bad posterior samples'
+    assert out['rebuilds'] > 0 and \
+        out['launches'].get('bootstrap_radius', 0) == out['rebuilds'], \
+        ('K2 was not launched once per rebuild', out)
+    assert not out['plain_calls'], ('a plain version ran', out['plain_calls'])
+    return out
+
+
+def run_host_slice_sampler(ndim=8, seed=4):
+    """``ReactiveNestedSampler(device='cuda')`` with a host
+    ``SliceSampler`` on mixture directions, on a *ndim*-d gauss at the
+    settings of the reference's step sampler tests
+    (``tests/test_stepsamplers.py:123-131``: 100 live points, dlogz 2,
+    frac_remain 0.1; nsteps 2 *ndim*).
+
+    Every kernel count is set to 0 just before the run and read just
+    after it. Raises if logZ is outside that test's gate (2.0), if K2
+    was not launched once per region bootstrap or if a plain version was
+    called; returns the run's summary.
+    """
+    import torch
+    from ultranest_torch import ReactiveNestedSampler
+    from ultranest_torch import stepsampler
+    from ultranest_torch.ops import kernels
+    np.random.seed(seed)
+    sampler = ReactiveNestedSampler(
+        ['p%d' % i for i in range(ndim)], gauss_loglike,
+        transform=lambda x: x, vectorized=True, seed=seed, device='cuda')
+    ss = sampler.stepsampler = stepsampler.SliceSampler(
+        nsteps=2 * ndim,
+        generate_direction=stepsampler.generate_mixture_random_direction)
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    res = sampler.run(min_num_live_points=100, viz_callback=False,
+                      show_status=False, max_num_improvement_loops=0,
+                      min_ess=0, dlogz=2.0, frac_remain=0.1)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    ss.print_diagnostic()
+    truth = ndim / 2.0 * float(np.log(2 * np.pi * 0.1 ** 2))
+    info = ss.get_info_dict()
+    out = dict(ndim=ndim, wall_s=wall, ncall=int(res['ncall']),
+               niter=int(res['niter']), logz=float(res['logz']),
+               logzerr=float(res['logzerr']), logz_expected=truth,
+               nsteps=int(ss.nsteps), chains=int(info['num_logs']),
+               rejection_rate=float(info['rejection_rate']),
+               frac_far_enough=float(info['frac_far_enough']),
+               launches=dict(kernels.LAUNCHES),
+               plain_calls=dict(kernels.PLAIN_CALLS))
+    assert abs(res['logz'] - truth) < 2.0, ('host slice sampler logZ outside '
+                                            'the gate', res['logz'], truth)
+    assert np.isfinite(res['samples']).all() and \
+        res['samples'].shape[1] == ndim, 'bad posterior samples'
+    assert out['chains'] > 0, 'the host step sampler never finished a chain'
+    assert out['launches'].get('bootstrap_radius', 0) > 0, \
+        'K2 was not launched under the host step sampler'
+    assert not out['plain_calls'], ('a plain version ran', out['plain_calls'])
+    return out
+
+
+def check_plots(sampler):
+    """``sampler.plot()`` writes corner, run and trace plots of a finished
+    run into a run directory made for them (the run itself kept none).
+    Returns the files' sizes, or None where matplotlib is not installed:
+    the plots are host code, and the CPU tests cover them."""
+    import importlib.util
+    import os
+    import tempfile
+    if importlib.util.find_spec('matplotlib') is None:
+        return None
+    import matplotlib
+    matplotlib.use('Agg')
+    from ultranest_torch.utils import make_run_dir
+    with tempfile.TemporaryDirectory() as tmp:
+        sampler.logs = make_run_dir(tmp, append_run_num=False)
+        sampler.log_to_disk = True
+        try:
+            sampler.plot()
+        finally:
+            sampler.log_to_disk = False
+        sizes = {kind: os.path.getsize(os.path.join(
+            sampler.logs['plots'], kind + '.pdf'))
+            for kind in ('corner', 'run', 'trace')}
+    assert all(size > 0 for size in sizes.values()), sizes
+    return sizes
+
+
 def print_ranking(real):
     """Prints each kernel's launches x (device ms - bound ms) summed over
     the sampler paths of this run, largest first, every term from the
@@ -913,8 +1119,9 @@ def main(argv=()):
     # every path's K1, K2 and K3 calls are kept (KernelCapture) and
     # replayed after the runs: the kernels on real traffic
     traffic, path_launches = {}, {}
+    eggbox_sampler = []
     with KernelCapture(kernels) as cap:
-        run = run_eggbox()
+        run = run_eggbox(keep=eggbox_sampler)
     traffic['eggbox'] = cap.calls
     print('eggbox: logZ %.4f +- %.4f (quadrature %.3f), wall %.3f s, '
           'ncall %d, %.0f evals/s, niter %d' % (
@@ -926,6 +1133,12 @@ def main(argv=()):
     path_launches['eggbox'] = run['launches']
     for name in kernels.REGION_KERNELS:
         launches[name] = run['launches'][name]
+
+    plots = check_plots(eggbox_sampler.pop())
+    print('eggbox sampler.plot(): ' + (
+        'matplotlib is not installed here, the plots were not drawn'
+        if plots is None else 'wrote ' + ', '.join(
+            '%s.pdf (%d bytes)' % kv for kv in plots.items())))
 
     launch_s, rounds = 0.0, 0
     for name in ('asymgauss50', 'rosenbrock8', 'multishell8', 'loggamma30',
@@ -976,6 +1189,33 @@ def main(argv=()):
               engines['async']['ncall_per_iter'],
               engines['sync8']['ncall_per_iter'], ratio))
     assert ratio < 0.7, ('async not cheaper than sync', ratio)
+
+    # the host tier on the card: the classic sampler and a host step
+    # sampler, their regions built (K2) on the device
+    with KernelCapture(kernels) as cap:
+        run = run_classic_sampler()
+    traffic['classic'] = cap.calls
+    path_launches['classic'] = run['launches']
+    print('classic NestedSampler: logZ %.4f +- %.4f (analytic %.4f, gate '
+          '1.0), wall %.3f s, ncall %d, niter %d, %d region rebuilds, kernel '
+          'launches %s, plain calls %s' % (
+              run['logz'], run['logzerr'], run['logz_expected'],
+              run['wall_s'], run['ncall'], run['niter'], run['rebuilds'],
+              json.dumps(run['launches']), json.dumps(run['plain_calls'])))
+    launches['bootstrap_radius'] += run['launches']['bootstrap_radius']
+    with KernelCapture(kernels) as cap:
+        run = run_host_slice_sampler()
+    traffic['host_slice'] = cap.calls
+    path_launches['host_slice'] = run['launches']
+    print('host SliceSampler (mixture directions) on gauss d %d: logZ %.4f '
+          '+- %.4f (analytic %.4f, gate 2.0), wall %.3f s, ncall %d, niter '
+          '%d, nsteps %d, %d chains, rejection rate %.3f, far enough %.3f, '
+          'kernel launches %s, plain calls %s' % (
+              run['ndim'], run['logz'], run['logzerr'], run['logz_expected'],
+              run['wall_s'], run['ncall'], run['niter'], run['nsteps'],
+              run['chains'], run['rejection_rate'], run['frac_far_enough'],
+              json.dumps(run['launches']), json.dumps(run['plain_calls'])))
+    launches['bootstrap_radius'] += run['launches']['bootstrap_radius']
 
     checks = {'consume_scan': check_scan_traffic,
               'radius_member': check_member_traffic,

@@ -2,17 +2,21 @@
 """One kernel built from several sources and timed side by side.
 
 ``--kernel`` names the kernel: ``consume_scan`` (K3), ``radius_member``
-(K1) or ``bootstrap_radius`` (K2). Each ``--source NAME=PATH`` is a
-source file with that kernel's C entry point (``un_consume_scan``,
-``un_radius_member``, ``un_bootstrap_radius``), e.g. the file of another
-commit taken from a ``git archive``; a header it includes lies beside
-it. Each is built into a shared library of its own with nvcc, all
-compilers started together. ``--legacy NAME`` marks a source with the
-entry point of before the redesign of K1 and K2 (no group argument, no
-scratch argument). Then, on one CUDA card, at each of the kernel's
-shapes in ``chip_smoke.py`` (``SCAN_SHAPES``, ``MEMBER_SHAPES``,
-``BOOTSTRAP_SHAPES``) and on every path's real calls saved by ``python3
-chip_smoke.py --save-traffic FILE``:
+(K1), ``radius_member_t`` (K1t) or ``bootstrap_radius`` (K2). Each
+``--source NAME=PATH`` is a source file with that kernel's C entry point
+(``un_consume_scan``, ``un_radius_member``, ``un_radius_member_t``,
+``un_bootstrap_radius``), e.g. the file of another commit taken from a
+``git archive``; a header it includes lies beside it. Each is built into
+a shared library of its own with nvcc, all compilers started together.
+``--legacy NAME`` marks a source with the entry point of before the
+redesign of K1, K1t and K2 (no group argument, no scratch argument).
+Then, on one CUDA card, at each of the kernel's shapes in
+``chip_smoke.py`` (``SCAN_SHAPES``, ``MEMBER_SHAPES``,
+``BOOTSTRAP_SHAPES``; K1t: the membership shootout's shapes, at ``r2 =
+4 d`` and at the candidates' median nearest distance, beside the
+package's K1, and each group size of a source that takes one) and on
+every path's real calls saved by ``python3 chip_smoke.py --save-traffic
+FILE`` (no sampler path calls K1t):
 
 * holds each source's result against the plain version (K3 and K2 bit
   for bit; K1 at 9 boundary radii per shape; on real calls K1 and K2 on
@@ -63,7 +67,7 @@ same = chip_smoke.bits_equal
 
 def build(sources):
     """{name: shared library path}, one nvcc per source, in parallel."""
-    os.makedirs(kernels.BUILD_DIR, exist_ok=True)
+    out_dir = kernels.build_dir(kernels.BUILD_DIR)
     procs, out = {}, {}
     for name, src in sources.items():
         h = hashlib.sha256()
@@ -72,8 +76,7 @@ def build(sources):
             if os.path.exists(path):
                 with open(path, 'rb') as f:
                     h.update(f.read())
-        so = os.path.join(kernels.BUILD_DIR,
-                          'bench-%s.so' % h.hexdigest()[:16])
+        so = os.path.join(out_dir, 'bench-%s.so' % h.hexdigest()[:16])
         out[name] = so
         if not os.path.exists(so):
             procs[name] = subprocess.Popen(
@@ -132,6 +135,27 @@ def member_fn(so, legacy=False):
             CF(r2), *group, out.data_ptr(), _stream()))
         return out
 
+    return call
+
+
+def member_t_fn(so, legacy=False, group=None):
+    """The source's K1t as ``kernels.radius_member_t`` calls it (no
+    count); *group* forces the lanes a candidate."""
+    fn = ctypes.CDLL(so).un_radius_member_t
+    fn.argtypes = [VP, VP, CI, VP, CI, CI, CF] + ([] if legacy else [CI]) \
+        + [VP, VP]
+    fn.restype = CI
+
+    def call(tp_t, tm, cd_t, r2):
+        (d, n), m = tp_t.shape, cd_t.shape[1]
+        out = torch.empty(m, dtype=torch.int32, device=cd_t.device)
+        g = [] if legacy else [group or kernels.member_group_size(m, n, d)]
+        _check_rc('un_radius_member_t', fn(
+            tp_t.data_ptr(), tm.data_ptr(), n, cd_t.data_ptr(), m, d,
+            CF(r2), *g, out.data_ptr(), _stream()))
+        return out
+
+    call.so, call.legacy = so, legacy
     return call
 
 
@@ -255,6 +279,49 @@ def bench_member(fns, traffic, results):
             res['by_m'][m] = dict(calls=len(idx), bound_ms=bms, times=times)
 
 
+def bench_member_t(fns, traffic, results):
+    """K1t at the membership shootout's shapes, at both radii; the
+    package's row-major K1 on the same numbers beside it (its operands
+    laid out row-major)."""
+    from ultranest_torch.evaluate import bench_membership
+    for npts, m, d in bench_membership.SHAPES:
+        tp, tm, cd, r2 = bench_membership.make_inputs(npts, m, d)
+        tp, tm, cd = (torch.as_tensor(a, device='cuda') for a in (tp, tm, cd))
+        tp_t, cd_t = tp.T.contiguous(), cd.T.contiguous()
+        r2s, _ = boundary_radii(tp, cd, nradii=9)
+        for r in r2s:
+            want = kernels.radius_member_t_plain(tp_t, tm, cd_t, r)
+            for name, fn in fns.items():
+                assert torch.equal(fn(tp_t, tm, cd_t, r), want), \
+                    ('membership differs', name, npts, m, d, r)
+
+        def k1(tp_t, tm, cd_t, r):
+            return kernels.radius_member(tp, tm, cd, r)
+
+        both = dict(fns, K1=k1)
+        for label, r in (('r2 = 4 d', float(r2)),
+                         ('median radius', r2s[len(r2s) // 2])):
+            bms = chip_smoke.member_call_bound(kernels, (tp, tm, cd, r))
+            times = time_sources(both, [(tp_t, tm, cd_t, r)])
+            report('K1t N=%d M=%d d=%d at %s' % (npts, m, d, label), bms,
+                   times)
+            results['shapes'].append(dict(npts=npts, m=m, d=d, radius=label,
+                                          bound_ms=bms, times=times))
+        r = r2s[len(r2s) // 2]
+        for name, fn in fns.items():
+            if fn.legacy:
+                continue
+            sweep = {'G%d' % g: member_t_fn(fn.so, group=g)
+                     for g in (1, 2, 4, 8, 16, 32)}
+            times = time_sources(sweep, [(tp_t, tm, cd_t, r)])
+            report('K1t %s N=%d M=%d d=%d at median radius by group size '
+                   '(the wrapper takes G %d)' % (
+                       name, npts, m, d,
+                       kernels.member_group_size(m, npts, d)), 0.0, times)
+            results['shapes'].append(dict(npts=npts, m=m, d=d, source=name,
+                                          group_sweep=times))
+
+
 def bench_bootstrap(fns, traffic, results):
     rng = np.random.RandomState(0)
     for n, nrounds, d in chip_smoke.BOOTSTRAP_SHAPES:
@@ -287,6 +354,7 @@ def bench_bootstrap(fns, traffic, results):
 
 BENCHES = {'consume_scan': (scan_fn, bench_scan),
            'radius_member': (member_fn, bench_member),
+           'radius_member_t': (member_t_fn, bench_member_t),
            'bootstrap_radius': (bootstrap_fn, bench_bootstrap)}
 
 

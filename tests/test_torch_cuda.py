@@ -362,6 +362,109 @@ def test_radius_member_t_equals_plain_and_k1(cuda, npts, m, d):
     assert kernels.LAUNCHES['radius_member'] == 65
 
 
+# d <= 32: the candidate in registers; d 33, 40, 100: candidates staged in
+# shared memory from axis-major rows; N 32768: the live set in several
+# tiles; M 1, 33: ragged last warps and groups
+@pytest.mark.parametrize('npts,m,d', [(512, 4096, 16), (512, 32768, 2),
+                                      (1024, 16384, 8), (512, 4096, 40),
+                                      (512, 1000, 33), (512, 128, 100),
+                                      (32768, 4096, 2), (32768, 300, 24),
+                                      (64, 130, 3), (512, 1, 2),
+                                      (100, 33, 32)])
+def test_radius_member_t_groups_and_signed_mask(cuda, npts, m, d):
+    """K1t with every group size forced, at boundary radii, with a mask
+    of 1, 1, 0, -1: a negative entry is an invalid row, as in the plain
+    version."""
+    from ultranest_torch.evaluate import bench_membership
+    rng = np.random.RandomState(npts + d)
+    tp = torch.as_tensor(rng.normal(size=(npts, d)).astype(np.float32),
+                         device=cuda)
+    cd = torch.as_tensor(rng.normal(size=(m, d)).astype(np.float32),
+                         device=cuda)
+    tm = torch.as_tensor(np.array([1, 1, 0, -1], np.int32)[
+        np.arange(npts) % 4], device=cuda)
+    tp_t, cd_t = tp.T.contiguous(), cd.T.contiguous()
+    radii, mind = bench_membership.boundary_radii(tp[tm > 0], cd, nradii=17)
+    sign_matters = False
+    for r2 in radii:
+        want = kernels.radius_member_t_plain(tp_t, tm, cd_t, r2)
+        kernels.reset_counts()
+        assert torch.equal(kernels.radius_member_t(tp_t, tm, cd_t, r2), want)
+        assert kernels.LAUNCHES['radius_member_t'] == 1
+        for group in GROUPS:
+            got = kernels._radius_member_t_cuda(tp_t, tm, cd_t, r2, group)
+            assert torch.equal(got, want), (group, r2)
+        on = mind == r2
+        assert bool(on.any()) and bool(want[on].all())
+        # K1 on the same rows laid out row-major, its mask the valid rows
+        assert torch.equal(kernels.radius_member(tp, (tm > 0).int(), cd, r2),
+                           want)
+        sign_matters |= not torch.equal(
+            want, kernels.radius_member_t_plain(tp_t, tm.abs(), cd_t, r2))
+    assert sign_matters or m == 1
+
+
+@pytest.mark.parametrize('d', [2, 8, 40])
+@pytest.mark.parametrize('case', ['all_masked', 'all_negative', 'nan_rows',
+                                  'nan_candidates', 'r2_zero', 'r2_max'])
+def test_radius_member_t_edges(cuda, case, d):
+    rng = np.random.RandomState(d)
+    tp = rng.normal(size=(300, d)).astype(np.float32)
+    tm = np.ones(300, np.int32)
+    cd = rng.normal(size=(777, d)).astype(np.float32)
+    r2 = float(np.median(((tp[:, None, :] - cd[None, :, :]) ** 2)
+                         .sum(axis=2).min(axis=0)))
+    if case == 'all_masked':
+        tm[:] = 0
+    elif case == 'all_negative':
+        tm[:] = -1
+    elif case == 'nan_rows':
+        tp[::3] = np.nan
+    elif case == 'nan_candidates':
+        cd[::5, d - 1] = np.nan
+    elif case == 'r2_zero':
+        r2 = 0.0
+        cd[10], tm[7] = tp[20], -1
+        cd[11] = tp[7]
+    else:
+        r2 = float(np.finfo(np.float32).max)
+        cd[3] = 3e19
+    a = [torch.as_tensor(np.ascontiguousarray(x), device=cuda)
+         for x in (tp.T, tm, cd.T)]
+    want = kernels.radius_member_t_plain(*a, r2)
+    assert torch.equal(kernels.radius_member_t(*a, r2), want)
+    for group in GROUPS:
+        assert torch.equal(kernels._radius_member_t_cuda(*a, r2, group), want)
+    if case in ('all_masked', 'all_negative'):
+        assert int(want.sum()) == 0
+    if case == 'r2_zero':
+        assert int(want[10]) == 1 and int(want[11]) == 0
+    if case == 'r2_max':
+        assert int(want[3]) == 0 and int(want.sum()) == 776
+    if case == 'nan_candidates':
+        assert int(want[::5].sum()) == 0 and int(want.sum()) > 0
+
+
+def test_radius_member_t_refuses_bad_group_and_dim(cuda):
+    tp_t = torch.zeros((2, 8), device=cuda)
+    tm = torch.ones(8, dtype=torch.int32, device=cuda)
+    cd_t = torch.zeros((2, 4), device=cuda)
+    for group in (0, 3, 64):
+        with pytest.raises(RuntimeError):
+            kernels._radius_member_t_cuda(tp_t, tm, cd_t, 1.0, group)
+    big = kernels.MAX_MEMBER_DIM + 1
+    with pytest.raises(ValueError):
+        kernels.radius_member_t(torch.zeros((big, 8), device=cuda), tm,
+                                torch.zeros((big, 4), device=cuda), 1.0)
+    # the largest dimension it takes: 8 candidates a block in shared memory
+    d = kernels.MAX_MEMBER_DIM
+    tp_t = torch.randn((d, 8), device=cuda)
+    cd_t = torch.randn((d, 40), device=cuda)
+    r2 = 2.0 * d
+    assert torch.equal(kernels.radius_member_t(tp_t, tm, cd_t, r2),
+                       kernels.radius_member_t_plain(tp_t, tm, cd_t, r2))
+
+
 def test_consume_scan_spec_shape_equals_plain(cuda):
     """K3 at the spec path's shape: 4096 walker rows, all valid, into a
     live set of 400 padded to 512."""

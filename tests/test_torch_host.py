@@ -239,3 +239,112 @@ def test_problems_match_jax_forms(name, kw):
         atol = 4 * np.abs(want - ref.loglike(p64))
     excess = np.abs(got - want) - 1e-5 * np.abs(want) - atol
     assert (excess <= 0).all(), (name, excess.max(), int(excess.argmax()))
+
+
+# ------------------------------ where the libraries are built, and the switch
+
+def _copy_of_native(tmp_path):
+    """A copy of the port's ``native`` package (loader and C sources) in a
+    directory that cannot hold a build: its mode is read-only, and a file
+    stands where ``_build`` would go (mode bits do not stop a superuser)."""
+    import importlib.util
+    import os
+    import shutil
+    src = os.path.dirname(port_native.__file__)
+    dst = tmp_path / 'site-packages' / 'native_copy'
+    dst.mkdir(parents=True)
+    for name in ('__init__.py',) + port_native.SOURCES:
+        shutil.copy(os.path.join(src, name), dst / name)
+    (dst / '_build').write_text('not a directory')
+    os.chmod(dst, 0o555)
+    spec = importlib.util.spec_from_file_location(
+        'native_copy', str(dst / '__init__.py'))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod, dst
+
+
+def test_read_only_install_builds_in_the_cache_dir(tmp_path, monkeypatch):
+    import os
+    monkeypatch.delenv('ULTRANEST_TORCH_NO_NATIVE', raising=False)
+    monkeypatch.setenv('XDG_CACHE_HOME', str(tmp_path / 'cache'))
+    mod, dst = _copy_of_native(tmp_path)
+    try:
+        assert mod.available()
+        lib = mod._load()
+        cache = str(tmp_path / 'cache' / 'ultranest_torch')
+        assert lib._name.startswith(cache) and lib._name.endswith('.so')
+        assert sorted(os.listdir(dst)) == sorted(
+            ('__init__.py', '_build') + mod.SOURCES)
+        # and the library works: the same sweep as the package's own
+        values = np.array([0.1, 0.3, 0.5, 0.7])
+        args = (values, np.arange(4), np.array([1, 0, 0, 0]),
+                np.array([3, 0, 0, 0]), 3, 0.0)
+        got, want = mod.tree_sweep(*args), port_native.tree_sweep(*args)
+        assert got is not None
+        for a, b in zip(got, want):
+            np.testing.assert_array_equal(a, b)
+        # without XDG_CACHE_HOME it is ~/.cache
+        monkeypatch.delenv('XDG_CACHE_HOME')
+        monkeypatch.setenv('HOME', str(tmp_path / 'home'))
+        assert mod.build_dir(str(dst / '_build')) == str(
+            tmp_path / 'home' / '.cache' / 'ultranest_torch')
+    finally:
+        os.chmod(dst, 0o755)
+
+
+def test_build_dir_prefers_the_package_and_raises_without_any(tmp_path,
+                                                              monkeypatch):
+    from ultranest_torch.ops import kernels
+    assert kernels.build_dir is port_native.build_dir
+    ok = tmp_path / 'pkg' / '_build'
+    assert port_native.build_dir(str(ok)) == str(ok) and ok.is_dir()
+    blocker = tmp_path / 'file'
+    blocker.write_text('x')
+    monkeypatch.setenv('XDG_CACHE_HOME', str(blocker / 'cache'))
+    with pytest.raises(OSError):
+        port_native.build_dir(str(blocker / '_build'))
+    # the CUDA library's build stays loud: no directory, no build
+    monkeypatch.setattr(kernels, 'BUILD_DIR', str(blocker / '_build'))
+    with pytest.raises(OSError):
+        kernels.build()
+
+
+def _small_run(seed=3):
+    from ultranest_torch import ReactiveNestedSampler
+
+    def loglike(theta):
+        return -0.5 * (((theta - 0.5) / 0.1) ** 2).sum(axis=1)
+
+    sampler = ReactiveNestedSampler(['a', 'b'], loglike, vectorized=True,
+                                    seed=seed, device='cpu')
+    return sampler.run(min_num_live_points=60, viz_callback=False,
+                       show_status=False, max_num_improvement_loops=0,
+                       min_ess=0, dlogz=2.0, frac_remain=0.1)
+
+
+def test_no_native_switch_selects_the_numpy_path(monkeypatch):
+    """``ULTRANEST_TORCH_NO_NATIVE=1``: no C library, the numpy twins of
+    the host loops serve, and a seeded run gives the same answer (the
+    same draws, so ncall and niter are equal; logZ to 1e-9, libm's and
+    numpy's log and exp may round differently)."""
+    monkeypatch.delenv('ULTRANEST_TORCH_NO_NATIVE', raising=False)
+    assert port_native.available()
+    with_c = _small_run()
+    monkeypatch.setenv('ULTRANEST_TORCH_NO_NATIVE', '1')
+    assert not port_native.available() and port_native._load() is None
+    values = np.array([0.1, 0.3, 0.5])
+    assert port_native.tree_sweep(values, np.arange(3), np.zeros(3, int),
+                                  np.zeros(3, int), 3, 0.0) is None
+    assert port_native.make_stepper(*[np.zeros(2)] * 6) is None
+    without = _small_run()
+    assert (with_c['ncall'], with_c['niter']) == (without['ncall'],
+                                                  without['niter'])
+    np.testing.assert_allclose(without['logz'], with_c['logz'], rtol=0,
+                               atol=1e-9)
+    np.testing.assert_allclose(without['logzerr'], with_c['logzerr'],
+                               rtol=1e-9)
+    np.testing.assert_array_equal(without['samples'].shape,
+                                  with_c['samples'].shape)
+    monkeypatch.delenv('ULTRANEST_TORCH_NO_NATIVE')
+    assert port_native.available()

@@ -16,12 +16,17 @@ run on ``device`` ('cuda' by default). The population walks: set
 hand-written CUDA kernels on these paths are in
 :mod:`ultranest_torch.ops.kernels`.
 
+The host tier is ported too: the host step samplers of
+:mod:`ultranest_torch.stepsampler`, the classic :class:`NestedSampler`
+and the plots (:mod:`ultranest_torch.plot`). Their loops are numpy on
+the host; the regions they use are built on ``device``.
+
 This package imports torch and never jax; it does not import
 :mod:`ultranest_tpu` either.
 """
 
-from .integrator import ReactiveNestedSampler
+from .integrator import NestedSampler, ReactiveNestedSampler
 from .utils import vectorize
 
-__all__ = ['ReactiveNestedSampler', 'vectorize']
+__all__ = ['NestedSampler', 'ReactiveNestedSampler', 'vectorize']
 __version__ = '0.1.0'

@@ -1,6 +1,7 @@
-// Shared core of the radius kernels: K1 (radius_member.cu) and K2
-// (bootstrap_radius.cu) use it today; K1t (radius_member_t.cu) can take
-// it as it is, because every operand is addressed through two strides.
+// Shared core of the radius kernels: K1 and K1t (member_kernel.cuh, the
+// body of radius_member.cu and radius_member_t.cu) and K2
+// (bootstrap_radius.cu). Every operand is addressed through two strides,
+// so one core serves both layouts.
 //
 // An operand of points is addressed as base[i * si + k * sk]: point i,
 // axis k. Row-major (N, d) operands have si = d, sk = 1; axis-major
@@ -109,8 +110,10 @@ __device__ __forceinline__ float sqdist(const Cand<D>& c, const float* col,
 // sh_p[k * stride + pos]. *sh_count must be 0 and visible to the block
 // before the call (a __syncthreads() after setting it); after the call
 // and another __syncthreads() it holds the number of rows staged. A row
-// is valid where its mask is not 0. All threads of the block call this;
-// blockDim.x is a multiple of 32.
+// is valid where its mask is not 0, or with kPositive only where it is
+// above 0. All threads of the block call this; blockDim.x is a multiple
+// of 32.
+template <bool kPositive = false>
 __device__ __forceinline__ void stage_live_tile(
     const float* __restrict__ tp, long long si, long long sk,
     const int32_t* __restrict__ tmask, int row0, int nrows, int d,
@@ -120,7 +123,8 @@ __device__ __forceinline__ void stage_live_tile(
   for (int c0 = static_cast<int>(threadIdx.x) - lane; c0 < nrows;
        c0 += step) {
     const int r = c0 + lane;
-    const bool ok = r < nrows && tmask[row0 + r] != 0;
+    const int32_t mk = r < nrows ? tmask[row0 + r] : 0;
+    const bool ok = kPositive ? mk > 0 : mk != 0;
     const unsigned b = __ballot_sync(kFull, ok);
     int base = 0;
     if (lane == 0 && b != 0) base = atomicAdd(sh_count, __popc(b));

@@ -1,11 +1,12 @@
 # noqa: D400 D205
 """
-Nested sampling integrator
---------------------------
+Nested sampling integrators
+---------------------------
 
-The reactive nested sampler of the PyTorch port: counterpart of
-``ReactiveNestedSampler`` in ``ultranest_tpu/integrator.py``, with the
-same run options, results dict and run-directory files.
+The samplers of the PyTorch port: counterparts of
+``ReactiveNestedSampler`` and the textbook ``NestedSampler`` in
+``ultranest_tpu/integrator.py``, with the same run options, results
+dicts and run-directory files.
 
 The data-dependent outer loop stays on the host. For a model with a
 torch likelihood (``torch_loglike=``), candidate proposal, region
@@ -20,12 +21,19 @@ spec, async and sync engines, or
 :class:`ultranest_torch.popfused.FusedPopulationRandomWalkSampler`) takes
 the place of the region proposal, with the same segment path. Accepted
 points are re-checked in f64 on the host before they enter the tree.
+A host step sampler of :mod:`ultranest_torch.stepsampler` (one
+likelihood call per step, numpy on the host) walks in the same regions:
+their rebuilds, and the region queries the sampler makes, run on the
+sampler's device. :class:`NestedSampler` is the fixed-live-point sampler;
+its loop is host numpy and its regions are built on its device.
+``plot()`` writes the corner, run and trace plots
+(:mod:`ultranest_torch.plot`).
 
-Not ported yet: ``NestedSampler``, ``read_file``, warm starts and
-resume-similar, ``plot()``, the host step samplers of ``stepsampler.py``
-and multi-device runs.
+Not ported yet: ``read_file``, warm starts and resume-similar, and
+multi-device runs.
 """
 
+import csv
 import json
 import os
 import sys
@@ -40,6 +48,7 @@ from numpy import logaddexp
 from .fused import FusedRegionSampler
 from .fused import METHOD_CYCLE
 
+from .mlfriends import AffineLayer
 from .mlfriends import LocalAffineLayer
 from .mlfriends import MLFriends
 from .mlfriends import RobustEllipsoidRegion  # noqa: F401 (re-export)
@@ -66,11 +75,12 @@ from .utils import create_logger
 from .utils import is_affine_transform
 from .utils import listify as _listify
 from .utils import make_run_dir
+from .utils import resample_equal
 from .utils import vectorize
 from .utils import vol_prefactor
 from .viz import get_default_viz_callback
 
-__all__ = ['ReactiveNestedSampler']
+__all__ = ['ReactiveNestedSampler', 'NestedSampler']
 
 int_t = np.int64
 
@@ -177,6 +187,411 @@ def _update_region_bootstrap(region, nbootstraps, minvol=0.0, rng=np.random):
     region.maxradiussq, region.enlarge = region.compute_enlargement(
         minvol=minvol, nbootstraps=nbootstraps, rng=rng)
     return region.maxradiussq, region.enlarge
+
+
+class NestedSampler:
+    """Textbook fixed-live-point nested sampler.
+
+    The loop, the likelihood and the candidate draws are host numpy, as
+    in the reference package, so a seeded run is the reference's run.
+    The MLFriends region is built on *device*: each rebuild bootstraps
+    its radius in kernel K2 there.
+    """
+
+    def __init__(self, param_names, loglike, transform=None,
+                 derived_param_names=[], resume='subfolder', run_num=None,
+                 log_dir='logs/test', num_live_points=1000,
+                 vectorized=False, wrapped_params=[], seed=None,
+                 device='cuda'):
+        """Set up the fixed-N nested sampler.
+
+        Parameters
+        ----------
+        param_names: list of str
+            parameter names; length sets the dimensionality
+        loglike: function
+            vectorized log-likelihood (if *vectorized*)
+        transform: function or None
+            vectorized unit-cube-to-physical transform
+        derived_param_names: list of str
+            extra columns returned by transform
+        log_dir: str
+            output directory
+        resume: 'resume', 'overwrite' or 'subfolder'
+            resume behaviour
+        wrapped_params: list of bools
+            circular parameter flags
+        num_live_points: int
+            number of live points
+        vectorized: bool
+            whether user functions accept arrays of points
+        run_num: int or None
+            subfolder number
+        seed: int or None
+            seed for the sampler's private RNG (None: global numpy RNG)
+        device: str or torch.device
+            where the regions are built and the bootstrap radius kernel
+            runs ('cuda' by default; the tests pass 'cpu')
+        """
+        self.device = torch.device(device)
+        self.paramnames = list(param_names)
+        self.x_dim = len(self.paramnames)
+        self.derivedparamnames = derived_param_names
+        self.num_params = self.x_dim + len(derived_param_names)
+        self.num_live_points = num_live_points
+        self.sampler = 'nested'
+        self.volfactor = vol_prefactor(self.x_dim)
+        self.rng = np.random.RandomState(seed) \
+            if seed is not None else np.random
+        self.wrapped_axes = [] if wrapped_params is None \
+            else np.where(wrapped_params)[0]
+
+        assert resume or resume in ('overwrite', 'subfolder', 'resume'), \
+            "resume should be one of 'overwrite' 'subfolder' or 'resume'"
+        if not vectorized:
+            loglike = vectorize(loglike)
+            if transform is not None:
+                transform = vectorize(transform)
+        self.transform = transform if transform is not None else (lambda x: x)
+        self._validate_model(loglike)
+
+        def safe_loglike(x):
+            """Evaluate likelihood, asserting finiteness."""
+            logl = loglike(np.asarray(x))
+            assert np.isfinite(logl).all(), (
+                'User-provided loglikelihood returned non-finite value')
+            return logl
+
+        self.loglike = safe_loglike
+
+        self.use_mpi = False
+        self.comm = None
+        self.mpi_size = 1
+        self.mpi_rank = 0
+
+        self.log = True
+        self.log_to_disk = log_dir is not None
+        if self.log_to_disk:
+            self.logs = make_run_dir(log_dir, run_num,
+                                     append_run_num=resume == 'subfolder')
+            log_dir = self.logs['run_dir']
+        else:
+            log_dir = None
+        self.logger = create_logger(
+            __name__ + '.' + type(self).__name__, log_dir=log_dir)
+        self.logger.info('Num live points [%d]', self.num_live_points)
+
+        ncols = 3 + self.x_dim + self.num_params
+        if self.log_to_disk:
+            mode = 'a' if resume is True or resume == 'resume' else 'w'
+            self.pointstore = HDF5PointStore(
+                os.path.join(self.logs['results'], 'points.hdf5'),
+                ncols, mode=mode)
+        else:
+            self.pointstore = NullPointStore(ncols)
+
+    def _validate_model(self, loglike):
+        """Probe the user functions once with two random points."""
+        u = self.rng.uniform(size=(2, self.x_dim))
+        p = self.transform(u)
+        assert p.shape == (2, self.num_params), (
+            "Error in transform function: returned shape is %s, expected %s"
+            % (p.shape, (2, self.num_params)))
+        logl = loglike(p)
+        assert np.logical_and(u > 0, u < 1).all(), (
+            "Error in transform function: u was modified!")
+        assert np.shape(logl) == (2,), (
+            "Error in loglikelihood function: returned shape is %s"
+            % str(np.shape(logl)))
+        assert np.isfinite(logl).all(), (
+            "Error in loglikelihood function: returned non-finite values")
+
+    def _initial_live_points(self):
+        """Replay stored prior samples, then fill up from the prior.
+
+        Returns (u, v, logl, n_fresh) where *n_fresh* counts new
+        likelihood evaluations.
+        """
+        stored_u, stored_v, stored_logl = [], [], []
+        for _ in range(self.num_live_points):
+            _, row = self.pointstore.pop(-np.inf)
+            if row is None:
+                break
+            stored_u.append(row[3:3 + self.x_dim])
+            stored_v.append(row[3 + self.x_dim:
+                                3 + self.x_dim + self.num_params])
+            stored_logl.append(row[1])
+
+        nfresh = self.num_live_points - len(stored_logl)
+        if nfresh == 0:
+            return (np.array(stored_u), np.array(stored_v),
+                    np.array(stored_logl), 0)
+
+        fresh_u = self.rng.uniform(size=(nfresh, self.x_dim))
+        fresh_v = self.transform(fresh_u)
+        fresh_logl = self.loglike(fresh_v)
+        if self.log_to_disk:
+            for i in range(nfresh):
+                self.pointstore.add(
+                    _listify([-np.inf, fresh_logl[i], 0.0],
+                             fresh_u[i, :], fresh_v[i, :]), nfresh)
+        if stored_u:
+            fresh_u = np.concatenate((np.array(stored_u), fresh_u))
+            fresh_v = np.concatenate((np.array(stored_v), fresh_v))
+            fresh_logl = np.concatenate((np.array(stored_logl), fresh_logl))
+        return fresh_u, fresh_v, fresh_logl, nfresh
+
+    def _pop_stored_candidate(self, loglstar):
+        """Next stored candidate row for threshold *loglstar*, as a batch.
+
+        Returns (u, v, logl) arrays of length one; logl is -inf when the
+        store has nothing left for this threshold.
+        """
+        row_buf = np.full((1, 3 + self.x_dim + self.num_params), -np.inf)
+        if self.log_to_disk:
+            _, stored = self.pointstore.pop(loglstar)
+            if stored is not None:
+                row_buf[0, :] = stored
+            self._replaying = not self.pointstore.stack_empty
+        else:
+            # nothing is stored without a run directory (the reference
+            # replays rows of zeros there and never ends)
+            self._replaying = False
+        return (row_buf[:, 3:3 + self.x_dim],
+                row_buf[:, 3 + self.x_dim:3 + self.x_dim + self.num_params],
+                row_buf[:, 1])
+
+    def _sample_candidates(self, region, loglstar, ndraw):
+        """Draw one region-bounded candidate batch and evaluate it.
+
+        Returns (u, v, logl, ncall) with only region members kept (every
+        member costs one likelihood call, accepted or not).
+        """
+        u = region.sample(nsamples=ndraw, rng=self.rng)
+        if u.shape[0] == 0:
+            return u, np.empty((0, self.x_dim)), np.empty((0,)), 0
+        v = self.transform(u)
+        logl = self.loglike(v)
+        self._ncall += u.shape[0]
+        keep = logl > loglstar
+        if self.log:
+            for ui, vi, logli in zip(u[keep], v[keep], logl[keep]):
+                self.pointstore.add(
+                    _listify([loglstar, logli, 0.0], ui, vi), self._ncall)
+        return u[keep, :], v[keep, :], logl[keep], u.shape[0]
+
+    def _rebuild_region(self, region, transformLayer, active_u, it,
+                        first_time):
+        """Bootstrap a fresh region; keep the old one unless volume shrank."""
+        if first_time:
+            candidate = region
+        else:
+            layer = transformLayer.create_new(active_u, region.maxradiussq,
+                                              device=self.device)
+            candidate = MLFriends(active_u, layer, device=self.device)
+        _update_region_bootstrap(candidate, 30, 0.0, rng=self.rng)
+        if candidate.estimate_volume() < region.estimate_volume():
+            region = candidate
+        region.create_ellipsoid(
+            minvol=exp(-it / self.num_live_points) * self.volfactor)
+        return region
+
+    def run(self, update_interval_iter=None, update_interval_ncall=None,
+            log_interval=None, dlogz=0.001, max_iters=None):
+        """Run until the remainder fraction falls below *dlogz*.
+
+        Returns a results dict with samples, weighted_samples, ncall,
+        niter, logz and logzerr.
+        """
+        if update_interval_ncall is None:
+            update_interval_ncall = max(1, round(self.num_live_points))
+        if update_interval_iter is None:
+            update_interval_iter = max(1, round(
+                self.num_live_points
+                if update_interval_ncall == 0
+                else 0.2 * self.num_live_points))
+        if log_interval is None:
+            log_interval = max(1, round(0.2 * self.num_live_points))
+        else:
+            log_interval = round(log_interval)
+            if log_interval < 1:
+                raise ValueError("log_interval must be >= 1")
+
+        viz_callback = get_default_viz_callback()
+        active_u, active_v, active_logl, nfresh = self._initial_live_points()
+        self._ncall = nfresh
+        self._replaying = True
+
+        # dead point columns, in removal order
+        dead_u, dead_v, dead_logl, dead_logwt = [], [], [], []
+        h = 0.0
+        logz = -1e300
+        logvol = log(1.0 - exp(-1.0 / self.num_live_points))
+        logz_remain = np.max(active_logl)
+
+        if self.x_dim > 1:
+            transformLayer = AffineLayer(wrapped_dims=self.wrapped_axes)
+        else:
+            transformLayer = ScalingLayer(wrapped_dims=self.wrapped_axes)
+        transformLayer.optimize(active_u, active_u)
+        region = MLFriends(active_u, transformLayer, device=self.device)
+
+        self.logger.info('Starting sampling ...')
+        buf_u = buf_v = buf_logl = np.empty((0,))
+        buf_pos = 0
+        ndraw = 128
+        it = 0
+        first_region = True
+        rebuild_at_ncall = -1
+        rebuild_at_iter = -1
+
+        while max_iters is None or it < max_iters:
+            # shrink: move the worst live point to the dead list
+            worst = np.argmin(active_logl)
+            loglstar = active_logl[worst]
+            logwt = logvol + loglstar
+            logz_new = np.logaddexp(logz, logwt)
+            h = (exp(logwt - logz_new) * loglstar
+                 + exp(logz - logz_new) * (h + logz) - logz_new)
+            logz = logz_new
+            dead_u.append(np.array(active_u[worst]))
+            dead_v.append(np.array(active_v[worst]))
+            dead_logwt.append(logwt)
+            dead_logl.append(loglstar)
+
+            if self._ncall > rebuild_at_ncall and it > rebuild_at_iter:
+                region = self._rebuild_region(
+                    region, transformLayer, active_u, it, first_region)
+                transformLayer = region.transformLayer
+                first_region = False
+                rebuild_at_ncall = self._ncall + update_interval_ncall
+                rebuild_at_iter = it + update_interval_iter
+                if self.log:
+                    viz_callback(
+                        points=dict(u=active_u, p=active_v,
+                                    logl=active_logl),
+                        info=dict(
+                            it=it, ncall=self._ncall, logz=logz,
+                            logz_remain=logz_remain,
+                            paramnames=self.paramnames
+                            + self.derivedparamnames,
+                            logvol=logvol),
+                        region=region, transformLayer=transformLayer)
+                    self.pointstore.flush()
+
+            # refill the candidate buffer until one clears the threshold
+            accepted = False
+            while not accepted:
+                if buf_pos >= len(buf_logl) and self._replaying:
+                    buf_u, buf_v, buf_logl = \
+                        self._pop_stored_candidate(loglstar)
+                    buf_pos = 0 if np.isfinite(buf_logl[0]) else 1
+                while buf_pos >= len(buf_logl):
+                    buf_u, buf_v, buf_logl, _nc = self._sample_candidates(
+                        region, loglstar, ndraw)
+                    buf_pos = 0
+                if buf_logl[buf_pos] > loglstar:
+                    accepted = True
+                    active_u[worst] = buf_u[buf_pos, :]
+                    active_v[worst] = buf_v[buf_pos, :]
+                    active_logl[worst] = buf_logl[buf_pos]
+                    # keep the region tracking the live points
+                    region.u[worst, :] = active_u[worst]
+                    region.unormed[worst, :] = \
+                        region.transformLayer.transform(active_u[worst])
+                    transformLayer.clusterids[worst] = 0
+                buf_pos += 1
+
+            logvol -= 1.0 / self.num_live_points
+            logz_remain = np.max(active_logl) - it / self.num_live_points
+            fraction_remain = np.logaddexp(logz, logz_remain) - logz
+
+            if it % log_interval == 0 and self.log:
+                sys.stdout.write(
+                    'Z=%.1g+%.1g | Like=%.1g..%.1g | it/evals=%d/%d '
+                    'eff=%.4f%%  \r'
+                    % (logz, logz_remain, loglstar, np.max(active_logl),
+                       it, self._ncall,
+                       np.inf if self._ncall == 0
+                       else it * 100 / self._ncall))
+                sys.stdout.flush()
+                ndraw = _next_pow2(max(128, min(
+                    16384, round((self._ncall + 1) / (it + 1)))))
+
+            if fraction_remain < dlogz:
+                break
+            it = it + 1
+
+        # absorb the remaining live points into the integral
+        logvol = -len(dead_v) / self.num_live_points \
+            - log(self.num_live_points)
+        for i in range(self.num_live_points):
+            logwt = logvol + active_logl[i]
+            logz_new = np.logaddexp(logz, logwt)
+            h = (exp(logwt - logz_new) * active_logl[i]
+                 + exp(logz - logz_new) * (h + logz) - logz_new)
+            logz = logz_new
+            dead_u.append(np.array(active_u[i]))
+            dead_v.append(np.array(active_v[i]))
+            dead_logwt.append(logwt)
+            dead_logl.append(active_logl[i])
+
+        dead_u = np.array(dead_u)
+        dead_v = np.array(dead_v)
+        dead_wt = exp(np.array(dead_logwt) - logz)
+        dead_logl = np.array(dead_logl)
+        logzerr = np.sqrt(h / self.num_live_points)
+
+        if self.log_to_disk:
+            with open(os.path.join(self.logs['results'], 'final.csv'),
+                      'w') as f:
+                writer = csv.writer(f)
+                writer.writerow(['niter', 'ncall', 'logz', 'logzerr', 'h'])
+                writer.writerow([it + 1, self._ncall, logz, logzerr, h])
+            self.pointstore.close()
+
+        print()
+        print("niter: {:d}\n ncall: {:d}\n nsamples: {:d}\n"
+              " logz: {:6.3f} +/- {:6.3f}\n h: {:6.3f}"
+              .format(it + 1, self._ncall, len(dead_v), logz, logzerr, h))
+
+        self.results = dict(
+            samples=resample_equal(dead_v, dead_wt / dead_wt.sum(),
+                                   rstate=self.rng),
+            ncall=self._ncall, niter=it, logz=logz, logzerr=logzerr,
+            weighted_samples=dict(
+                upoints=dead_u, points=dead_v, weights=dead_wt,
+                logweights=dead_logwt, logl=dead_logl),
+        )
+        return self.results
+
+    def print_results(self):
+        """Print a summary of the evidence and parameter posteriors."""
+        print()
+        print('logZ = %(logz).3f +- %(logzerr).3f' % self.results)
+        print()
+        for i, p in enumerate(self.paramnames + self.derivedparamnames):
+            col = self.results['samples'][:, i]
+            sigma = col.std()
+            med = col.mean()
+            j = 3 if sigma == 0 else max(
+                0, int(-np.floor(np.log10(sigma))) + 1)
+            fmt = '%%.%df' % j
+            print(('    %-20s' + fmt + " +- " + fmt) % (p, med, sigma))
+
+    def plot(self):
+        """Write a corner plot to the plots directory."""
+        if self.log_to_disk:
+            import matplotlib.pyplot as plt
+
+            from .plot import cornerplot
+            # the classic results dict carries no parameter names (the
+            # reference's plot() fails on that)
+            cornerplot(dict(self.results, paramnames=self.paramnames
+                            + self.derivedparamnames))
+            plt.savefig(os.path.join(self.logs['plots'], 'corner.pdf'),
+                        bbox_inches='tight')
+            plt.close()
 
 
 class ReactiveNestedSampler:
@@ -2411,3 +2826,41 @@ class ReactiveNestedSampler:
                 use_unicode))
         print()
 
+    def _render_figure(self, kind):
+        """Draw one diagnostic figure and save it under plots/<kind>.pdf."""
+        import matplotlib.pyplot as plt
+
+        from . import plot as _plotmod
+        if self.log:
+            self.logger.debug('Making %s plot ...', kind)
+        if kind == 'corner':
+            _plotmod.cornerplot(
+                self.results, logger=self.logger if self.log else None)
+        elif kind == 'trace':
+            _plotmod.traceplot(results=self.run_sequence,
+                               labels=self.paramnames
+                               + self.derivedparamnames)
+        else:
+            _plotmod.runplot(results=self.run_sequence, logplot=True)
+        if self.log_to_disk:
+            plt.savefig(os.path.join(self.logs['plots'], kind + '.pdf'),
+                        bbox_inches='tight')
+            plt.close()
+            self.logger.debug('Making %s plot ... done', kind)
+
+    def plot(self):
+        """Make corner, run and trace plots."""
+        for kind in ('corner', 'run', 'trace'):
+            self._render_figure(kind)
+
+    def plot_corner(self):
+        """Write a corner plot to the plots directory."""
+        self._render_figure('corner')
+
+    def plot_trace(self):
+        """Write a trace plot to the plots directory."""
+        self._render_figure('trace')
+
+    def plot_run(self):
+        """Write a run diagnostic plot to the plots directory."""
+        self._render_figure('run')

@@ -9,8 +9,11 @@ segment replay counters. The C sources lie beside this file
 (``counters.c``, ``stepfuncs.c``, ``treesweep.c``, ``replay.c``): the
 port's own copies, byte for byte, of the reference package's native
 sources, which a test holds equal. They are built on first use with the
-system compiler into ``ultranest_torch/native/_build/``. Without a
-working C compiler the numpy implementations serve instead.
+system compiler into ``ultranest_torch/native/_build/`` or, where the
+package directory cannot be written (an installed, read-only
+site-packages), into the user's cache directory (:func:`build_dir`).
+Without a working C compiler the numpy implementations serve instead;
+``ULTRANEST_TORCH_NO_NATIVE=1`` forces them.
 """
 
 import ctypes
@@ -20,7 +23,8 @@ import tempfile
 
 import numpy as np
 
-__all__ = ['counter_step', 'slice_update', 'tree_sweep', 'available']
+__all__ = ['counter_step', 'slice_update', 'tree_sweep', 'available',
+           'build_dir']
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 # the C sources live beside this loader
@@ -29,6 +33,30 @@ _LIB = None
 
 
 SOURCES = ('counters.c', 'stepfuncs.c', 'treesweep.c', 'replay.c')
+
+
+def build_dir(preferred):
+    """Directory for a built library: *preferred*, or a user cache.
+
+    *preferred* lies inside the package; an installed site-packages may
+    be read-only, and then ``$XDG_CACHE_HOME/ultranest_torch`` (or
+    ``~/.cache/ultranest_torch``) serves. Raises OSError when neither
+    can be written.
+    """
+    try:
+        os.makedirs(preferred, exist_ok=True)
+        if os.access(preferred, os.W_OK):
+            return preferred
+    except OSError:
+        pass
+    base = os.environ.get('XDG_CACHE_HOME') or \
+        os.path.join(os.path.expanduser('~'), '.cache')
+    d = os.path.join(base, 'ultranest_torch')
+    os.makedirs(d, exist_ok=True)
+    if not os.access(d, os.W_OK):
+        raise PermissionError('no writable build directory: tried %s and %s'
+                              % (preferred, d))
+    return d
 
 
 def _build_library():
@@ -44,8 +72,7 @@ def _build_library():
     for s in srcs:
         with open(s, 'rb') as f:
             h.update(f.read())
-    out_dir = os.path.join(_HERE, '_build')
-    os.makedirs(out_dir, exist_ok=True)
+    out_dir = build_dir(os.path.join(_HERE, '_build'))
     so = os.path.join(out_dir, '_counters-%s.so' % h.hexdigest()[:12])
     if os.path.exists(so):
         return so
@@ -64,8 +91,11 @@ def _build_library():
 
 
 def _load():
-    """The loaded library, or None when it cannot be built (tried once)."""
+    """The loaded library, or None when it cannot be built (tried once)
+    or ``ULTRANEST_TORCH_NO_NATIVE`` is set."""
     global _LIB
+    if os.environ.get('ULTRANEST_TORCH_NO_NATIVE'):
+        return None
     if _LIB is not None:
         return _LIB or None
     try:

@@ -16,14 +16,17 @@ Four kernels, sources in ``ultranest_torch/csrc/``:
   scan of ``ultranest_tpu/segmentops.py:78-134``.
 
 Each source file says what bounds its kernel on an H100 and what its
-design does about it. K1 and K2 share ``csrc/member_core.cuh``: the
+design does about it. K1, K1t and K2 share ``csrc/member_core.cuh``: the
 point in registers, the separately rounded distance, the compacted
-axis-major tile of live points and the group vote.
+axis-major tile of live points and the group vote. K1 and K1t are one
+kernel body, ``csrc/member_kernel.cuh``, instantiated per layout.
 
 Build: on first use, one ``nvcc -gencode arch=compute_90a,code=sm_90a``
 per source compiles the sources in parallel, and one more links the
 objects into a shared library with a plain C interface, under
-``ultranest_torch/_build/``, named by a hash of the sources and flags.
+``ultranest_torch/_build/`` (or, where the package directory cannot be
+written, under the user's cache directory: :func:`build_dir`), named by
+a hash of the sources and flags.
 It is loaded with ctypes: pointers and the stream go as ``c_void_p``.
 
 Routing: each wrapper runs its plain torch version (``*_plain``) when
@@ -46,11 +49,13 @@ import threading
 
 import torch
 
+from ..native import build_dir
+
 __all__ = ['radius_member', 'radius_member_t', 'bootstrap_radius',
            'consume_scan', 'radius_member_plain', 'radius_member_t_plain',
            'bootstrap_radius_plain', 'consume_scan_plain', 'build',
            'LAUNCHES', 'PLAIN_CALLS', 'reset_counts', 'KERNELS',
-           'REGION_KERNELS', 'member_group_size']
+           'REGION_KERNELS', 'member_group_size', 'build_dir']
 
 KERNELS = ('radius_member', 'radius_member_t', 'bootstrap_radius',
            'consume_scan')
@@ -60,25 +65,27 @@ REGION_KERNELS = ('radius_member', 'bootstrap_radius', 'consume_scan')
 SOURCES = ('radius_member.cu', 'radius_member_t.cu', 'bootstrap_radius.cu',
            'consume_scan.cu')
 # headers the sources include: hashed with them, so that an edit rebuilds
-HEADERS = ('member_core.cuh',)
+HEADERS = ('member_core.cuh', 'member_kernel.cuh')
 NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-Xcompiler', '-fPIC', '-Xptxas', '-v']
 # largest live set K3 takes: one 1024-thread CTA keeps live sets above
 # 1024 in shared memory (128 KB of the 227 KB)
 MAX_SCAN_NPAD = 32768
-# largest dimension K1t stages in shared memory (200 KB of the 227 KB)
-MAX_MEMBER_T_DIM = 200
-# largest dimension K1 takes: above d 32 a block stages its candidates in
-# shared memory, at most 128 KB of them (8 candidates at this d)
+# largest dimension K1 and K1t take: above d 32 a block stages its
+# candidates in shared memory, at most 128 KB of them (8 candidates at
+# this d)
 MAX_MEMBER_DIM = 4096
 _MEMBER_THREADS = 256
 _MEMBER_CAND_BYTES = 128 * 1024
-# threads a K1 launch aims for (a quarter of what the card holds at once:
+# threads a K1 or K1t launch aims for (a quarter of what the card holds at once:
 # timed on an H100 at M 4096 to 131072, each lane testing 8 rows at a time)
 _MEMBER_TARGET_THREADS = 1 << 16
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, 'csrc')
+# where the library is built: here or, if the package directory cannot
+# be written, in the user's cache directory (build_dir; it raises when
+# neither can)
 BUILD_DIR = os.path.join(_PKG, '_build')
 
 LAUNCHES = collections.Counter()
@@ -113,13 +120,13 @@ def build():
     for s in srcs + [os.path.join(_CSRC, s) for s in HEADERS]:
         with open(s, 'rb') as f:
             h.update(f.read())
-    so = os.path.join(BUILD_DIR, 'libultranest_kernels-%s.so'
+    out_dir = build_dir(BUILD_DIR)
+    so = os.path.join(out_dir, 'libultranest_kernels-%s.so'
                       % h.hexdigest()[:16])
     if os.path.exists(so):
         return so
-    os.makedirs(BUILD_DIR, exist_ok=True)
     nvcc = _nvcc()
-    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmpdir:
         objs = [os.path.join(tmpdir, os.path.basename(s) + '.o')
                 for s in srcs]
         # one compiler per source, all started together
@@ -150,7 +157,7 @@ def _lib():
             lib.un_radius_member.argtypes = [vp, vp, ci, vp, ci, ci, cf, ci,
                                              vp, vp]
             lib.un_radius_member_t.argtypes = [vp, vp, ci, vp, ci, ci, cf,
-                                               vp, vp]
+                                               ci, vp, vp]
             lib.un_bootstrap_radius.argtypes = [vp, vp, vp, ci, ci, ci, vp,
                                                 vp, vp]
             lib.un_consume_scan.argtypes = [vp, ci, vp, vp, ci, vp, vp, vp]
@@ -215,7 +222,8 @@ def radius_member_plain(tpoints, tmask, cands, r2, chunk=16384):
 
 
 def member_group_size(m, npts, d):
-    """Lanes that share one candidate in K1: a power of two from 1 to 32.
+    """Lanes that share one candidate in K1 and K1t: a power of two from
+    1 to 32.
 
     Chosen so that *m* candidates put about 65536 threads on the card
     (16 lanes at m 4096, 2 at 32768, 1 from 65536 on), which timing on
@@ -306,6 +314,16 @@ def radius_member_t_plain(tp_t, tm, cd_t, r2, chunk=16384):
     return torch.cat(out)
 
 
+def _radius_member_t_cuda(tp_t, tm, cd_t, r2, group):
+    """Launch K1t on checked CUDA tensors with *group* lanes a candidate."""
+    out = torch.empty(cd_t.shape[1], dtype=torch.int32, device=cd_t.device)
+    _launch('radius_member_t', _lib().un_radius_member_t,
+            tp_t.data_ptr(), tm.data_ptr(), tp_t.shape[1], cd_t.data_ptr(),
+            cd_t.shape[1], tp_t.shape[0], ctypes.c_float(r2), group,
+            out.data_ptr())
+    return out
+
+
 def radius_member_t(tp_t, tm, cd_t, r2):
     """K1t: radius membership with axis-major (transposed) operands.
 
@@ -336,14 +354,11 @@ def radius_member_t(tp_t, tm, cd_t, r2):
         raise ValueError('shape mismatch: tp_t %s, tm %s, cd_t %s'
                          % (tuple(tp_t.shape), tuple(tm.shape),
                             tuple(cd_t.shape)))
-    if d > MAX_MEMBER_T_DIM:
-        raise ValueError('radius_member_t stages d x 128 candidates in '
-                         'shared memory: d %d > %d' % (d, MAX_MEMBER_T_DIM))
-    out = torch.empty(m, dtype=torch.int32, device=cd_t.device)
-    _launch('radius_member_t', _lib().un_radius_member_t,
-            tp_t.data_ptr(), tm.data_ptr(), n, cd_t.data_ptr(), m, d,
-            ctypes.c_float(r2), out.data_ptr())
-    return out
+    if not 1 <= d <= MAX_MEMBER_DIM:
+        raise ValueError('radius_member_t takes 1 <= d <= %d, got %d'
+                         % (MAX_MEMBER_DIM, d))
+    return _radius_member_t_cuda(tp_t, tm, cd_t, r2,
+                                 member_group_size(m, n, d))
 
 
 # ---------------------------------------------------------------- K2 -----
