@@ -47,6 +47,29 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
      region rebuild, no plain version called;
    * ``sampler.plot()`` on the eggbox run's results (Agg backend; only
      where matplotlib is installed, and said so where it is not);
+   * device label propagation against ``connected_components`` (the
+     eggbox run's last region, and 4096 points of d 8 at their
+     MLFriends radius), labels equal;
+   * the dispatch watchdog: (a) a fetch behind a ~3 s spin kernel with a
+     1 s deadline raises ``DeviceLostError``; (b) a region-rejection run
+     and (c) a spec-walk ``FusedPopulationSliceSampler`` run (2-d gauss,
+     400 live points) whose next read after their third result fetch
+     waits behind a spin kernel, under a 1 s deadline: each warns "accelerator lost",
+     degrades to the host samplers and ends inside
+     ``tests/test_watchdog.py``'s gate;
+   * warm starts: the eggbox at the bench configuration run cold into a
+     ``storage_backend='csv'`` run directory, then again through
+     ``warmstart_from_similar_file(..., torch_loglike=,
+     torch_transform=)`` on the card, gated on the quadrature logZ with
+     K1, K2 and K3 launched; the same for the 2-d gauss, sigma 0.1 then
+     0.11, as ``tests/test_resume_similar.py:75-101``;
+   * ``reuse_samples(torch_loglike=)``, the calibrator's ladder with
+     ``FusedPopulationSliceSampler`` (nsteps 4, 8, 16, K3 in each rung),
+     the torch gradients, one ``DynamicCHMCSampler`` and one
+     ``DynamicHMCSampler`` step and a ``SamplingPathStepSampler`` run,
+     gated as the reference's tests gate; ``read_file`` and
+     ``resume='resume-similar'`` only where h5py is installed (said so
+     where it is not);
 
    and checks that each path's kernels were launched in its run (K3 on
    every segment path; the classic run consumes on the host and
@@ -1045,6 +1068,547 @@ def check_plots(sampler):
     return sizes
 
 
+# --- the phases of the stored runs, warm starts, calibrator, watchdog and
+# trajectory samplers ---------------------------------------------------
+
+# a spin of ~3 s at the H100's 1.98 GHz (torch.cuda._sleep counts clocks)
+SPIN_CYCLES = 6_000_000_000
+# the bench's eggbox run options (bench.py:104-115)
+EGGBOX_RUN = dict(min_num_live_points=400, viz_callback=False,
+                  show_status=False, max_num_improvement_loops=0, min_ess=0,
+                  dlogz=0.5, frac_remain=0.1, Lepsilon=0.001,
+                  max_ncalls=400000)
+# the reference tests' small runs (tests/test_resume_similar.py,
+# tests/test_watchdog.py), at 400 live points
+GAUSS_RUN = dict(min_num_live_points=400, viz_callback=False,
+                 show_status=False, max_num_improvement_loops=0, min_ess=0,
+                 dlogz=2.0, frac_remain=0.1)
+
+
+def sigma_gauss(sigma):
+    """(numpy, torch) log-likelihoods of the unnormalised unit-cube
+    gaussian at 0.5 with *sigma* on every axis, as
+    ``tests/test_resume_similar.py``; its logZ in 2-d is
+    log(2 pi sigma^2)."""
+    def loglike(theta):
+        return -0.5 * (((theta - 0.5) / sigma) ** 2).sum(axis=1)
+
+    def torch_loglike(theta):
+        return -0.5 * (((theta - 0.5) / sigma) ** 2).sum(dim=1)
+
+    return loglike, torch_loglike
+
+
+def identity(x):
+    """The unit-cube transform of the gaussians here."""
+    return x
+
+
+class DispatchDeadline:
+    """Sets ``ULTRANEST_TORCH_DISPATCH_DEADLINE`` inside the block."""
+
+    def __init__(self, seconds):
+        self.value = '%g' % seconds
+
+    def __enter__(self):
+        import os
+        self.old = os.environ.get('ULTRANEST_TORCH_DISPATCH_DEADLINE')
+        os.environ['ULTRANEST_TORCH_DISPATCH_DEADLINE'] = self.value
+
+    def __exit__(self, *exc):
+        import os
+        if self.old is None:
+            del os.environ['ULTRANEST_TORCH_DISPATCH_DEADLINE']
+        else:
+            os.environ['ULTRANEST_TORCH_DISPATCH_DEADLINE'] = self.old
+
+
+def check_label_propagation(eggbox_region):
+    """Device label propagation against ``connected_components``: the
+    eggbox run's last region (its 400 live points in whitened space),
+    and 4096 points of d 8 in four blobs in a region built on the card,
+    each at its bootstrapped MLFriends radius (30 rounds, K2). Labels
+    must be equal; returns [(case, n, components, label propagation ms,
+    connected_components ms)]."""
+    import torch
+    from ultranest_torch.mlfriends import MLFriends, ScalingLayer
+    from ultranest_torch.ops import cluster
+    rng = np.random.RandomState(8)
+    pts = np.concatenate([rng.normal(c, 0.03, size=(1024, 8))
+                          for c in rng.uniform(0.25, 0.75, size=(4, 8))])
+    pts = pts.clip(1e-3, 1 - 1e-3)
+    layer = ScalingLayer()
+    layer.optimize(pts, pts)
+    region = MLFriends(pts, layer, device='cuda')
+    out = []
+    for name, reg in (('eggbox', eggbox_region), ('blobs8', region)):
+        tp = reg.unormed
+        radius = reg.compute_maxradiussq(nbootstraps=30,
+                                         rng=np.random.RandomState(0))
+        times = []
+        for fn in (cluster.label_propagation_components,
+                   cluster.connected_components):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            labels = fn(tp, radius, device='cuda')
+            times.append(1e3 * (time.perf_counter() - t0))
+            if fn is cluster.label_propagation_components:
+                got = labels
+        assert np.array_equal(got, labels), ('label propagation differs',
+                                             name)
+        ncomp = len(np.unique(got))
+        assert 1 <= ncomp < len(tp), (name, ncomp)
+        print('label propagation on %s (%d points, d %d, r2 %.6g): labels '
+              'equal to connected_components, %d components; %.3f ms '
+              '(connected_components %.3f ms)' % (
+                  name, len(tp), tp.shape[1], radius, ncomp, *times))
+        out.append((name, len(tp), ncomp, *times))
+    return out
+
+
+def check_deadline_spin():
+    """Watchdog check (a): a fetch queued behind a ~3 s spin kernel, with
+    a 1 s deadline, must raise DeviceLostError. Also times one deadline
+    read of a finished copy beside a bare ``Event.synchronize()``: the
+    poll's cost per read. Returns the numbers as a dict."""
+    import torch
+    from ultranest_torch.parallel import launch
+    x = torch.arange(4, device='cuda')
+    done = torch.cuda.Event()
+    done.record()
+    torch.cuda.synchronize()
+    cost = {}
+    for name, fn in (('synchronize_us', done.synchronize),
+                     ('wait_ready_us', lambda: launch.wait_ready(done))):
+        t0 = time.perf_counter()
+        for _ in range(10000):
+            fn()
+        cost[name] = 1e6 * (time.perf_counter() - t0) / 10000
+    torch.cuda._sleep(SPIN_CYCLES)
+    handle = launch.start_fetch(x)
+    t0 = time.perf_counter()
+    try:
+        launch.finish_fetch(handle, deadline=1.0)
+    except launch.DeviceLostError:
+        raised = time.perf_counter() - t0
+    else:
+        raise AssertionError('no DeviceLostError behind the spin kernel')
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    out = dict(raised_s=raised, spin_rest_s=time.perf_counter() - t1, **cost)
+    assert 1.0 <= raised < 1.5, out
+    assert np.array_equal(launch.finish_fetch(handle), [0, 1, 2, 3])
+    print('watchdog (a): a fetch behind a ~3 s spin kernel raised '
+          'DeviceLostError after %.3f s (deadline 1 s); the spin ended %.3f '
+          's later; one read of a finished copy: wait_ready %.2f us, '
+          'Event.synchronize %.2f us' % (
+              out['raised_s'], out['spin_rest_s'], out['wait_ready_us'],
+              out['synchronize_us']))
+    return out
+
+
+def run_watchdog(kind):
+    """Watchdog checks (b) and (c): a 2-d gauss (sigma 0.1, 400 live
+    points) on the card, by region rejection (*kind* 'rejection') or with
+    a spec-walk ``FusedPopulationSliceSampler`` (popsize 64, nsteps 8;
+    *kind* 'population'), under a 1 s dispatch deadline. After the
+    path's third result, a ~3 s spin kernel is queued and the next device
+    read (the walk's flag read or a result fetch, whichever comes first)
+    waits behind it, so it misses the deadline. The run must warn "accelerator lost", swap the
+    device sampler for the host one and finish inside
+    ``tests/test_watchdog.py``'s gate, 3 max(logzerr, 0.5). Every kernel
+    count is set to 0 just before the run and read just after it.
+    Returns the run's summary."""
+    import warnings
+    import torch
+    from ultranest_torch import ReactiveNestedSampler, fused, popfused
+    from ultranest_torch.models.problems import gauss
+    from ultranest_torch.ops import kernels
+    from ultranest_torch.parallel.launch import DeviceLostError
+    prob = gauss(ndim=2, sigma=0.1)
+    if kind == 'rejection':
+        sampler = ReactiveNestedSampler(
+            seed=2, device='cuda', **prob.sampler_kwargs(use_torch=True))
+        mod = fused
+    else:
+        sampler = ReactiveNestedSampler(
+            seed=1, device='cuda', **prob.sampler_kwargs(use_torch=False))
+        sampler.stepsampler = popfused.FusedPopulationSliceSampler(
+            popsize=64, nsteps=8, torch_loglike=prob.torch_loglike, seed=1,
+            device='cuda')
+        mod = popfused
+    # every blocking read of the path goes through its finish_fetch: the
+    # walk's done flag (a 0-d tensor) and the results; a population
+    # result comes home in two fetches (rows and counts)
+    per_result = 2 if kind == 'population' else 1
+    state = dict(fetches=0, spin_at=None, lost_at=None, caught_at=None)
+    read = mod.finish_fetch
+
+    def watched(handle, deadline=None):
+        what = 'flag read' if handle[0].dim() == 0 else 'result fetch'
+        if state['fetches'] >= 3 * per_result and state['spin_at'] is None:
+            # the card stops answering: this read waits behind a spin
+            torch.cuda._sleep(SPIN_CYCLES)
+            behind = torch.cuda.Event()
+            behind.record()
+            handle = (handle[0], behind)
+            state['spin_at'] = time.perf_counter()
+        try:
+            out = read(handle, deadline)
+        except DeviceLostError:
+            state['caught_at'] = state['caught_at'] or what
+            raise
+        state['fetches'] += what == 'result fetch'
+        return out
+
+    degrade = sampler._degrade_to_host
+
+    def degraded(why):
+        state['lost_at'] = time.perf_counter()
+        degrade(why)
+
+    sampler._degrade_to_host = degraded
+    mod.finish_fetch = watched
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    try:
+        with DispatchDeadline(1.0), warnings.catch_warnings(record=True) as w:
+            warnings.simplefilter('always')
+            res = sampler.run(**GAUSS_RUN)
+    finally:
+        mod.finish_fetch = read
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    out = dict(kind=kind, wall_s=wall, ncall=int(res['ncall']),
+               niter=int(res['niter']), logz=float(res['logz']),
+               logzerr=float(res['logzerr']), logz_expected=prob.logz,
+               caught_at=state['caught_at'],
+               hang_to_degrade_s=(state['lost_at'] - state['spin_at'])
+               if state['lost_at'] and state['spin_at'] else None,
+               host_sampler=type(sampler.stepsampler).__name__
+               if sampler.stepsampler is not None else None,
+               segment_exits=dict(getattr(sampler, '_segment_exits', {})),
+               launches=dict(kernels.LAUNCHES))
+    assert state['spin_at'] is not None, 'the hang was never injected'
+    assert any('accelerator lost' in str(x.message) for x in w), \
+        'no "accelerator lost" warning'
+    assert state['lost_at'] is not None and state['caught_at'], out
+    assert sampler.fused_sampler is None
+    if kind == 'population':
+        assert out['host_sampler'] == 'SliceSampler' and \
+            sampler.stepsampler.nsteps == 8, out
+    assert abs(res['logz'] - prob.logz) < 3 * max(res['logzerr'], 0.5), \
+        ('%s watchdog run outside the gate' % kind, out)
+    assert np.isfinite(res['samples']).all(), 'bad posterior samples'
+    print('watchdog (%s): hang caught at %s %.3f s after the spin was '
+          'queued (deadline 1 s), degraded to %s; logZ %.4f +- %.4f '
+          '(analytic %.4f, gate 3 max(logzerr, 0.5)), wall %.3f s, ncall '
+          '%d, niter %d, segment exits %s, kernel launches %s' % (
+              'b' if kind == 'rejection' else 'c', out['caught_at'],
+              out['hang_to_degrade_s'], out['host_sampler'] or
+              'host region sampling', out['logz'], out['logzerr'],
+              out['logz_expected'], wall, out['ncall'], out['niter'],
+              json.dumps(out['segment_exits']), json.dumps(out['launches'])))
+    return out
+
+
+def timed_run(sampler, reset=True, **options):
+    """(results, wall s, kernel launches) of ``sampler.run`` on the card,
+    every kernel count set to 0 just before it (unless not *reset*) and
+    read just after."""
+    import torch
+    from ultranest_torch.ops import kernels
+    if reset:
+        kernels.reset_counts()
+    t0 = time.perf_counter()
+    res = sampler.run(**options)
+    torch.cuda.synchronize()
+    return res, time.perf_counter() - t0, dict(kernels.LAUNCHES)
+
+
+def run_warm_start(kind, tmp):
+    """A cold run into a ``storage_backend='csv'`` run directory under
+    *tmp*, then ``warmstart_from_similar_file(..., torch_loglike=,
+    torch_transform=)`` on its ``weighted_post_untransformed.txt`` and a
+    warm run of the aux problem on the card (its ``.torch`` functions).
+
+    *kind* 'eggbox': the bench configuration (400 live points,
+    ``bench.py:104-115``) again from its own posterior, gated on the
+    quadrature logZ (235.856, floor 1.0) with K1, K2 and K3 launched in
+    the warm run. *kind* 'gauss': the 2-d gauss, sigma 0.1 then 0.11, 400
+    live points, as ``tests/test_resume_similar.py:75-101``, gated at
+    |logZ - log(2 pi 0.11^2)| < 1.5. Returns {'cold': ..., 'warm': ...,
+    'launches': the two runs' kernel launches}.
+    """
+    import os
+    from ultranest_torch import (ReactiveNestedSampler,
+                                 warmstart_from_similar_file)
+    from ultranest_torch.models.problems import eggbox
+    from ultranest_torch.ops import kernels
+    if kind == 'eggbox':
+        prob = eggbox()
+        names, tr, ttr = prob.param_names, prob.transform, \
+            prob.torch_transform
+        cold_ll, cold_tll = prob.loglike, prob.torch_loglike
+        warm_ll, warm_tll = cold_ll, cold_tll
+        extra = dict(ndraw_min=4096, ndraw_max=32768)
+        options, truth, floor = EGGBOX_RUN, EGGBOX_LOGZ, 1.0
+    else:
+        names, tr, ttr = ['a', 'b'], identity, identity
+        cold_ll, cold_tll = sigma_gauss(0.1)
+        warm_ll, warm_tll = sigma_gauss(0.11)
+        extra = {}
+        options, truth, floor = GAUSS_RUN, float(np.log(2 * np.pi * 0.11 ** 2)), \
+            None
+    cold = ReactiveNestedSampler(
+        names, cold_ll, transform=tr, vectorized=True, seed=42,
+        torch_loglike=cold_tll, torch_transform=ttr, device='cuda',
+        log_dir=os.path.join(tmp, kind), resume='overwrite',
+        storage_backend='csv', **extra)
+    res_c, wall_c, launch_c = timed_run(cold, **options)
+    usamples = os.path.join(cold.logs['chains'],
+                            'weighted_post_untransformed.txt')
+    aux_names, aux_ll, aux_tr, vec = warmstart_from_similar_file(
+        usamples, names, warm_ll, tr, vectorized=True,
+        torch_loglike=warm_tll, torch_transform=ttr)
+    assert aux_names == list(names) + ['aux_logweight'], aux_names
+    warm = ReactiveNestedSampler(
+        aux_names, aux_ll, transform=aux_tr, vectorized=vec, seed=43,
+        torch_loglike=aux_ll.torch, torch_transform=aux_tr.torch,
+        device='cuda', **extra)
+    assert warm.fused_sampler is not None
+    res_w, wall_w, launch_w = timed_run(warm, **options)
+    out = {}
+    for name, res, wall, launched, sampler in (
+            ('cold', res_c, wall_c, launch_c, cold),
+            ('warm', res_w, wall_w, launch_w, warm)):
+        out[name] = dict(wall_s=wall, ncall=int(res['ncall']),
+                         niter=int(res['niter']), logz=float(res['logz']),
+                         logzerr=float(res['logzerr']),
+                         segment_exits=dict(getattr(sampler,
+                                                    '_segment_exits', {})),
+                         launches=launched)
+        assert np.isfinite(res['samples']).all(), 'bad posterior samples'
+    if floor is None:
+        assert abs(res_w['logz'] - truth) < 1.5, \
+            ('warm gauss outside the gate', out)
+    else:
+        assert abs(res_c['logz'] - truth) < max(4 * res_c['logzerr'], floor)
+        assert abs(res_w['logz'] - truth) < max(4 * res_w['logzerr'],
+                                                floor), \
+            ('warm eggbox outside the gate', out)
+        for name in kernels.REGION_KERNELS:
+            assert launch_w.get(name, 0) > 0, ('kernel not launched in the '
+                                               'warm eggbox run', name)
+    out['launches'] = {k: launch_c.get(k, 0) + launch_w.get(k, 0)
+                       for k in set(launch_c) | set(launch_w)}
+    for name in ('cold', 'warm'):
+        r = out[name]
+        print('warm start %s, %s run: logZ %.4f +- %.4f (truth %.4f), wall '
+              '%.3f s, ncall %d, niter %d, segment exits %s, kernel launches '
+              '%s' % (kind, name, r['logz'], r['logzerr'], truth, r['wall_s'],
+                      r['ncall'], r['niter'], json.dumps(r['segment_exits']),
+                      json.dumps(r['launches'])))
+    return out
+
+
+def check_reuse_samples():
+    """``reuse_samples(torch_loglike=)`` on the card: the case of
+    ``tests/test_aux_modules.py:118-134`` and its checks."""
+    from ultranest_torch.hotstart import reuse_samples
+    rng = np.random.RandomState(8)
+    points = rng.normal(0.5, 0.1, size=(500, 2))
+    logl = -0.5 * (((points - 0.5) / 0.1) ** 2).sum(axis=1)
+    np.random.seed(8)
+    res = reuse_samples(['a', 'b'], None, points, logl,
+                        torch_loglike=sigma_gauss(0.1)[1], device='cuda')
+    assert np.isfinite(res['logz']) and res['ess'] > 10, res['logz']
+    assert np.allclose(res['posterior']['mean'], [0.5, 0.5], atol=0.05)
+    print('reuse_samples(torch_loglike=, device=cuda): logZ %.6f, ess %.1f, '
+          'ncall %d, posterior mean %s' % (
+              res['logz'], res['ess'], res['ncall'],
+              np.round(res['posterior']['mean'], 4).tolist()))
+    return res
+
+
+def run_calibrator():
+    """``ReactiveNestedCalibrator`` with ``FusedPopulationSliceSampler``
+    on a gauss of d 4 (popsize 64, nsteps 4), as
+    ``tests/test_aux_modules.py:314-339``, on the card. Every kernel count
+    is set to 0 just before the ladder and read after each rung: nsteps
+    must begin 4, 8, 16, each rung run a fresh clone and launch K3.
+    Returns the rungs and the ladder's kernel launches."""
+    import torch
+    from ultranest_torch.calibrator import ReactiveNestedCalibrator
+    from ultranest_torch.models.problems import gauss
+    from ultranest_torch.ops import kernels
+    from ultranest_torch.popfused import FusedPopulationSliceSampler
+    prob = gauss(ndim=4, sigma=0.1)
+    calib = ReactiveNestedCalibrator(seed=1, device='cuda',
+                                     **prob.sampler_kwargs(use_torch=False))
+    calib.stepsampler = FusedPopulationSliceSampler(
+        popsize=64, nsteps=4, torch_loglike=prob.torch_loglike, seed=1,
+        device='cuda')
+    kernels.reset_counts()
+    rungs, clones, seen = [], [], 0
+    t0 = time.perf_counter()
+    for nsteps, res in calib.run_iter(
+            min_num_live_points=50, viz_callback=False, show_status=False,
+            max_num_improvement_loops=0, min_ess=0, dlogz=2.0,
+            frac_remain=0.5):
+        torch.cuda.synchronize()
+        k3 = kernels.LAUNCHES['consume_scan'] - seen
+        seen += k3
+        clones.append(calib.sampler.stepsampler)
+        rungs.append(dict(nsteps=nsteps, logz=float(res['logz']),
+                          logzerr=float(res['logzerr']),
+                          ncall=int(res['ncall']), niter=int(res['niter']),
+                          k3=k3))
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    assert [r['nsteps'] for r in rungs[:3]] == [4, 8, 16], rungs
+    assert all(r['k3'] > 0 for r in rungs), ('K3 not launched in a rung',
+                                             rungs)
+    assert len({id(c) for c in clones + [calib.stepsampler]}) == \
+        len(clones) + 1, 'a rung did not get a fresh clone'
+    assert all(c.nsteps == r['nsteps'] for c, r in zip(clones, rungs))
+    assert np.isfinite(rungs[-1]['logz'])
+    print('calibrator (FusedPopulationSliceSampler, gauss d 4): %d rungs in '
+          '%.3f s: %s; kernel launches %s' % (
+              len(rungs), wall, '; '.join(
+                  'nsteps %d logZ %.4f +- %.4f ncall %d niter %d K3 %d' % (
+                      r['nsteps'], r['logz'], r['logzerr'], r['ncall'],
+                      r['niter'], r['k3']) for r in rungs),
+              json.dumps(launches)))
+    return dict(rungs=rungs, launches=launches)
+
+
+def run_trajectory():
+    """The trajectory samplers on the card, as ``tests/test_trajectory.py:
+    141-228``: ``gradient_from_torch`` and
+    ``transform_loglike_gradient_from_torch`` against the analytic
+    gradient; one ``DynamicCHMCSampler`` and one ``DynamicHMCSampler``
+    step in an MLFriends region built on the card; then a
+    ``SamplingPathStepSampler`` run (50 live points), gated at 2.5. Every
+    kernel count is set to 0 just before the phase and read just after
+    it (the regions' rebuilds launch K2). Returns its summary."""
+    from ultranest_torch import ReactiveNestedSampler
+    from ultranest_torch.dychmc import DynamicCHMCSampler, gradient_from_torch
+    from ultranest_torch.dyhmc import (DynamicHMCSampler,
+                                       transform_loglike_gradient_from_torch)
+    from ultranest_torch.mlfriends import AffineLayer, MLFriends
+    from ultranest_torch.ops import kernels
+    from ultranest_torch.pathsampler import SamplingPathStepSampler
+    loglike, torch_loglike = sigma_gauss(0.1)
+    kernels.reset_counts()
+    u0 = np.array([0.6, 0.5])
+    analytic = -(u0 - 0.5) / 0.01
+    g = gradient_from_torch(torch_loglike, device='cuda')(u0)
+    assert np.allclose(g, analytic / np.linalg.norm(analytic), atol=1e-6), g
+    tlg = transform_loglike_gradient_from_torch(torch_loglike, device='cuda')
+    p, L, dL = tlg(u0)
+    assert np.allclose(p, u0, atol=1e-6) and \
+        abs(L - loglike(u0[None])[0]) < 1e-4 and \
+        np.allclose(dL, analytic, rtol=1e-5), (p, L, dL)
+    steps = {}
+    for name, seed in (('chmc', 4), ('hmc', 6)):
+        rng = np.random.RandomState(seed)
+        u = rng.uniform(0.3, 0.7, size=(200, 2))
+        layer = AffineLayer()
+        layer.optimize(u, u)
+        region = MLFriends(u, layer, device='cuda')
+        region.maxradiussq, region.enlarge = region.compute_enlargement(
+            nbootstraps=10, rng=np.random.RandomState(seed))
+        region.create_ellipsoid()
+        Ls = loglike(region.u)
+        Lmin = np.percentile(Ls, 20)
+        np.random.seed(seed - 1)
+        if name == 'chmc':
+            ss = DynamicCHMCSampler(scale=0.05, nsteps=4)
+            ss.set_gradient(gradient_from_torch(torch_loglike,
+                                                device='cuda'))
+            ok = Ls > Lmin
+            un, _, Ln, nc = ss.__next__(region, Lmin, region.u[ok], Ls[ok],
+                                        identity, loglike)
+            assert Ln > Lmin
+        else:
+            ss = DynamicHMCSampler(ndim=2, nsteps=3,
+                                   transform_loglike_gradient=tlg)
+            un, _, Ln, nc = ss.__next__(region, Lmin, region.u, Ls,
+                                        identity, loglike)
+        assert nc > 0 and (un > 0).all() and (un < 1).all(), (name, un, nc)
+        steps[name] = dict(u=np.asarray(un).tolist(), L=float(Ln),
+                           ncall=int(nc))
+    np.random.seed(7)
+    sampler = ReactiveNestedSampler(['a', 'b'], loglike, transform=identity,
+                                    vectorized=True, seed=7, device='cuda')
+    sampler.stepsampler = SamplingPathStepSampler(nresets=3, nsteps=5)
+    res, wall, launched = timed_run(
+        sampler, reset=False, min_num_live_points=50, viz_callback=False,
+        show_status=False, max_num_improvement_loops=0, min_ess=0,
+        dlogz=2.0, frac_remain=0.5, max_ncalls=20000)
+    truth = float(np.log(2 * np.pi * 0.1 ** 2))
+    assert abs(res['logz'] - truth) < 2.5, ('path sampler outside the gate',
+                                            res['logz'])
+    assert launched.get('bootstrap_radius', 0) > 0, \
+        'K2 was not launched under the path sampler'
+    out = dict(wall_s=wall, ncall=int(res['ncall']), niter=int(res['niter']),
+               logz=float(res['logz']), logzerr=float(res['logzerr']),
+               gradient=g.tolist(), steps=steps, launches=launched)
+    print('trajectory samplers: gradient_from_torch %s (analytic direction '
+          '[-1, 0]), transform_loglike_gradient_from_torch L %.6f dL/du %s; '
+          'DynamicCHMCSampler step %s; DynamicHMCSampler step %s; '
+          'SamplingPathStepSampler run logZ %.4f +- %.4f (analytic %.4f, '
+          'gate 2.5), wall %.3f s, ncall %d, niter %d, kernel launches %s'
+          % (np.round(g, 6).tolist(), L, np.round(dL, 4).tolist(),
+             json.dumps(steps['chmc']), json.dumps(steps['hmc']), out['logz'],
+             out['logzerr'], truth, wall, out['ncall'], out['niter'],
+             json.dumps(launched)))
+    return out
+
+
+def run_stored_runs(tmp):
+    """``read_file`` and ``resume='resume-similar'`` on the card, where
+    h5py imports (both read HDF5 point stores): a stored 2-d gauss run
+    (sigma 0.1, region rejection on the card) read back, then salvaged
+    for sigma 0.11 and run on, gated as ``tests/test_run.py:123-142``
+    and ``tests/test_resume_similar.py:47-72`` gate. Returns None where
+    h5py is not installed (the CPU tests cover both there)."""
+    import importlib.util
+    import os
+    if importlib.util.find_spec('h5py') is None:
+        return None
+    from ultranest_torch import ReactiveNestedSampler, read_file
+    loglike_a, torch_loglike_a = sigma_gauss(0.1)
+    loglike_b, _ = sigma_gauss(0.11)
+    log_dir = os.path.join(tmp, 'stored')
+    first = ReactiveNestedSampler(
+        ['a', 'b'], loglike_a, transform=identity, vectorized=True, seed=3,
+        torch_loglike=torch_loglike_a, torch_transform=identity,
+        device='cuda', log_dir=log_dir, resume=True)
+    res1, wall1, _ = timed_run(first, **GAUSS_RUN)
+    first.pointstore.close()
+    seq, final = read_file(first.logs['run_dir'], 2, num_bootstraps=10,
+                           random=False)
+    assert abs(final['logz'] - res1['logz']) < 0.5 and \
+        seq['niter'] >= res1['niter'], (final['logz'], res1['logz'])
+    second = ReactiveNestedSampler(
+        ['a', 'b'], loglike_b, transform=identity, vectorized=True, seed=4,
+        device='cuda', log_dir=log_dir, resume='resume-similar',
+        warmstart_max_tau=0.3)
+    res2, wall2, _ = timed_run(second, **GAUSS_RUN)
+    truth = float(np.log(2 * np.pi * 0.11 ** 2))
+    assert abs(res2['logz'] - truth) < 1.5, res2['logz']
+    out = dict(read_file_logz=float(final['logz']), logz=float(res1['logz']),
+               salvaged_logz=float(res2['logz']), salvaged_ncall=int(
+                   res2['ncall']), ncall=int(res1['ncall']))
+    print('stored runs: read_file logZ %.4f (run %.4f); resume-similar '
+          'logZ %.4f (truth %.4f), ncall %d after %d' % (
+              out['read_file_logz'], out['logz'], out['salvaged_logz'],
+              truth, out['salvaged_ncall'], out['ncall']))
+    return out
+
+
 def print_ranking(real):
     """Prints each kernel's launches x (device ms - bound ms) summed over
     the sampler paths of this run, largest first, every term from the
@@ -1134,6 +1698,7 @@ def main(argv=()):
     for name in kernels.REGION_KERNELS:
         launches[name] = run['launches'][name]
 
+    eggbox_region = eggbox_sampler[0].region
     plots = check_plots(eggbox_sampler.pop())
     print('eggbox sampler.plot(): ' + (
         'matplotlib is not installed here, the plots were not drawn'
@@ -1216,6 +1781,41 @@ def main(argv=()):
               run['chains'], run['rejection_rate'], run['frac_far_enough'],
               json.dumps(run['launches']), json.dumps(run['plain_calls'])))
     launches['bootstrap_radius'] += run['launches']['bootstrap_radius']
+
+    # the stored runs, warm starts, calibrator, dispatch watchdog and
+    # trajectory samplers
+    check_label_propagation(eggbox_region)
+    check_deadline_spin()
+
+    def path(name, run_fn, *args):
+        """Runs one path under KernelCapture and books its traffic and
+        launches (*run_fn* returns a summary with its ``launches``)."""
+        with KernelCapture(kernels) as cap:
+            out = run_fn(*args)
+        traffic[name] = cap.calls
+        path_launches[name] = out['launches']
+        for k in kernels.REGION_KERNELS:
+            launches[k] += out['launches'].get(k, 0)
+        return out
+
+    for kind in ('rejection', 'population'):
+        path('watchdog_' + kind, run_watchdog, kind)
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        for kind in ('eggbox', 'gauss'):
+            warm = path('warm_start_' + kind, run_warm_start, kind, tmp)
+            print('warm start %s: niter %d cold, %d warm; ncall %d cold, %d '
+                  'warm; wall %.3f s cold, %.3f s warm' % (
+                      kind, warm['cold']['niter'], warm['warm']['niter'],
+                      warm['cold']['ncall'], warm['warm']['ncall'],
+                      warm['cold']['wall_s'], warm['warm']['wall_s']))
+        stored = run_stored_runs(tmp)
+    if stored is None:
+        print('read_file and resume-similar: h5py is not installed here, '
+              'they were skipped (both read HDF5 point stores)')
+    check_reuse_samples()
+    path('calibrator', run_calibrator)
+    path('trajectory', run_trajectory)
 
     checks = {'consume_scan': check_scan_traffic,
               'radius_member': check_member_traffic,

@@ -643,3 +643,65 @@ def test_governed_gauss_run_on_card(cuda):
     assert kernels.LAUNCHES['consume_scan'] > 0
     assert sum(kernels.PLAIN_CALLS.values()) == 0
     assert abs(res['logz']) < max(4 * res['logzerr'], 2.0)
+
+
+@pytest.mark.parametrize('n,d', [(400, 2), (4096, 8)])
+def test_label_propagation_on_card(cuda, n, d):
+    """Device label propagation equals connected_components at the
+    MLFriends radius of the points (their largest nearest-neighbour
+    distance, doubled), the labels being the smallest member index."""
+    rng = np.random.RandomState(n + d)
+    pts = np.concatenate([rng.normal(c, 0.05, size=(n // 4, d))
+                          for c in rng.uniform(0, 1, size=(4, d))])
+    d2 = pairwise.pairwise_sqdist(torch.as_tensor(pts, dtype=torch.float32,
+                                                  device=cuda),
+                                  torch.as_tensor(pts, dtype=torch.float32,
+                                                  device=cuda))
+    d2.fill_diagonal_(float('inf'))
+    r2 = 4 * float(d2.min(dim=1).values.max())
+    got = cluster.label_propagation_components(pts, r2, device=cuda)
+    want = cluster.connected_components(pts, r2, device=cuda)
+    np.testing.assert_array_equal(got, want)
+    assert 1 <= len(np.unique(got)) < n
+
+
+def test_deadline_raises_behind_a_spin_kernel(cuda):
+    """A read queued behind ~2 s of device work, with a 0.3 s deadline,
+    raises DeviceLostError; the same read without a deadline completes."""
+    import time
+    from ultranest_torch.parallel import launch
+    x = torch.arange(4, device=cuda)
+    torch.cuda.synchronize()
+    launch.fetch_with_deadline(x, deadline=5.0)
+    torch.cuda._sleep(4_000_000_000)       # ~2 s at the H100's 1.98 GHz
+    handle = launch.start_fetch(x)
+    t0 = time.monotonic()
+    with pytest.raises(launch.DeviceLostError):
+        launch.finish_fetch(handle, deadline=0.3)
+    assert 0.3 <= time.monotonic() - t0 < 1.0
+    np.testing.assert_array_equal(launch.finish_fetch(handle, deadline=0),
+                                  [0, 1, 2, 3])
+
+
+def test_contbox_torch_transform_on_card(cuda):
+    """A ``.torch`` contbox transform on the card against its host
+    closure, in float64 (the envelopes taken in the input's dtype)."""
+    from ultranest_torch.hotstart import get_auxiliary_contbox_parameterization
+    rng = np.random.RandomState(3)
+    upoints = rng.normal(0.5, 0.03, size=(400, 2)).clip(1e-3, 1 - 1e-3)
+    names, aux_ll, aux_tr, _ = get_auxiliary_contbox_parameterization(
+        ['a', 'b'], lambda x: -((x - 0.5) ** 2).sum(axis=1), lambda x: x,
+        upoints, np.ones(400) / 400, vectorized=True,
+        torch_loglike=lambda x: -((x - 0.5) ** 2).sum(dim=1))
+    u = rng.uniform(0.01, 0.99, size=(256, 3))
+    u[:2, -1] = [0.0, 1.0]
+    got = aux_tr.torch(torch.as_tensor(u, device=cuda))
+    assert got.device.type == 'cuda'
+    np.testing.assert_allclose(got.cpu().numpy(), aux_tr(u), rtol=1e-12,
+                               atol=1e-14)
+    got32 = aux_tr.torch(torch.as_tensor(u, dtype=torch.float32,
+                                         device=cuda)).cpu().numpy()
+    np.testing.assert_allclose(got32, aux_tr(u), atol=1e-4)
+    np.testing.assert_allclose(
+        aux_ll.torch(torch.as_tensor(aux_tr(u), device=cuda)).cpu().numpy(),
+        aux_ll(aux_tr(u)), rtol=1e-12)

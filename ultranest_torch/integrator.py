@@ -29,8 +29,16 @@ its loop is host numpy and its regions are built on its device.
 ``plot()`` writes the corner, run and trace plots
 (:mod:`ultranest_torch.plot`).
 
-Not ported yet: ``read_file``, warm starts and resume-similar, and
-multi-device runs.
+Stored runs: :func:`read_file` recomputes the logZ sequence of a run
+directory, ``resume='resume-similar'`` salvages a stored run for a
+modified likelihood (both need h5py: they read HDF5 point stores), and
+:func:`warmstart_from_similar_file` deforms the prior around a previous
+posterior (:mod:`ultranest_torch.hotstart`). The file formats are the
+JAX package's, so either package reads the other's run directories.
+A dispatch that misses its deadline (``ULTRANEST_TORCH_DISPATCH_DEADLINE``,
+:mod:`ultranest_torch.parallel.launch`) degrades the run to the host path.
+
+Not ported yet: multi-device runs.
 """
 
 import csv
@@ -59,14 +67,17 @@ from .mlfriends import find_nearby  # noqa: F401 (re-export)
 from .netiter import BreadthFirstIterator  # noqa: I100 (grouped imports)
 from .netiter import MultiCounter
 from .netiter import PointPile
+from .netiter import SingleCounter
 from .netiter import TreeNode
 from .netiter import combine_results
 from .netiter import count_tree_between
 from .netiter import dump_tree
 from .netiter import find_nodes_before
+from .netiter import logz_sequence
 from .netiter import replay_sequence
 from .ops.pairwise import match_clusters
 from .ordertest import UniformOrderAccumulator
+from .parallel.launch import DeviceLostError
 from .parallel.strategy import bootstrap_kl_table
 from .store import HDF5PointStore
 from .store import NullPointStore
@@ -75,12 +86,14 @@ from .utils import create_logger
 from .utils import is_affine_transform
 from .utils import listify as _listify
 from .utils import make_run_dir
+from .utils import normalised_kendall_tau_distance
 from .utils import resample_equal
 from .utils import vectorize
 from .utils import vol_prefactor
 from .viz import get_default_viz_callback
 
-__all__ = ['ReactiveNestedSampler', 'NestedSampler']
+__all__ = ['ReactiveNestedSampler', 'NestedSampler', 'read_file',
+           'warmstart_from_similar_file']
 
 int_t = np.int64
 
@@ -124,6 +137,41 @@ def _width_plan(required_widths, floor):
     need[peak:] = np.maximum.accumulate(need[peak:][::-1])[::-1]
     return list(zip(knots, need))
 
+
+class _StoredRun:
+    """Replay access to stored run rows ``(Lmin, L, quality, u.., v..)``.
+
+    The threshold-pop logic shared by :func:`read_file` and
+    :func:`resume_from_similar_file` (``ultranest_tpu/integrator.py:137-171``).
+    """
+
+    def __init__(self, rows, x_dim, num_params):
+        self.remaining = list(enumerate(np.asarray(rows)))
+        self.x_dim = x_dim
+        self.num_params = num_params
+        self.total = len(self.remaining)
+
+    def pop(self, Lmin):
+        """Remove and return the first row whose arc spans *Lmin*."""
+        for i, (idx, row) in enumerate(self.remaining):
+            if row[0] <= Lmin < row[1]:
+                return self.remaining.pop(i)
+        return None, None
+
+    def unpack(self, row):
+        """Split a raw row into (u, v, logl)."""
+        d = self.x_dim
+        return (row[3:3 + d],
+                row[3 + d:3 + d + self.num_params],
+                row[1])
+
+    def pop_initial(self):
+        """Yield (u, v, logl) of all stored prior samples, consuming them."""
+        while True:
+            _, row = self.pop(-np.inf)
+            if row is None:
+                return
+            yield self.unpack(row)
 
 
 # options accepted by ReactiveNestedSampler.run / .run_iter, with their
@@ -175,6 +223,175 @@ class _PassState:
         'nclusters', 'saved_nodeids', 'saved_logl',
         'minimal_widths_sequence')
 
+
+
+def _load_stored_run(log_dir, x_dim):
+    """Load the raw point table of a stored run from *log_dir*."""
+    import h5py
+    filepath = os.path.join(log_dir, 'results', 'points.hdf5')
+    with h5py.File(filepath, 'r') as fileobj:
+        _, ncols = fileobj['points'].shape
+        rows = fileobj['points'][:]
+    return _StoredRun(rows, x_dim, ncols - 3 - x_dim), filepath, ncols
+
+
+def _walk_stored_tree(explorer, stored, pointpile, batchsize):
+    """Advance *explorer* through the stored run, in likelihood order.
+
+    Yields lists of ``(Lmin, live_values, replacements)`` where
+    *replacements* holds the (u, v, logl) tuples entering at that node.
+    """
+    pending = []
+    while True:
+        visit = explorer.next_node()
+        if visit is None:
+            break
+        rootid, node, (_, _, live_values, _) = visit
+        entering = []
+        _, row = stored.pop(node.value)
+        if row is not None:
+            u, v, logl = stored.unpack(row)
+            assert logl > node.value
+            entering.append((u, v, logl))
+            node.children.append(pointpile.make_node(logl, u, v))
+        pending.append((node.value, live_values.copy(), entering))
+        if len(pending) >= batchsize:
+            yield pending
+            pending = []
+        explorer.expand_children_of(rootid, node)
+    if pending:
+        yield pending
+
+
+def resume_from_similar_file(log_dir, x_dim, loglikelihood, transform,
+                             max_tau=0, verbose=False, ndraw=400):
+    """Adapt a stored run to a modified likelihood function in place.
+
+    Replays the stored tree while re-evaluating the new likelihood; keeps
+    iterating as long as the live point order stays within *max_tau*
+    normalised Kendall tau distance of the stored order, then truncates.
+
+    Parameters
+    ----------
+    log_dir: str
+        run directory containing ``results/points.hdf5``
+    x_dim: int
+        dimensionality
+    loglikelihood, transform: functions
+        new vectorized model functions
+    max_tau: float
+        0 (conservative) .. 1 (negligent) allowed live-point disorder
+    verbose: bool or int
+        progress reporting
+    ndraw: int
+        likelihood evaluation batch size
+    """
+    stored, filepath, ncols = _load_stored_run(log_dir, x_dim)
+    scratch_path = filepath + '.new'
+    rewritten = HDF5PointStore(scratch_path, ncols, mode='w')
+
+    old_pile = PointPile(x_dim, stored.num_params)
+    new_pile = PointPile(x_dim, stored.num_params)
+
+    def check_transform(u_batch, v_stored):
+        v_now = transform(np.array(u_batch, ndmin=2, dtype=float))
+        assert np.allclose(v_now, v_stored), \
+            'transform inconsistent, cannot resume'
+        return v_now
+
+    init = list(stored.pop_initial())
+    init_u = [u for u, _, _ in init]
+    init_v = check_transform(init_u, [v for _, v, _ in init])
+    init_logl_new = loglikelihood(init_v)
+
+    old_roots, new_roots = [], []
+    for (u, v, logl_old), logl_new in zip(init, init_logl_new):
+        old_roots.append(old_pile.make_node(logl_old, u, v))
+        new_roots.append(new_pile.make_node(logl_new, u, v))
+        rewritten.add(_listify([-np.inf, logl_new, 0.0], u, v), 1)
+
+    old_walk = BreadthFirstIterator(old_roots)
+    new_walk = BreadthFirstIterator(new_roots)
+    counter = SingleCounter()
+    counter.Lmax = init_logl_new.max()
+
+    # salvage horizon: advance it while old and new likelihood agree on
+    # the live point ordering, freeze it on first divergence
+    consistent = True
+    horizon_like = -1e300
+    horizon_iter = 0
+    bump = 1 + 1e-6
+    niter = 0
+
+    for batch in _walk_stored_tree(old_walk, stored, old_pile, ndraw):
+        flat = [uvl for _, _, entering in batch for uvl in entering]
+        if flat:
+            v_batch = check_transform([u for u, _, _ in flat],
+                                      [v for _, v, _ in flat])
+            batch_logl_new = loglikelihood(v_batch)
+        else:
+            batch_logl_new = []
+
+        consumed = 0
+        for _Lmin_old, live_old, entering in batch:
+            rootid2, node2, (live_nodes2, _, live_new, _) = \
+                new_walk.next_node()
+            Lmin_new = float(node2.value)
+
+            if len(live_old) != len(live_new):
+                if verbose == 2:
+                    print("stopping, number of live points differ (%d vs %d)"
+                          % (len(live_old), len(live_new)))
+                consistent = False
+                break
+
+            tau = normalised_kendall_tau_distance(live_old, live_new)
+            if tau > max_tau:
+                consistent = False
+            elif len(live_old) > 10:
+                consistent = True
+            if not consistent:
+                # pretend likelihood keeps increasing slightly, hoping
+                # the divergence stays below the local step size
+                node2.value = horizon_like
+                horizon_like = horizon_like * bump
+                break
+            horizon_like = Lmin_new
+            horizon_iter = niter
+
+            for u, v, _logl_old in entering:
+                logl_new = batch_logl_new[consumed]
+                consumed += 1
+                node2.children.append(new_pile.make_node(logl_new, u, v))
+                if logl_new > Lmin_new:
+                    rewritten.add(
+                        _listify([Lmin_new, logl_new, 0.0], u, v), 1)
+
+            counter.passing_node(node2, live_nodes2)
+            niter += 1
+            if verbose:
+                sys.stderr.write("%d...\r" % niter)
+            new_walk.expand_children_of(rootid2, node2)
+
+        if not consistent:
+            break
+
+    if verbose:
+        sys.stderr.write("%d/%d iterations salvaged (%.2f%%).\n" % (
+            horizon_iter + 1, stored.total,
+            (horizon_iter + 1) * 100.0 / stored.total))
+
+    # truncate the rewritten store to the salvageable part and swap it in
+    table = rewritten.fileobj['points']
+    keep = table[:][table[:, 0] <= horizon_like, :]
+    del rewritten.fileobj['points']
+    rewritten.fileobj.create_dataset(
+        'points', dtype=np.float64,
+        shape=(0, rewritten.ncols), maxshape=(None, rewritten.ncols))
+    rewritten.fileobj['points'].resize(len(keep), axis=0)
+    rewritten.fileobj['points'][:] = keep
+    rewritten.close()
+    os.replace(scratch_path, filepath)
 
 
 def _update_region_bootstrap(region, nbootstraps, minvol=0.0, rng=np.random):
@@ -594,6 +811,60 @@ class NestedSampler:
             plt.close()
 
 
+def warmstart_from_similar_file(usample_filename, param_names, loglike,
+                                transform, vectorized=False,
+                                min_num_samples=50,
+                                torch_loglike=None, torch_transform=None):
+    """Build an accelerated auxiliary problem from a previous posterior.
+
+    Loads ``chains/weighted_post_untransformed.txt`` of a previous run and
+    deforms the prior around its posterior
+    (:func:`ultranest_torch.hotstart.get_auxiliary_contbox_parameterization`),
+    so a fresh run needs far fewer iterations. Passing *torch_loglike* /
+    *torch_transform* attaches batched torch counterparts as ``.torch``
+    attributes on the returned functions, so the warm-started sampler
+    keeps the device path (``torch_loglike=aux_loglike.torch``,
+    ``torch_transform=aux_transform.torch``).
+
+    Returns
+    -------
+    aux_param_names: list
+    aux_loglikelihood: function
+    aux_transform: function
+    vectorized: bool
+    """
+    from .hotstart import get_auxiliary_contbox_parameterization
+    try:
+        with open(usample_filename) as f:
+            old_param_names = f.readline().lstrip('#').strip().split()
+            auxiliary_usamples = np.loadtxt(f)
+    except IOError:
+        warnings.warn('not hot-resuming, could not load file "%s"'
+                      % usample_filename, stacklevel=2)
+        return param_names, loglike, transform, vectorized
+
+    ulogl = auxiliary_usamples[:, 1]
+    uweights_full = auxiliary_usamples[:, 0] * np.exp(ulogl - ulogl.max())
+    mask = uweights_full > 0
+    uweights = uweights_full[mask]
+    uweights /= uweights.sum()
+    upoints = auxiliary_usamples[mask, 2:]
+
+    nsamples = len(upoints)
+    if nsamples < min_num_samples:
+        raise ValueError('file "%s" has too few samples (%d) to hot-resume'
+                         % (usample_filename, nsamples))
+    if old_param_names != ['weight', 'logl'] + list(param_names):
+        raise ValueError(
+            'file "%s" has parameters %s, expected %s, cannot hot-resume.'
+            % (usample_filename, old_param_names, param_names))
+
+    return get_auxiliary_contbox_parameterization(
+        param_names, loglike=loglike, transform=transform,
+        vectorized=vectorized, upoints=upoints, uweights=uweights,
+        torch_loglike=torch_loglike, torch_transform=torch_transform)
+
+
 class ReactiveNestedSampler:
     """Nested sampler with reactive exploration strategy.
 
@@ -622,8 +893,10 @@ class ReactiveNestedSampler:
             extra columns returned by transform
         log_dir: str or None
             output directory (None: no storage)
-        resume: 'resume', 'overwrite' or 'subfolder'
-            resume behaviour ('resume-similar' is not ported yet)
+        resume: 'resume', 'resume-similar', 'overwrite' or 'subfolder'
+            resume behaviour; 'resume-similar' salvages stored points from a
+            modified likelihood up to *warmstart_max_tau* disorder (HDF5
+            run directories only, so it needs h5py)
         run_num: int or None
             subfolder number
         wrapped_params: list of bools or None
@@ -725,10 +998,9 @@ class ReactiveNestedSampler:
             # stored likelihood values disagree with the function we got
             assert self.log_to_disk
             if resume == 'resume-similar':
-                raise NotImplementedError(
-                    "resume='resume-similar' is not ported to "
-                    "ultranest_torch yet")
-            if want_resume:
+                self._salvage_points(loglike, transform, warmstart_max_tau,
+                                     storage_backend, vectorized, ndraw_min)
+            elif want_resume:
                 raise Exception(
                     "Cannot resume because loglikelihood function changed, "
                     "unless resume=resume-similar. To start from scratch, "
@@ -767,6 +1039,27 @@ class ReactiveNestedSampler:
         else:
             raise ValueError('unknown storage_backend: %r'
                              % (storage_backend,))
+
+    def _salvage_points(self, loglike, transform, warmstart_max_tau,
+                        storage_backend, vectorized, ndraw_min):
+        """resume-similar: re-anchor stored points to the new likelihood."""
+        assert storage_backend == 'hdf5', \
+            'resume-similar is only supported for HDF5 files'
+        assert 0 <= warmstart_max_tau <= 1, \
+            'warmstart_max_tau parameter needs to be set to a value ' \
+            'between 0 and 1'
+        self.pointstore.close()
+        del self.pointstore
+        if self.log:
+            self.logger.info(
+                'trying to salvage points from previous, different run ...')
+        resume_from_similar_file(
+            self.logs['run_dir'], self.x_dim, loglike, transform,
+            ndraw=ndraw_min if vectorized else 1,
+            max_tau=warmstart_max_tau, verbose=False)
+        self.pointstore = HDF5PointStore(
+            os.path.join(self.logs['results'], 'points.hdf5'),
+            3 + self.x_dim + self.num_params, mode='a')
 
     def _init_fused_sampler(self, torch_loglike, torch_transform, seed):
         """Attach the fused device proposal engine, if a torch model exists."""
@@ -1289,17 +1582,48 @@ class ReactiveNestedSampler:
                             3 + self.x_dim + self.num_params]
         self.ib = 0 if np.isfinite(self.likes[0]) else 1
 
+    def _degrade_to_host(self, why):
+        """Swap dead device samplers for host equivalents and keep going.
+
+        On a dispatch deadline (:class:`parallel.launch.DeviceLostError`)
+        the fused rejection path falls back to host region sampling, and
+        a device population sampler (one with a ``torch_loglike``) is
+        replaced by the host ``RegionSliceSampler`` at the same nsteps;
+        the run goes on with the user's numpy likelihood. The point store
+        already holds every evaluated point, so a later rerun on a
+        healthy device resumes at full speed. Region rebuilds still run
+        on the sampler's device.
+        """
+        msg = ('accelerator lost mid-run (%s); continuing on the host '
+               'CPU path. Every evaluated point is in the point store; '
+               'rerun later to resume on a healthy device.' % why)
+        warnings.warn(msg)
+        if self.log:
+            self.logger.warning(msg)
+        self.fused_sampler = None
+        ss = self.stepsampler
+        if ss is not None and getattr(ss, 'torch_loglike', None) is not None:
+            from .stepsampler import RegionSliceSampler
+            self.stepsampler = RegionSliceSampler(
+                nsteps=max(int(getattr(ss, 'nsteps', 16)), 1))
+
     def _fill_sample_buffer(self, Lmin, ndraw, active_u, active_values,
                             nit):
         """Generate fresh candidates into the sample buffer (device or host)."""
-        if self.stepsampler is not None:
-            u, v, logl, nc = self.stepsampler.__next__(
-                self.region, Lmin=Lmin, us=active_u, Ls=active_values,
-                transform=self.transform, loglike=self.loglike,
-                tregion=self.tregion, ndraw=ndraw)
-            quality = self.stepsampler.nsteps
-        else:
-            u, v, logl, nc, quality = self._refill_samples(Lmin, ndraw, nit)
+        try:
+            if self.stepsampler is not None:
+                u, v, logl, nc = self.stepsampler.__next__(
+                    self.region, Lmin=Lmin, us=active_u, Ls=active_values,
+                    transform=self.transform, loglike=self.loglike,
+                    tregion=self.tregion, ndraw=ndraw)
+                quality = self.stepsampler.nsteps
+            else:
+                u, v, logl, nc, quality = self._refill_samples(
+                    Lmin, ndraw, nit)
+        except DeviceLostError as e:
+            self._degrade_to_host(e)
+            return self._fill_sample_buffer(Lmin, ndraw, active_u,
+                                            active_values, nit)
 
         if logl is None:
             u = np.empty((0, self.x_dim))
@@ -2370,6 +2694,9 @@ class ReactiveNestedSampler:
                 if self.log and time.time() > st.last_status + 0.2:
                     self._emit_status(st, self.Lmin, np.nan, np.nan,
                                       nlive, True, opts['show_status'])
+        except DeviceLostError as e:
+            self._segment_exits['device-lost'] += 1
+            self._degrade_to_host(e)
         finally:
             _phase('replay')
             ss.segment_stop()
@@ -2864,3 +3191,53 @@ class ReactiveNestedSampler:
     def plot_run(self):
         """Write a run diagnostic plot to the plots directory."""
         self._render_figure('run')
+
+
+def read_file(log_dir, x_dim, num_bootstraps=20, random=True, verbose=False,
+              check_insertion_order=True):
+    """Read a stored run and recompute the logZ sequence.
+
+    Parameters
+    ----------
+    log_dir: str
+        run directory containing ``results/points.hdf5``
+    x_dim: int
+        dimensionality
+    num_bootstraps: int
+        number of bootstrap estimators
+    random: bool
+        randomize volume estimates
+    verbose: bool
+        show progress
+    check_insertion_order: bool
+        run the MWW insertion-order convergence test
+
+    Returns
+    -------
+    sequence: dict
+        per-iteration logz/logzerr/logvol/samples_n/logwt/logl arrays
+    final: dict
+        results dictionary as from :meth:`ReactiveNestedSampler.run`
+    """
+    stored, _, _ = _load_stored_run(log_dir, x_dim)
+    pointpile = PointPile(x_dim, stored.num_params)
+
+    roots = [pointpile.make_node(logl, u, v)
+             for u, v, logl in stored.pop_initial()]
+    root = TreeNode(id=-1, value=-np.inf, children=roots)
+
+    def attach_children(node, main_iterator):
+        """Graft all stored children of *node* during replay."""
+        while True:
+            _, row = stored.pop(node.value)
+            if row is None:
+                return
+            u, v, logl = stored.unpack(row)
+            assert logl > node.value, (logl, node.value)
+            main_iterator.Lmax = max(main_iterator.Lmax, logl)
+            node.children.append(pointpile.make_node(logl, u, v))
+
+    return logz_sequence(root, pointpile, nbootstraps=num_bootstraps,
+                         random=random, onNode=attach_children,
+                         verbose=verbose,
+                         check_insertion_order=check_insertion_order)

@@ -9,13 +9,17 @@ than the MLFriends radius: connected components of the
 r-neighbourhood graph. The adjacency comes from host f64 distances for
 small sets and from torch direct-difference distances on the caller's
 device otherwise; the labelling is scipy's union-find on the host.
+:func:`label_propagation_components` labels the same graph on the
+device instead, by pointer-jumping label propagation.
 """
 
 import numpy as np
+import torch
 
+from ..parallel.launch import fetch_with_deadline
 from .pairwise import _np_sqdist, _small, _torch, pairwise_sqdist
 
-__all__ = ['connected_components']
+__all__ = ['connected_components', 'label_propagation_components']
 
 
 def _adjacency(tpoints, radiussq, device):
@@ -48,3 +52,39 @@ def connected_components(tpoints, radiussq, *, device):
         if first[lab] < 0:
             first[lab] = i
     return first[labels]
+
+
+def label_propagation_components(tpoints, radiussq, *, device):
+    """Components of the radius graph, labelled on *device*.
+
+    Counterpart of ``ultranest_tpu/ops/cluster.py:77-118``: every point
+    starts with its own index as label and repeatedly takes the smallest
+    label among its neighbours, then the label of that label's owner
+    (pointer jumping), until no label changes. The reference's
+    ``lax.while_loop`` becomes a host loop whose condition is read from
+    the device after each round, under the dispatch deadline.
+
+    Returns
+    -------
+    labels: int array (N,)
+        the smallest member index of each point's component, as
+        :func:`connected_components` gives.
+    """
+    pts = _torch(np.asarray(tpoints, dtype=np.float32), device)
+    n = pts.shape[0]
+    if n == 0:
+        return np.zeros(0, dtype=np.int64)
+    # a point is its own neighbour, so the minimum below never loses it
+    adj = pairwise_sqdist(pts, pts) <= np.float32(radiussq)
+    adj |= torch.eye(n, dtype=torch.bool, device=pts.device)
+    labels = torch.arange(n, device=pts.device)
+    big = torch.full_like(labels, n)
+    while True:
+        neigh = torch.where(adj, labels[None, :], big[None, :])
+        new = torch.minimum(labels, neigh.amin(dim=1))
+        new = torch.minimum(new, labels[new])
+        changed = (new != labels).any()
+        labels = new
+        if not fetch_with_deadline(changed):
+            break
+    return labels.cpu().numpy().astype(np.int64)

@@ -217,23 +217,15 @@ def _cube_intersection(u, v):
     return torch.minimum(a, b).amax(dim=1), torch.maximum(a, b).amin(dim=1)
 
 
-def _start_flag(flag):
-    """Begin reading a 0-d bool device tensor; returns a handle."""
-    if flag.device.type != 'cuda':
-        return flag, None
-    host = torch.empty((), dtype=torch.bool, pin_memory=True)
-    host.copy_(flag, non_blocking=True)
-    ready = torch.cuda.Event()
-    ready.record()
-    return host, ready
-
-
 def _finish_flag(handle):
-    """Wait for a :func:`_start_flag` read; returns a Python bool."""
-    host, ready = handle
-    if ready is not None:
-        ready.synchronize()
-    return bool(host)
+    """Wait for a :func:`~ultranest_torch.parallel.launch.start_fetch` of
+    a 0-d bool tensor; returns a Python bool.
+
+    The wait carries the dispatch deadline (raises
+    :class:`~ultranest_torch.parallel.launch.DeviceLostError`): the walk
+    blocks here before it reaches any result fetch.
+    """
+    return bool(finish_fetch(handle))
 
 
 def _median(x):
@@ -264,7 +256,7 @@ def _drive(body, state, max_rounds, finished, every=1, lagged=False):
         for _ in range(min(every, max_rounds - it)):
             state = body(it, *state)
             it += 1
-        flags.append(_start_flag(finished(state)))
+        flags.append(start_fetch(finished(state)))
         if len(flags) > lag:
             reads += 1
             if _finish_flag(flags.pop(0)):
@@ -624,10 +616,15 @@ class FusedPopulationSliceSampler(GenericPopulationSampler):
         self._buf_i = 0
         self._buf_sufmax = None
         self.torch_loglike = torch_loglike
-        # the transform as given: the probe's memo key
-        self._user_transform = torch_transform
-        self.torch_transform = torch_transform if torch_transform is not None \
+        # every constructor argument is kept under its own name, as given,
+        # so that a clone by constructor introspection (the calibrator's)
+        # equals its prototype
+        self.torch_transform = torch_transform
+        self._transform = torch_transform if torch_transform is not None \
             else (lambda u: u)
+        self.seed = seed
+        self.mesh = mesh
+        self.axis_name = axis_name
         self.scale = float(scale)
         self.max_it = max_it
         self.scale_adapt_factor = scale_adapt_factor
@@ -697,7 +694,7 @@ class FusedPopulationSliceSampler(GenericPopulationSampler):
         an ellipsoid ``billed`` is None (every row billed).
         """
         loglike = self.torch_loglike
-        transform = self.torch_transform
+        transform = self._transform
         has_tregion, p = self._treg_key
         if not has_tregion:
             def ev(u_rows, treg):
@@ -783,7 +780,7 @@ class FusedPopulationSliceSampler(GenericPopulationSampler):
         ops (ROADMAP §C).
         """
         D = self.spec_depth
-        ll, tr = self.torch_loglike, self.torch_transform
+        ll, tr = self.torch_loglike, self._transform
         u = torch.full((self.popsize * D, x_dim), 0.5, dtype=torch.float32,
                        device=self.device)
         on_card = self.device.type == 'cuda'
@@ -822,7 +819,7 @@ class FusedPopulationSliceSampler(GenericPopulationSampler):
             auto = self.device.type == 'cuda'
         if not auto or self.engine != 'spec' or self.spec_depth <= 1:
             return
-        memo = (self.torch_loglike, self._user_transform, self.popsize,
+        memo = (self.torch_loglike, self.torch_transform, self.popsize,
                 x_dim, self.spec_depth, self.device)
         t_row = _PROBE_CACHE.get(memo)
         if t_row is None:
