@@ -70,6 +70,16 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
      gated as the reference's tests gate; ``read_file`` and
      ``resume='resume-similar'`` only where h5py is installed (said so
      where it is not);
+   * the mesh phase (``ultranest_torch.parallel``): the collectives on
+     CUDA tensors over a one-rank NCCL group, then two ranks on the one
+     card, this script started twice more (``--mesh-rank``) in fresh
+     interpreters joined by gloo on 127.0.0.1, the library built here
+     first; each rank runs the sharded bootstrap radius at the eggbox
+     rebuild shape (bit-equal to K2 on all rounds), the eggbox on the
+     sharded rejection path and asymgauss50 on the sharded spec-walk
+     segment path (2048 walkers a rank); the ranks must agree exactly
+     in logZ, ncall and niter, the eggbox's ncall must be the root points
+     plus its billed counts, and K1, K2 and K3 must launch;
 
    and checks that each path's kernels were launched in its run (K3 on
    every segment path; the classic run consumes on the host and
@@ -560,15 +570,20 @@ def check_bootstrap_traffic(kernels, name, calls):
     return out
 
 
-def run_eggbox(seed=42, keep=None):
+def run_eggbox(seed=42, keep=None, mesh=None):
     """One eggbox run at the bench configuration on the card.
 
-    *keep*, a list, receives the finished sampler (for the plots).
+    *keep*, a list, receives the finished sampler (for the plots). With a
+    *mesh* the run is sharded (``ReactiveNestedSampler(mesh=)``): it takes
+    the classic budgeted path, K1 in every dispatch and K2 in every
+    rebuild, the consumption on the host, and its ncall must be the 400
+    root evaluations plus the summed billed counts of its dispatches.
 
     Every kernel count is set to 0 just before the run and read just
     after it. Raises if logZ is outside the bench gate, the posterior
-    samples are malformed, the segment path never engaged or a kernel of
-    the path was never launched; returns the run's summary.
+    samples are malformed, the segment path never engaged (without a
+    mesh) or a kernel of the path was never launched; returns the run's
+    summary.
     """
     import torch
     from ultranest_torch import ReactiveNestedSampler
@@ -579,7 +594,15 @@ def run_eggbox(seed=42, keep=None):
         prob.param_names, prob.loglike, transform=prob.transform,
         vectorized=True, seed=seed, torch_loglike=prob.torch_loglike,
         torch_transform=prob.torch_transform, device='cuda',
-        ndraw_min=4096, ndraw_max=32768)
+        ndraw_min=4096, ndraw_max=32768, mesh=mesh)
+    billed = []
+    unpack = sampler.fused_sampler._unpack
+
+    def counted(*args):
+        out = unpack(*args)
+        billed.append(out[3])
+        return out
+    sampler.fused_sampler._unpack = counted
     kernels.reset_counts()
     t0 = time.perf_counter()
     res = sampler.run(
@@ -594,13 +617,22 @@ def run_eggbox(seed=42, keep=None):
                evals_per_s=res['ncall'] / wall,
                phases_s=dict(getattr(sampler, '_segment_phase_s', {})),
                segment_exits=dict(getattr(sampler, '_segment_exits', {})),
+               classic_dispatches=len(billed), billed=sum(billed),
                launches=dict(kernels.LAUNCHES))
     assert abs(res['logz'] - EGGBOX_LOGZ) < max(4 * res['logzerr'], 1.0), \
         ('eggbox logZ outside the gate', res['logz'], res['logzerr'])
     assert np.isfinite(res['samples']).all() and \
         res['samples'].shape[1] == 2, 'bad posterior samples'
-    assert out['segment_exits'], 'the segment path never engaged'
-    for name in kernels.REGION_KERNELS:
+    if mesh is None:
+        assert out['segment_exits'], 'the segment path never engaged'
+        path_kernels = kernels.REGION_KERNELS
+    else:
+        assert not out['segment_exits'], 'a sharded run took the segment path'
+        assert out['ncall'] == out['billed'] + 400, \
+            ('ncall is not the root points plus the billed counts',
+             out['ncall'], out['billed'])
+        path_kernels = ('radius_member', 'bootstrap_radius')
+    for name in path_kernels:
         assert out['launches'].get(name, 0) > 0, ('kernel not launched',
                                                   name)
     if keep is not None:
@@ -736,12 +768,14 @@ POPULATION_PROBLEMS = {
 }
 
 
-def run_population_problem(name, seed=None):
+def run_population_problem(name, seed=None, mesh=None):
     """One problem of :data:`POPULATION_PROBLEMS` on the spec-walk path.
 
     As ``bench.py:_run_popfused``: ``ScalingLayer``, ``SimpleRegion``,
     ``FusedPopulationSliceSampler(engine='spec', spec_depth=8)``, 400
-    live points, ``dlogz=2.0``, ``frac_remain=0.1``, on the card. Every
+    live points, ``dlogz=2.0``, ``frac_remain=0.1``, on the card; with a
+    *mesh*, the walkers split over its shards (``mesh=`` on the sampler
+    and the step sampler). Every
     kernel count is set to 0 just before the run and read just after it.
     Raises if logZ is outside the bench gate, the samples are malformed,
     the segment path never engaged or K3 was never launched; returns the
@@ -758,12 +792,13 @@ def run_population_problem(name, seed=None):
     seed = seed0 if seed is None else seed
     prob = getattr(problems, factory)(**kw)
     sampler = ReactiveNestedSampler(
-        seed=seed, device='cuda', **prob.sampler_kwargs(use_torch=False))
+        seed=seed, device='cuda', mesh=mesh,
+        **prob.sampler_kwargs(use_torch=False))
     sampler.transform_layer_class = ScalingLayer
     ss = sampler.stepsampler = FusedPopulationSliceSampler(
         popsize=popsize, nsteps=nsteps, torch_loglike=prob.torch_loglike,
         torch_transform=prob.torch_transform, seed=seed, engine='spec',
-        spec_depth=8, device='cuda', **extra)
+        spec_depth=8, device='cuda', mesh=mesh, **extra)
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_counts()
     t0 = time.perf_counter()
@@ -794,6 +829,7 @@ def run_population_problem(name, seed=None):
                nsteps_changes=changes, spec_depth=ss.spec_depth,
                peak_device_mib=torch.cuda.max_memory_allocated() / 2**20,
                nsteps_final=int(ss.nsteps), phases_s=phases,
+               billed=int(ss.ncalls),
                segment_exits=dict(getattr(sampler, '_segment_exits', {})),
                launches=dict(kernels.LAUNCHES))
     if gate is not None:
@@ -1609,6 +1645,190 @@ def run_stored_runs(tmp):
     return out
 
 
+# the mesh phase: two ranks on the one card, joined by gloo
+MESH_RANKS = 2
+# seconds a rank may take (start-up, the radius, the eggbox, asymgauss50)
+MESH_TIMEOUT_S = 420
+
+
+def free_port():
+    """A free TCP port on 127.0.0.1."""
+    import socket
+    with socket.socket() as s:
+        s.bind(('127.0.0.1', 0))
+        return s.getsockname()[1]
+
+
+def traffic_on_host(traffic):
+    """*traffic* (path -> kernel -> calls) with every tensor on the CPU,
+    for ``torch.save``."""
+    import torch
+    return {name: {k: [tuple(t.cpu() if torch.is_tensor(t) else t for t in c)
+                       for c in kcalls] for k, kcalls in calls.items()}
+            for name, calls in traffic.items()}
+
+
+def check_nccl_collectives():
+    """The collectives on CUDA tensors over a one-rank NCCL group.
+
+    ``all_gather_rows``, ``psum``, ``pmax`` and ``pmean`` of
+    :mod:`ultranest_torch.parallel` must return their inputs; with one
+    rank NCCL still initialises its communicator and launches on the
+    card. Returns the group's backend name.
+    """
+    import torch
+    import torch.distributed as dist
+    from ultranest_torch import parallel
+    from ultranest_torch.parallel import launch
+    launch.init_distributed('127.0.0.1:%d' % free_port(), 1, 0)
+    try:
+        mesh = launch.global_mesh()
+        backend = dist.get_backend(mesh.get_group())
+        assert backend == 'nccl', backend
+        x = torch.arange(8192, dtype=torch.float32, device='cuda').reshape(
+            4096, 2)
+        c = torch.tensor([2**40 + 3, 7], dtype=torch.int64, device='cuda')
+        got = parallel.all_gather_rows(x, mesh)
+        assert got.device == x.device and torch.equal(got, x)
+        assert torch.equal(parallel.psum(c, mesh), c)
+        assert torch.equal(parallel.pmax(x, mesh), x)
+        assert torch.equal(parallel.pmean(x, mesh), x)
+        torch.cuda.synchronize()
+    finally:
+        dist.destroy_process_group()
+    print('NCCL one-rank group (backend %s, mesh device %s): all_gather_rows, '
+          'psum (int64), pmax and pmean on cuda tensors returned their inputs'
+          % (backend, mesh.device_type))
+    return backend
+
+
+def check_mesh_radius(kernels, mesh):
+    """The sharded bootstrap radius at the eggbox rebuild shape (N 400,
+    30 rounds, d 2): each shard runs K2 on its rounds, then the maximum
+    over the shards; bit-equal to K2 on all the rounds (not counted).
+    Returns (radius, K2 launches of the sharded call)."""
+    from ultranest_torch.ops.bootstrap import (_bootstrap_radius,
+                                               make_bootstrap_masks,
+                                               radius_inputs)
+    rng = np.random.RandomState(400)
+    tp = rng.normal(size=(400, 2)).astype(np.float32)
+    masks = make_bootstrap_masks(400, 30, rng=rng)
+    kernels.reset_counts()
+    got = _bootstrap_radius(tp, masks, 'cuda', mesh=mesh)
+    launched = kernels.LAUNCHES['bootstrap_radius']
+    want = kernels.bootstrap_radius(*radius_inputs(tp, masks, 'cuda'))
+    assert np.float32(got).view(np.int32) == \
+        want.cpu().numpy().view(np.int32), ('sharded radius differs', got,
+                                            float(want))
+    assert launched == 1, launched
+    return got, launched
+
+
+def mesh_child(rank, port, out_dir):
+    """One rank of the mesh phase (:func:`run_mesh_phase` starts both).
+
+    Joins a gloo group of :data:`MESH_RANKS` ranks on 127.0.0.1:*port*,
+    puts its samplers on ``cuda:0`` and runs, on a 1-axis mesh over the
+    ranks: the sharded bootstrap radius (:func:`check_mesh_radius`), the
+    eggbox on the sharded rejection path and asymgauss50 on the sharded
+    spec-walk segment path (2048 walkers a rank), each under
+    :class:`KernelCapture`. Saves the kept calls to
+    *out_dir*/traffic<rank>.pt and prints one ``MESH_RANK {json}`` line.
+    """
+    import os
+    import torch
+    import torch.distributed as dist
+    from ultranest_torch.ops import kernels
+    from ultranest_torch.parallel import launch
+    torch.cuda.set_device(0)
+    launch.init_distributed('127.0.0.1:%d' % port, MESH_RANKS, rank,
+                            backend='gloo')
+    try:
+        mesh = launch.global_mesh()
+        out = dict(rank=rank, backend=dist.get_backend(mesh.get_group()),
+                   nshards=mesh.size())
+        t0 = time.perf_counter()
+        out['radius'], out['radius_launches'] = check_mesh_radius(kernels,
+                                                                  mesh)
+        out['radius_wall_s'] = time.perf_counter() - t0
+        traffic = {}
+        with KernelCapture(kernels) as cap:
+            out['eggbox'] = run_eggbox(mesh=mesh)
+        traffic['eggbox'] = cap.calls
+        with KernelCapture(kernels) as cap:
+            out['asymgauss50'] = run_population_problem('asymgauss50',
+                                                        mesh=mesh)
+        traffic['asymgauss50'] = cap.calls
+        torch.save(traffic_on_host(traffic),
+                   os.path.join(out_dir, 'traffic%d.pt' % rank))
+        print('MESH_RANK ' + json.dumps(out), flush=True)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def run_mesh_phase():
+    """Two ranks on the one card: ``chip_smoke.py`` run twice more, as
+    :func:`mesh_child`, in fresh interpreters joined by gloo on 127.0.0.1
+    (``GLOO_SOCKET_IFNAME=lo``), the CUDA library already built here.
+
+    Raises unless both ranks exit 0 within :data:`MESH_TIMEOUT_S` with
+    identical logZ, ncall and niter for each run, both runs inside their
+    gates (checked in the ranks), the eggbox's ncall the root points plus
+    its billed counts, and K1, K2 and K3 launched on the mesh paths.
+    Returns (per-rank summaries, the ranks' kept calls on the card, the
+    phase's wall in seconds).
+    """
+    import os
+    import tempfile
+    import torch
+    with tempfile.TemporaryDirectory() as tmp:
+        port = free_port()
+        env = dict(os.environ, GLOO_SOCKET_IFNAME='lo')
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), '--mesh-rank',
+             str(rank), '--mesh-port', str(port), '--mesh-out', tmp],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            env=env) for rank in range(MESH_RANKS)]
+        try:
+            outs = [p.communicate(timeout=MESH_TIMEOUT_S)[0] for p in procs]
+        finally:
+            for p in procs:
+                p.kill()
+                p.wait()
+        wall = time.perf_counter() - t0
+        ranks = []
+        for rank, (p, out) in enumerate(zip(procs, outs)):
+            lines = [ln for ln in out.splitlines()
+                     if ln.startswith('MESH_RANK ')]
+            assert p.returncode == 0 and lines, \
+                ('mesh rank failed', rank, p.returncode, out[-4000:])
+            ranks.append(json.loads(lines[-1][len('MESH_RANK '):]))
+        traffic = [{name: {k: [tuple(t.cuda() if torch.is_tensor(t) else t
+                                     for t in c) for c in kcalls]
+                           for k, kcalls in calls.items()}
+                    for name, calls in torch.load(
+                        os.path.join(tmp, 'traffic%d.pt' % rank)).items()}
+                   for rank in range(MESH_RANKS)]
+    for run in ('eggbox', 'asymgauss50'):
+        for key in ('logz', 'logzerr', 'ncall', 'niter', 'billed'):
+            vals = [r[run][key] for r in ranks]
+            assert len(set(vals)) == 1, ('ranks differ', run, key, vals)
+        for r in ranks:
+            assert r[run]['ncall'] == r[run]['billed'] + 400, \
+                ('ncall is not the root points plus the billed counts', run)
+    for r in ranks:
+        assert r['backend'] == 'gloo' and r['nshards'] == MESH_RANKS
+        assert r['radius'] == ranks[0]['radius'] and r['radius_launches'] == 1
+        for name in ('radius_member', 'bootstrap_radius'):
+            assert r['eggbox']['launches'].get(name, 0) > 0, \
+                ('not launched on the sharded eggbox', name)
+        assert r['asymgauss50']['launches'].get('consume_scan', 0) > 0, \
+            'K3 not launched on the sharded asymgauss50'
+    return ranks, traffic, wall
+
+
 def print_ranking(real):
     """Prints each kernel's launches x (device ms - bound ms) summed over
     the sampler paths of this run, largest first, every term from the
@@ -1626,7 +1846,14 @@ def print_ranking(real):
 def main(argv=()):
     """*argv*: ``--save-traffic PATH`` also saves every path's K1, K2 and
     K3 inputs (``torch.save``: path -> kernel -> list of calls, the
-    tensors on the CPU) for ``scripts/bench_kernels.py``."""
+    tensors on the CPU) for ``scripts/bench_kernels.py``. ``--mesh-rank R
+    --mesh-port P --mesh-out DIR`` runs one rank of the mesh phase
+    (:func:`mesh_child`; :func:`run_mesh_phase` starts the ranks)."""
+    if '--mesh-rank' in argv:
+        opt = {flag: argv[argv.index(flag) + 1]
+               for flag in ('--mesh-rank', '--mesh-port', '--mesh-out')}
+        return mesh_child(int(opt['--mesh-rank']), int(opt['--mesh-port']),
+                          opt['--mesh-out'])
     save_traffic = argv[argv.index('--save-traffic') + 1] \
         if '--save-traffic' in argv else None
     import torch
@@ -1817,6 +2044,31 @@ def main(argv=()):
     path('calibrator', run_calibrator)
     path('trajectory', run_trajectory)
 
+    # the mesh phase: the collectives on a one-rank NCCL group, then two
+    # ranks on the card over gloo; their K1, K2 and K3 calls are kept
+    # and replayed as every other path's
+    check_nccl_collectives()
+    ranks, mesh_traffic, mesh_wall = run_mesh_phase()
+    for r, calls in zip(ranks, mesh_traffic):
+        print('mesh rank %d of %d (%s): sharded radius %.9g (K2 launches %d) '
+              'bit-equal to K2 on all 30 rounds, %.3f s' % (
+                  r['rank'], r['nshards'], r['backend'], r['radius'],
+                  r['radius_launches'], r['radius_wall_s']))
+        for run in ('eggbox', 'asymgauss50'):
+            m = r[run]
+            print('mesh rank %d %s: logZ %.4f +- %.4f, wall %.3f s, ncall %d '
+                  '(billed %d + 400 root points), niter %d, kernel launches '
+                  '%s' % (r['rank'], run, m['logz'], m['logzerr'],
+                          m['wall_s'], m['ncall'], m['billed'], m['niter'],
+                          json.dumps(m['launches'])))
+            name = 'mesh_%s_rank%d' % (run, r['rank'])
+            traffic[name] = calls[run]
+            path_launches[name] = m['launches']
+            for k in kernels.REGION_KERNELS:
+                launches[k] += m['launches'].get(k, 0)
+    print('mesh phase: %d ranks on one card, identical logZ, ncall and niter '
+          'on every rank, %.1f s' % (len(ranks), mesh_wall))
+
     checks = {'consume_scan': check_scan_traffic,
               'radius_member': check_member_traffic,
               'bootstrap_radius': check_bootstrap_traffic}
@@ -1828,10 +2080,7 @@ def main(argv=()):
             assert paths.get(name, {'calls': 0})['calls'] == \
                 counts.get(k, 0), ('calls kept and launched differ', k, name)
     if save_traffic:
-        torch.save({name: {k: [tuple(t.cpu() if torch.is_tensor(t) else t
-                                     for t in c) for c in kcalls]
-                           for k, kcalls in calls.items()}
-                    for name, calls in traffic.items()}, save_traffic)
+        torch.save(traffic_on_host(traffic), save_traffic)
     print_ranking(real)
     print('chip_smoke: every phase passed in %.1f s' % (time.time() - t_start))
 

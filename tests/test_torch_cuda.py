@@ -705,3 +705,31 @@ def test_contbox_torch_transform_on_card(cuda):
     np.testing.assert_allclose(
         aux_ll.torch(torch.as_tensor(aux_tr(u), device=cuda)).cpu().numpy(),
         aux_ll(aux_tr(u)), rtol=1e-12)
+
+
+def test_collectives_on_a_world_one_nccl_group(cuda):
+    """all_gather_rows, psum, pmax and pmean on CUDA tensors over a
+    one-rank NCCL group return their inputs, on the card."""
+    import socket
+
+    import torch.distributed as dist
+
+    from ultranest_torch import parallel
+    with socket.socket() as s:
+        s.bind(('127.0.0.1', 0))
+        port = s.getsockname()[1]
+    dist.init_process_group('nccl', init_method='tcp://127.0.0.1:%d' % port,
+                            world_size=1, rank=0)
+    try:
+        mesh = parallel.make_mesh()
+        assert mesh.device_type == 'cuda'
+        assert dist.get_backend(mesh.get_group()) == 'nccl'
+        x = torch.arange(12, dtype=torch.float32, device=cuda).reshape(6, 2)
+        c = torch.tensor([2**40 + 3, 7], dtype=torch.int64, device=cuda)
+        got = parallel.all_gather_rows(x, mesh)
+        assert got.device == x.device and torch.equal(got, x)
+        assert torch.equal(parallel.psum(c, mesh), c)
+        assert torch.equal(parallel.pmax(x, mesh), x)
+        assert torch.equal(parallel.pmean(x, mesh), x)
+    finally:
+        dist.destroy_process_group()

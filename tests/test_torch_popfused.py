@@ -315,15 +315,20 @@ def test_walk_stops_at_the_round_cap_and_reads_every_k_rounds():
 
 
 def test_unported_options_raise():
-    """Only ``mesh=`` is left unported; an unknown engine is refused."""
-    with pytest.raises(NotImplementedError):
+    """A mesh that is not a DeviceMesh, an axis name without a mesh and an
+    unknown engine are refused; every engine and option builds."""
+    with pytest.raises(TypeError, match='DeviceMesh'):
         popfused.FusedPopulationSliceSampler(
             popsize=8, nsteps=2, torch_loglike=_loglike_torch,
             device='cpu', mesh=object())
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match='DeviceMesh'):
         popfused.FusedPopulationRandomWalkSampler(
             popsize=8, nsteps=2, torch_loglike=_loglike_torch, device='cpu',
             mesh=object())
+    with pytest.raises(ValueError, match='needs a mesh'):
+        popfused.FusedPopulationSliceSampler(
+            popsize=8, nsteps=2, torch_loglike=_loglike_torch,
+            device='cpu', axis_name='ranks')
     with pytest.raises(ValueError):
         popfused.FusedPopulationSliceSampler(
             popsize=8, nsteps=2, torch_loglike=_loglike_torch,

@@ -33,6 +33,8 @@ import torch
 
 from .ops import kernels
 from .ops.pairwise import pad_rows, pairwise_sqdist, round_up
+from .parallel import (all_gather_rows, check_mesh, psum, shard_count,
+                       shard_index, shard_seed)
 from .parallel.launch import finish_fetch, start_fetch
 from .segmentops import consume_scan, pack_segment
 
@@ -244,15 +246,29 @@ class FusedRegionSampler:
         dimensionality
     seed: int
         seed of the host stream the per-dispatch generator seeds come from
+    mesh: DeviceMesh or None
+        shard candidate generation over this mesh
+        (:mod:`ultranest_torch.parallel`): each shard draws ``max(128,
+        ndraw / nshards)`` candidates from its own stream, filters them
+        (kernel K1) and keeps at most ``max(16, MAX_RETURN / nshards)``;
+        the shards' blocks are gathered and their billed counts summed.
+        A sharded sampler stays on the classic budgeted path
+        (:meth:`segment_ok`).
+    axis_name: str, tuple or None
+        shard over these mesh dimensions only (default: all of them)
     device: str or torch.device
         where proposals are drawn, filtered and evaluated
     """
 
-    def __init__(self, loglike, transform, x_dim, seed=0, device='cuda'):
+    def __init__(self, loglike, transform, x_dim, seed=0, mesh=None,
+                 axis_name=None, device='cuda'):
         self.loglike = loglike
         self.transform = transform if transform is not None else (lambda u: u)
         self.x_dim = x_dim
         self.device = torch.device(device)
+        self.mesh, self.axis_name = check_mesh(mesh, axis_name)
+        self.nshards = shard_count(mesh, axis_name)
+        self._shard = shard_index(mesh, axis_name)
         # per-dispatch generator seeds come from a host stream, as the
         # reference's per-dispatch threefry keys do (fused.py:296)
         self._key_rng = np.random.Generator(np.random.PCG64(seed))
@@ -263,11 +279,23 @@ class FusedRegionSampler:
         # 0 on the CPU, where there is no second processor to overlap
         self.prefetch_depth = 0 if self.device.type == 'cpu' else 2
 
+    def _next_seed(self):
+        """Generator seed of the next dispatch on this shard.
+
+        One host key (two uint32 words) a dispatch; with a mesh, one key
+        per shard (``fused.py:919``), and this shard's mixed with its
+        index (:func:`~ultranest_torch.parallel.shard_seed`).
+        """
+        if self.nshards == 1:
+            k = self._key_rng.integers(0, 2**32, size=(2,), dtype=np.uint32)
+            return ((int(k[0]) << 32) | int(k[1])) & (2**63 - 1)
+        keys = self._key_rng.integers(0, 2**32, size=(self.nshards, 2),
+                                      dtype=np.uint32)
+        return shard_seed(keys[self._shard], self._shard)
+
     def _seed_dispatch(self):
-        """Seed the generator from the next host key (two uint32 words)."""
-        k = self._key_rng.integers(0, 2**32, size=(2,), dtype=np.uint32)
-        self._gen.manual_seed(((int(k[0]) << 32) | int(k[1]))
-                              & (2**63 - 1))
+        """Seed the generator for the next dispatch."""
+        self._gen.manual_seed(self._next_seed())
 
     # --- draw stage ----------------------------------------------------
 
@@ -338,9 +366,10 @@ class FusedRegionSampler:
                                               tregion, method,
                                               naccept_budget))
 
-    def _launch(self, region, Lmin, ndraw, tregion=None, method=None,
+    def _inputs(self, region, tregion=None, method=None,
                 naccept_budget=None):
-        ndraw = round_up(ndraw, 128)
+        """A classic dispatch's inputs on the device: (geo, tpoints, tmask,
+        npts, method, naccept_budget)."""
         geo = region_geometry(region, self.x_dim, tregion, self.device)
         npts = len(region.unormed)
         npad = round_up(npts)
@@ -357,31 +386,65 @@ class FusedRegionSampler:
         if method is None or (geo['kind'] != 'mlfriends'
                               and method == METHOD_POINTS):
             method = METHOD_ELLIPSOID
-        self._seed_dispatch()
+        return geo, tpoints, tmask, npts, method, naccept_budget
+
+    def _propose(self, seed, inputs, Lmin, ndraw, kreturn):
+        """One shard's proposal batch from generator *seed*.
+
+        Draws *ndraw* candidates, filters and evaluates them and keeps at
+        most *kreturn* accepted rows. Returns one f32 pack (the rows [u |
+        v | logl], then a row [nc, n_acc, 0..]) and the billed count nc
+        (0-d int64).
+        """
+        geo, tpoints, tmask, npts, method, budget = inputs
+        self._gen.manual_seed(seed)
         u, mult_ok = self.draw(method, ndraw, geo, tpoints, tmask, npts)
         member, v, logl = filter_stage(u, mult_ok, geo, tpoints, tmask,
                                        self.transform, self.loglike)
         u, v, logl, n_acc, nc = compact_classic(
-            u, v, logl, member, _f32(Lmin), naccept_budget, MAX_RETURN)
-        # one f32 result: k rows [u | v | logl], then a row [nc, n_acc, 0..]
+            u, v, logl, member, _f32(Lmin), budget, kreturn)
         rows = torch.cat([u, v, logl[:, None]], dim=1)
         scal = torch.zeros((1, rows.shape[1]), dtype=torch.float32,
                            device=self.device)
         scal[0, 0] = nc
         scal[0, 1] = n_acc
-        return start_fetch(torch.cat([rows, scal])), v.shape[1], ndraw
+        return torch.cat([rows, scal]), nc
 
-    def _unpack(self, handle, num_params, ndraw):
+    def _launch(self, region, Lmin, ndraw, tregion=None, method=None,
+                naccept_budget=None):
+        ndraw = round_up(ndraw, 128)
+        inputs = self._inputs(region, tregion, method, naccept_budget)
+        seed = self._next_seed()
+        if self.nshards == 1:
+            pack, _ = self._propose(seed, inputs, Lmin, ndraw, MAX_RETURN)
+            counts = None
+        else:
+            # each shard's block of rows and its [nc, n_acc] row,
+            # gathered; the billed counts summed exactly in int64
+            pack, nc = self._propose(seed, inputs, Lmin,
+                                     max(128, ndraw // self.nshards),
+                                     max(16, MAX_RETURN // self.nshards))
+            pack = all_gather_rows(pack, self.mesh, self.axis_name)
+            counts = start_fetch(psum(nc, self.mesh, self.axis_name))
+        return (start_fetch(pack), counts, pack.shape[1] - self.x_dim - 1,
+                ndraw)
+
+    def _unpack(self, handle, counts, num_params, ndraw):
         packed = finish_fetch(handle).astype(float)
-        rows, scal = packed[:-1], packed[-1]
         x_dim = self.x_dim
-        k = min(int(scal[1]), len(rows))
-        u = rows[:k, :x_dim]
-        v = rows[:k, x_dim:x_dim + num_params]
-        logl = rows[:k, -1]
+        # one block of rows and a scalar row per shard
+        blocks = packed.reshape(self.nshards, -1, packed.shape[1])
+        keep = [block[:min(int(block[-1, 1]), len(block) - 1)]
+                for block in blocks]
+        rows = np.concatenate(keep)
+        nc = int(blocks[0, -1, 0]) if counts is None \
+            else int(finish_fetch(counts))
+        u = rows[:, :x_dim]
+        v = rows[:, x_dim:x_dim + num_params]
+        logl = rows[:, -1]
         # guard against f32 rounding to the cube boundary
         np.clip(u, 1e-7, 1 - 1e-7, out=u)
-        return u, v, logl, int(scal[0]), ndraw
+        return u, v, logl, nc, ndraw
 
     # --- segment mode --------------------------------------------------
     # Driven by integrator._explore_segments: the live set chains on the
@@ -400,12 +463,14 @@ class FusedRegionSampler:
 
         Default on for a CUDA device and off for the CPU, as the
         reference does for accelerator and CPU backends. Override with
-        ``sampler.fused_sampler.segment_enabled = True/False``.
+        ``sampler.fused_sampler.segment_enabled = True/False``. Never on
+        a mesh of more than one shard (``fused.py:637``): a sharded
+        rejection run takes the classic budgeted path with prefetch.
         """
         enabled = getattr(self, 'segment_enabled', None)
         if enabled is None:
-            return self.device.type != 'cpu'
-        return enabled
+            enabled = self.device.type != 'cpu'
+        return enabled and self.nshards == 1
 
     def segment_start(self, us, Ls, ndraw=4096):
         """Upload live state and reset the dispatch queue."""

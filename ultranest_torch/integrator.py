@@ -38,7 +38,10 @@ JAX package's, so either package reads the other's run directories.
 A dispatch that misses its deadline (``ULTRANEST_TORCH_DISPATCH_DEADLINE``,
 :mod:`ultranest_torch.parallel.launch`) degrades the run to the host path.
 
-Not ported yet: multi-device runs.
+Multi-device runs: with ``mesh=`` (:mod:`ultranest_torch.parallel`),
+one process per rank runs this whole sampler; candidate generation and
+the bootstrap radius rounds are sharded over the ranks, everything else
+is identical on every rank.
 """
 
 import csv
@@ -77,6 +80,7 @@ from .netiter import logz_sequence
 from .netiter import replay_sequence
 from .ops.pairwise import match_clusters
 from .ordertest import UniformOrderAccumulator
+from .parallel import check_mesh
 from .parallel.launch import DeviceLostError
 from .parallel.strategy import bootstrap_kl_table
 from .store import HDF5PointStore
@@ -394,15 +398,17 @@ def resume_from_similar_file(log_dir, x_dim, loglikelihood, transform,
     os.replace(scratch_path, filepath)
 
 
-def _update_region_bootstrap(region, nbootstraps, minvol=0.0, rng=np.random):
+def _update_region_bootstrap(region, nbootstraps, minvol=0.0, rng=np.random,
+                             mesh=None):
     """Refresh *region* radius/enlargement by bootstrapping.
 
-    The radius rounds run in kernel K2 on the region's device.
+    The radius rounds run in kernel K2 on the region's device; with a
+    mesh they are split over its shards and max-reduced.
     LinAlgError propagates to the caller, which keeps the previous region.
     """
     assert nbootstraps > 0, nbootstraps
     region.maxradiussq, region.enlarge = region.compute_enlargement(
-        minvol=minvol, nbootstraps=nbootstraps, rng=rng)
+        minvol=minvol, nbootstraps=nbootstraps, rng=rng, mesh=mesh)
     return region.maxradiussq, region.enlarge
 
 
@@ -878,7 +884,8 @@ class ReactiveNestedSampler:
                  num_test_samples=2, draw_multiple=True, num_bootstraps=30,
                  vectorized=False, ndraw_min=128, ndraw_max=65536,
                  storage_backend='hdf5', warmstart_max_tau=-1, seed=None,
-                 torch_loglike=None, torch_transform=None, device='cuda'):
+                 torch_loglike=None, torch_transform=None, device='cuda',
+                 mesh=None):
         """Initialise nested sampler.
 
         Parameters
@@ -931,6 +938,14 @@ class ReactiveNestedSampler:
             where the proposal path and the bootstrap radius kernel run
             ('cuda' by default; the tests pass 'cpu'). Nothing moves to
             another device behind the caller's back.
+        mesh: torch.distributed.device_mesh.DeviceMesh or None
+            shard the work over the ranks of a multi-process job
+            (:mod:`ultranest_torch.parallel`; one process per rank, each
+            running this whole sampler with the same *seed*): candidate
+            generation of the *torch_loglike* path and the bootstrap
+            radius rounds of every region rebuild. The tree, the live
+            points and the strategy stay identical on every rank.
+            Population step samplers take their own ``mesh=``.
         """
         self.paramnames = param_names
         self.derivedparamnames = derived_param_names
@@ -944,10 +959,15 @@ class ReactiveNestedSampler:
         self.rng = np.random.RandomState(seed) \
             if seed is not None else np.random
 
+        # one program on every rank; sharded work goes over the mesh
         self.use_mpi = False
         self.mpi_size = 1
         self.mpi_rank = 0
         self.device = torch.device(device)
+        self.mesh = check_mesh(mesh)[0]
+        if mesh is not None and seed is None:
+            raise ValueError('a run with mesh= needs a seed: every rank '
+                             'must draw the same host streams')
 
         resume_modes = (True, 'overwrite', 'subfolder', 'resume',
                         'resume-similar')
@@ -1007,7 +1027,7 @@ class ReactiveNestedSampler:
                     "delete '%s'." % log_dir)
         self._set_likelihood_function(transform, loglike, num_test_samples)
         self.stepsampler = None
-        self._init_fused_sampler(torch_loglike, torch_transform, seed)
+        self._init_fused_sampler(torch_loglike, torch_transform, seed, mesh)
 
     def _parse_wrapped(self, wrapped_params):
         """Indices of circular parameters."""
@@ -1061,7 +1081,8 @@ class ReactiveNestedSampler:
             os.path.join(self.logs['results'], 'points.hdf5'),
             3 + self.x_dim + self.num_params, mode='a')
 
-    def _init_fused_sampler(self, torch_loglike, torch_transform, seed):
+    def _init_fused_sampler(self, torch_loglike, torch_transform, seed,
+                            mesh=None):
         """Attach the fused device proposal engine, if a torch model exists."""
         self.fused_sampler = None
         self._fused_method = 0  # index into fused.METHOD_CYCLE
@@ -1070,7 +1091,7 @@ class ReactiveNestedSampler:
         fused_seed = seed if seed is not None else np.random.randint(2**31)
         self.fused_sampler = FusedRegionSampler(
             torch_loglike, torch_transform, self.x_dim, seed=fused_seed,
-            device=self.device)
+            mesh=mesh, device=self.device)
 
     def _check_likelihood_function(self, transform, loglike,
                                    num_test_samples):
@@ -1360,7 +1381,8 @@ class ReactiveNestedSampler:
         The (niter x nbootstraps) divergence table comes from
         :func:`ultranest_torch.parallel.strategy.bootstrap_kl_table`.
         """
-        KL, KLtot = bootstrap_kl_table(ref_logw, other_logw)
+        KL, KLtot = bootstrap_kl_table(ref_logw, other_logw,
+                                       mesh=self.mesh)
         dKLtot = np.abs(KLtot - KLtot.mean())
 
         profile = np.where(KL > 0, KL, 0)
@@ -1717,7 +1739,7 @@ class ReactiveNestedSampler:
         self.region_nodes = active_node_ids.copy()
         assert self.region.maxradiussq is None
         _update_region_bootstrap(self.region, nbootstraps, minvol,
-                                 rng=self.rng)
+                                 rng=self.rng, mesh=self.mesh)
         self.region.create_ellipsoid(minvol=minvol)
 
     def _refit_region_radius(self, active_u, active_node_ids, nbootstraps,
@@ -1737,7 +1759,7 @@ class ReactiveNestedSampler:
         self.region_nodes = active_node_ids.copy()
         self.region.set_transformLayer(self.transformLayer)
         _update_region_bootstrap(self.region, nbootstraps, minvol,
-                                 rng=self.rng)
+                                 rng=self.rng, mesh=self.mesh)
 
         oldt = self.transformLayer.transform(oldu)
         self.transformLayer.clusterids = match_clusters(
@@ -1771,7 +1793,7 @@ class ReactiveNestedSampler:
         candidate = self.region_class(active_u, layer, device=self.device)
         assert np.isfinite(candidate.unormed).all()
         _update_region_bootstrap(candidate, nbootstraps, minvol,
-                                 rng=self.rng)
+                                 rng=self.rng, mesh=self.mesh)
         candidate.create_ellipsoid(minvol=minvol)
         return candidate, cluster_sizes
 

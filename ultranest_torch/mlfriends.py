@@ -408,20 +408,23 @@ class MLFriends:
             whitened.min(axis=0), whitened.max(axis=0)
         self.maxradiussq = None
 
-    def compute_maxradiussq(self, nbootstraps=50, rng=np.random):
+    def compute_maxradiussq(self, nbootstraps=50, rng=np.random,
+                            mesh=None):
         """Bootstrapped squared MLFriends radius (radius only)."""
         masks = make_bootstrap_masks(len(self.u), nbootstraps, rng=rng)
         maxd, _, ok = bootstrap_radius_enlargement(
-            self.u, self.unormed, masks, mode='mlfriends', device=self.device)
+            self.u, self.unormed, masks, mode='mlfriends', device=self.device,
+            mesh=mesh)
         assert maxd > 0, (maxd, self.u)
         return maxd
 
     def compute_enlargement(self, nbootstraps=50, minvol=0.0,
-                            rng=np.random):
+                            rng=np.random, mesh=None):
         """Bootstrapped MLFriends radius and ellipsoid enlargement.
 
         The radius rounds run in kernel K2 on the region's device
-        (:func:`ultranest_torch.ops.bootstrap.bootstrap_radius_enlargement`).
+        (:func:`ultranest_torch.ops.bootstrap.bootstrap_radius_enlargement`),
+        split over the shards of *mesh* when one is given.
 
         Returns
         -------
@@ -432,7 +435,8 @@ class MLFriends:
         """
         masks = make_bootstrap_masks(len(self.u), nbootstraps, rng=rng)
         maxd, maxf, ok = bootstrap_radius_enlargement(
-            self.u, self.unormed, masks, mode='mlfriends', device=self.device)
+            self.u, self.unormed, masks, mode='mlfriends', device=self.device,
+            mesh=mesh)
         if not ok:
             raise np.linalg.LinAlgError("compute_enlargement degenerated")
         return maxd, maxf
@@ -597,8 +601,9 @@ class RobustEllipsoidRegion(MLFriends):
         return self.inside_ellipsoid(pts)
 
     def compute_enlargement(self, nbootstraps=50, minvol=0.0,
-                            rng=np.random):
-        """Bootstrapped ellipsoid enlargement (radius fixed at 1e300)."""
+                            rng=np.random, mesh=None):
+        """Bootstrapped ellipsoid enlargement (radius fixed at 1e300; a
+        *mesh* is accepted and unused: there are no radius rounds)."""
         N, ndim = self.u.shape
         if N < ndim + 1:
             raise FloatingPointError(
@@ -641,8 +646,9 @@ class SimpleRegion(RobustEllipsoidRegion):
         self.ellipsoid_inv_axes = np.diag(self.ellipsoid_inv_axlens)
 
     def compute_enlargement(self, nbootstraps=50, minvol=0.0,
-                            rng=np.random):
-        """Bootstrapped axis-aligned enlargement.
+                            rng=np.random, mesh=None):
+        """Bootstrapped axis-aligned enlargement (a *mesh* is accepted and
+        unused: there are no radius rounds).
 
         Note: uses the per-point Mahalanobis sum over dimensions (the
         reference reduces over the wrong axis at `upstream mlfriends.pyx:1540`).

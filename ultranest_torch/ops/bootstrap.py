@@ -12,7 +12,9 @@ random subset of live points, wrap them, measure how far the
 * The O(B N^2 d) radius rounds run in kernel K2
   (:func:`ultranest_torch.ops.kernels.bootstrap_radius`) on the device
   the caller must name, or in its plain torch version when that is the
-  CPU.
+  CPU. With a mesh, each shard runs K2 on its block of rounds and the
+  shards' radii are max-reduced: bit-equal to K2 on all rounds, because
+  a maximum is exact.
 * The ellipsoid enlargement rounds stay batched host numpy in f64
   (:func:`_bootstrap_enlargement`, carried over unchanged).
 """
@@ -20,6 +22,8 @@ random subset of live points, wrap them, measure how far the
 import numpy as np
 import torch
 
+from ..parallel import pmax, shard_count
+from ..parallel.launch import fetch_replicated, shard_rows
 from . import kernels
 from .pairwise import round_up
 
@@ -103,10 +107,25 @@ def radius_inputs(tpoints, masks, device):
             packed[npts + npd:].view(nrounds, npd))
 
 
-def _bootstrap_radius(tpoints, masks, device):
-    """Bootstrapped MLFriends radius: kernel K2 on *device*."""
-    return float(kernels.bootstrap_radius(
-        *radius_inputs(tpoints, masks, device)))
+def _bootstrap_radius(tpoints, masks, device, mesh=None, axis_name=None):
+    """Bootstrapped MLFriends radius: kernel K2 on *device*.
+
+    With a *mesh* of more shards than one and at least as many rounds,
+    the rounds are padded to a multiple of the shard count with rounds
+    that select every point (no unselected point, so they never win the
+    maximum; ``ultranest_tpu/ops/bootstrap.py:212-218``), each shard runs
+    K2 on its block of rounds and the results are max-reduced.
+    """
+    nshards = shard_count(mesh, axis_name)
+    if nshards == 1 or len(masks) < nshards:
+        return float(kernels.bootstrap_radius(
+            *radius_inputs(tpoints, masks, device)))
+    padded = np.ones((-(-len(masks) // nshards) * nshards, masks.shape[1]),
+                     dtype=bool)
+    padded[:len(masks)] = masks
+    local = kernels.bootstrap_radius(*radius_inputs(
+        tpoints, shard_rows(padded, mesh, axis_name), device))
+    return float(fetch_replicated(pmax(local, mesh, axis_name)))
 
 
 def _bootstrap_enlargement(u, masks, mode):
@@ -161,7 +180,7 @@ def _bootstrap_enlargement(u, masks, mode):
 
 
 def bootstrap_radius_enlargement(upoints, tpoints, masks, mode='mlfriends',
-                                 device=None):
+                                 device=None, mesh=None, axis_name=None):
     """Run all bootstrap rounds.
 
     Parameters
@@ -178,6 +197,10 @@ def bootstrap_radius_enlargement(upoints, tpoints, masks, mode='mlfriends',
     device: str or torch.device
         where the radius kernel runs; required in 'mlfriends' mode, the
         only mode that has a radius to compute
+    mesh: DeviceMesh or None
+        when given, the O(B N^2) radius rounds are split over its shards
+        (*axis_name*: over that dimension only) and max-reduced; the
+        ellipsoid rounds stay host-batched on every rank
 
     Returns
     -------
@@ -195,7 +218,8 @@ def bootstrap_radius_enlargement(upoints, tpoints, masks, mode='mlfriends',
     if mode == 'mlfriends':
         if device is None:
             raise ValueError("mode 'mlfriends' needs a device for kernel K2")
-        maxd = _bootstrap_radius(tpoints, masks, device)
+        maxd = _bootstrap_radius(tpoints, masks, device, mesh=mesh,
+                                 axis_name=axis_name)
     else:
         maxd = 1e300
 

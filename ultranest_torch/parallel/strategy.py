@@ -3,11 +3,14 @@
 Strategy reductions
 -------------------
 
-The single-device bootstrap KL table of the reactive improvement
-strategy (``ultranest_tpu/parallel/strategy.py:44-75``, its
-``mesh=None`` branch), as torch in float64 on the host, where that
-branch computes it too. The mesh-sharded variant waits for the port's
-multi-GPU work.
+The bootstrap KL table of the reactive improvement strategy
+(``ultranest_tpu/parallel/strategy.py:44-105``), as torch in float64 on
+the host. With a mesh the JAX package takes this host branch too on
+every multi-process mesh (``strategy.py:77-82``): the table is
+replicated host data, every rank computes the identical decision, and a
+round trip over the interconnect would buy nothing. With one process
+per rank every mesh of more than one rank is multi-process, so the port
+always computes it here.
 """
 
 import numpy as np
@@ -16,7 +19,7 @@ import torch
 __all__ = ['bootstrap_kl_table']
 
 
-def bootstrap_kl_table(ref_logw, other_logw):
+def bootstrap_kl_table(ref_logw, other_logw, mesh=None, axis_name=None):
     """KL divergence table of bootstrap posteriors vs the main estimator.
 
     Parameters
@@ -25,6 +28,9 @@ def bootstrap_kl_table(ref_logw, other_logw):
         log posterior weights of the main estimator
     other_logw: array (niter, nbootstraps)
         log posterior weights of each bootstrap estimator
+    mesh, axis_name: DeviceMesh or None, dimension name(s) or None
+        accepted for the JAX package's signature; the table is computed
+        on the host of every rank alike (see the module docstring)
 
     Returns
     -------

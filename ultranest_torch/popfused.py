@@ -3,10 +3,10 @@
 Device-resident population samplers
 -----------------------------------
 
-Counterpart of ``ultranest_tpu/popfused.py`` on one device. A whole
-walker population advances through all its steps in one dispatch, with
-the batched likelihood called once per round on every walker's rows;
-one dispatch yields ``popsize`` independent samples. Four walks:
+Counterpart of ``ultranest_tpu/popfused.py``. A whole walker
+population advances through all its steps in one dispatch, with the
+batched likelihood called once per round on every walker's rows; one
+dispatch yields ``popsize`` independent samples. Four walks:
 
 * ``engine='spec'`` (:func:`spec_walk`): each round evaluates a
   depth-``spec_depth`` precomputed shrink chain per walker;
@@ -39,10 +39,17 @@ Each dispatch's billed and useful evaluation counts travel home as an
 int64 pair beside the float32 result, so they stay exact past 2**24
 (the reference rounds them to float32).
 
-Not ported yet: ``mesh=`` (ROADMAP queue A item 13), which raises
-``NotImplementedError``. The doubled-nsteps prewarm thread and the
-fingerprint-keyed kernel cache have no counterpart: eager torch does
-not compile per shape.
+With ``mesh=`` (:mod:`ultranest_torch.parallel`) the population is
+split over the mesh's shards (``popfused.py:473-498``, ``:1243-1292``):
+each shard walks ``popsize / nshards`` walkers from its own stream, with
+no collective inside the walk, so the done-flag reads stay on the shard;
+the walkers' results are gathered, the counts summed and the width and
+done fraction averaged over the shards. In segment mode every shard then
+runs the consume scan (kernel K3) on the whole gathered batch, so the
+live state stays the same on every rank.
+
+The doubled-nsteps prewarm thread and the fingerprint-keyed kernel cache
+have no counterpart: eager torch does not compile per shape.
 """
 
 import logging
@@ -55,6 +62,8 @@ import torch
 from .fused import _as_f32, _f32, _inside_ellipsoid, tregion_geometry
 from .ops.pairwise import pad_rows, round_up
 from .ordertest import UniformOrderAccumulator
+from .parallel import (all_gather_rows, check_mesh, pmean, psum,
+                       shard_count, shard_index, shard_seed)
 from .parallel.launch import finish_fetch, start_fetch
 from .popstepsampler import (GenericPopulationSampler,
                              decorrelation_gm_target,
@@ -562,6 +571,11 @@ class FusedPopulationSliceSampler(GenericPopulationSampler):
         lower ``spec_depth`` once, before the first dispatch, when the
         likelihood is expensive enough; None runs it on a CUDA device
         only, True and False force it on or off
+    mesh: DeviceMesh or None
+        split the walkers over this mesh's shards (see the module
+        docstring); *popsize* must be a multiple of the shard count
+    axis_name: str, tuple or None
+        shard over these mesh dimensions only (default: all of them)
     device: str or torch.device
         where the walk and the live set of segment mode live
     """
@@ -588,10 +602,14 @@ class FusedPopulationSliceSampler(GenericPopulationSampler):
         if engine not in self.ENGINES:
             raise ValueError('engine must be one of %s, not %r'
                              % (self.ENGINES, engine))
-        if mesh is not None or axis_name is not None:
-            raise NotImplementedError(
-                'mesh= is not ported to ultranest_torch yet (ROADMAP '
-                'queue A item 13)')
+        check_mesh(mesh, axis_name)
+        self.nshards = shard_count(mesh, axis_name)
+        if popsize % self.nshards:
+            raise ValueError('popsize %d must divide evenly over the %d '
+                             'mesh shards' % (popsize, self.nshards))
+        self._shard = shard_index(mesh, axis_name)
+        # walkers of this shard
+        self._local_popsize = popsize // self.nshards
         self.popsize = popsize
         self.nsteps = nsteps
         self.nsteps_min = nsteps
@@ -656,10 +674,13 @@ class FusedPopulationSliceSampler(GenericPopulationSampler):
             % (self.popsize, self.nsteps, self.scale)
 
     def _seed_dispatch(self):
-        """Seed the generator from the next host key (two uint32 words)."""
+        """Seed the generator from the next host key (two uint32 words),
+        on a mesh mixed with this shard's index (the reference's
+        ``fold_in``, ``popfused.py:490``)."""
         k = self._key_rng.integers(0, 2**32, size=2, dtype=np.uint32)
-        self._gen.manual_seed(((int(k[0]) << 32) | int(k[1]))
-                              & (2**63 - 1))
+        self._gen.manual_seed(
+            ((int(k[0]) << 32) | int(k[1])) & (2**63 - 1)
+            if self.nshards == 1 else shard_seed(k, self._shard))
 
     def region_changed(self, Ls, region):
         """React to a region rebuild (no-op; state is per-dispatch)."""
@@ -781,8 +802,8 @@ class FusedPopulationSliceSampler(GenericPopulationSampler):
         """
         D = self.spec_depth
         ll, tr = self.torch_loglike, self._transform
-        u = torch.full((self.popsize * D, x_dim), 0.5, dtype=torch.float32,
-                       device=self.device)
+        u = torch.full((self._local_popsize * D, x_dim), 0.5,
+                       dtype=torch.float32, device=self.device)
         on_card = self.device.type == 'cuda'
         best = math.inf
         for i in range(4):
@@ -850,7 +871,7 @@ class FusedPopulationSliceSampler(GenericPopulationSampler):
         walk at depth 1 with the spec cap (``popfused.py:1236-1241``).
         """
         self._seed_dispatch()
-        P, n, g = self.popsize, self.nsteps, self._gen
+        P, n, g = self._local_popsize, self.nsteps, self._gen
         if self.engine == 'sync':
             return draw_sync_banks(g, P, n, self.max_it, nlive, x_dim)
         D = 1 if self.engine == 'async' else self.spec_depth
@@ -875,7 +896,8 @@ class FusedPopulationSliceSampler(GenericPopulationSampler):
         if self.engine == 'sync':
             return sync_walk(banks, live_u, live_L, axes, Lmin, _f32(scale),
                              evaluate, stats=stats)
-        target = max(1, int(np.ceil(self.harvest_frac * self.popsize)))
+        target = max(1, int(np.ceil(self.harvest_frac
+                                    * self._local_popsize)))
         out = spec_walk(banks, live_u, live_L, nlive, axes, Lmin,
                         _f32(scale), evaluate, self.nsteps,
                         target_done=target, stats=stats)
@@ -890,6 +912,11 @@ class FusedPopulationSliceSampler(GenericPopulationSampler):
         live set) travels home as one trailing record column. Returns
         the new live state, the packed records and the exact int64
         (billed, useful) counts.
+
+        On a mesh (``popfused.py:1243-1292``) *banks* are this shard's;
+        the walkers' rows [uf | Lf | done | jump2] are gathered, the
+        counts summed, the width and done fraction averaged, and the
+        consume scan runs on the whole gathered batch on every shard.
         """
         Lmin0 = live_L.min()          # padding is +inf
         uf, Lf, done, idx0, nc, nu, width, _ = self._walk(
@@ -900,12 +927,24 @@ class FusedPopulationSliceSampler(GenericPopulationSampler):
         # queue-depth segments stale)
         ref2 = whitened_cloud_var(live_u, nlive, tpack)
         donef = done.to(torch.float32)
+        counts = torch.stack([nc, nu])
+        done_frac = donef.mean()
+        if self.nshards > 1:
+            d = uf.shape[1]
+            rows = all_gather_rows(
+                torch.cat([uf, Lf[:, None], donef[:, None], jump2[:, None]],
+                          dim=1), self.mesh, self.axis_name)
+            uf, jump2 = rows[:, :d], rows[:, d + 2]
+            Lf, donef = rows[:, d].contiguous(), rows[:, d + 1].contiguous()
+            counts = psum(counts, self.mesh, self.axis_name)
+            width, done_frac = pmean(torch.stack([width, done_frac]),
+                                     self.mesh, self.axis_name)
         live_u2, live_L2, recs = consume_scan(live_u, live_L, uf, Lf, donef)
         recs = torch.cat([recs, jump2[:, None]], dim=1)
-        packed = pack_segment(uf, Lf, recs, nc.to(torch.float32),
-                              donef.mean(), width,
-                              nuseful=nu.to(torch.float32), ref2=ref2)
-        return live_u2, live_L2, packed, torch.stack([nc, nu])
+        packed = pack_segment(uf, Lf, recs, counts[0].to(torch.float32),
+                              done_frac, width,
+                              nuseful=counts[1].to(torch.float32), ref2=ref2)
+        return live_u2, live_L2, packed, counts
 
     # --- classic mode ---------------------------------------------------
 
@@ -933,8 +972,13 @@ class FusedPopulationSliceSampler(GenericPopulationSampler):
                               device=self.device)
         scalars[0, :4] = torch.stack([nc.to(torch.float32), eff, width,
                                       nu.to(torch.float32)])
-        return (start_fetch(torch.cat([rows, scalars])),
-                start_fetch(torch.stack([nc, nu])),
+        packed = torch.cat([rows, scalars])
+        counts = torch.stack([nc, nu])
+        if self.nshards > 1:
+            # each shard's walkers and its scalar row (popfused.py:473-498)
+            packed = all_gather_rows(packed, self.mesh, self.axis_name)
+            counts = psum(counts, self.mesh, self.axis_name)
+        return (start_fetch(packed), start_fetch(counts),
                 np.array(us, np.float32, copy=True), self.nsteps)
 
     def _harvest(self, region, transform, loglike, Lmin):
@@ -950,10 +994,13 @@ class FusedPopulationSliceSampler(GenericPopulationSampler):
         packed = finish_fetch(handle).astype(float)
         nc, nu = (int(c) for c in finish_fetch(counts))
         # column layout: [u(0:d), L, done, idx0]; one trailing scalar
-        # row: [ncall, efficiency, width, nuseful] (counts rounded to
-        # float32; the exact ones come in *counts*)
-        rows, scalars = packed[:-1], packed[-1]
-        acc_rate, width = scalars[1], scalars[2]
+        # row per shard: [ncall, efficiency, width, nuseful] (counts
+        # rounded to float32; the exact sums come in *counts*); the
+        # shards' efficiency and width are averaged (popfused.py:956-963)
+        blocks = packed.reshape(self.nshards, -1, packed.shape[1])
+        rows = blocks[:, :-1].reshape(-1, packed.shape[1])
+        acc_rate = blocks[:, -1, 1].mean()
+        width = blocks[:, -1, 2].mean()
         done = rows[:, ndim + 1] > 0.5
         uf = rows[:, :ndim][done]
         idx0 = rows[:, ndim + 2][done].astype(int)
@@ -1293,8 +1340,8 @@ class FusedPopulationRandomWalkSampler(FusedPopulationSliceSampler):
 
     def _draw_banks(self, nlive, x_dim, segment=True):
         self._seed_dispatch()
-        return draw_rwalk_banks(self._gen, self.popsize, self.nsteps, nlive,
-                                x_dim)
+        return draw_rwalk_banks(self._gen, self._local_popsize, self.nsteps,
+                                nlive, x_dim)
 
     def _walk(self, banks, live_u, live_L, nlive, axes, Lmin, scale, treg):
         ev = self._treg_eval()
