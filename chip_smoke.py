@@ -80,6 +80,19 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
      segment path (2048 walkers a rank); the ranks must agree exactly
      in logZ, ncall and niter, the eggbox's ncall must be the root points
      plus its billed counts, and K1, K2 and K3 must launch;
+   * the files outside the package, each through its own entry point:
+     every ported example (``examples/torch_port/``:
+     ``tutorial_highdim --torch`` at its defaults, K3 in every dispatch;
+     ``run_problem --problem eggbox --torch``, K1, K2 and K3;
+     ``evaluate_scaling`` with the fused method; the host tutorials,
+     K2 at every region rebuild, the two sine tutorials at ``--quick``),
+     each gated against its truth where it has one; the fuzzer's seeds
+     25-36 with ``tests/test_fuzz.py``'s caps, each through the fuzzer's
+     own check; the C and C++ runners on libraries built here with gcc
+     and g++ (Fortran only where gfortran exists, and said so where it
+     does not); ``bias_audit.run_one`` on shell8 for seeds 1-3 (each
+     |z| < 4) and ``profile_run`` on asymgauss50 and the eggbox (its
+     host split of a spec-walk round);
 
    and checks that each path's kernels were launched in its run (K3 on
    every segment path; the classic run consumes on the host and
@@ -492,14 +505,21 @@ def check_scan_traffic(kernels, name, calls):
     return out
 
 
+# calls queued behind one spin for the device-only time: the launch
+# queue holds about a thousand kernels (K2 launches two a call), and the
+# host cannot get ahead of a full queue
+QUEUED_CALLS = 256
+
+
 def replay_ms(fn, calls):
     """(CUDA-event ms, device-only ms) per call of *fn* over *calls*, each
-    call replayed in order, repeated to at least 50 calls."""
+    call replayed in order, repeated to at least 50 calls; the device-only
+    time over the first :data:`QUEUED_CALLS` of them."""
     from ultranest_torch.evaluate.bench_membership import cuda_ms
     fns = [lambda c=c: fn(*c) for c in calls]
     reps = max(1, -(-50 // len(calls)))
     return (cuda_ms(lambda: [f() for f in fns], reps) / len(calls),
-            queued_ms(fns * reps))
+            queued_ms((fns * reps)[:QUEUED_CALLS]))
 
 
 def member_call_bound(kernels, call):
@@ -1829,6 +1849,360 @@ def run_mesh_phase():
     return ranks, traffic, wall
 
 
+# ---------------------------------------------------------------------------
+# the files outside the package: the ported examples, the fuzzer, the
+# language runners and the evaluation tools, each through its own entry
+# point on the card
+
+def load_script(path, name):
+    """Import the script at *path* (relative to this file) as module
+    *name*: the ported examples share their file names with the JAX
+    package's, so they never go on ``sys.path``."""
+    import importlib.util
+    import os
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(os.path.dirname(os.path.abspath(__file__)), path))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def summary(res):
+    """(logz, logzerr, ncall, niter) of a results dict (either
+    convention: the solvecompat results use logZ / logZerr)."""
+    if 'logz' in res:
+        return (float(res['logz']), float(res['logzerr']),
+                int(res['ncall']), int(res['niter']))
+    return (float(res['logZ']), float(res['logZerr']), None, None)
+
+
+def in_gate(logz, logzerr, truth, floor):
+    """|logZ - truth| < max(4 logzerr, floor), as ``bench.py:353-372``."""
+    return abs(logz - truth) < max(4 * logzerr, floor)
+
+
+def near(post, name, truth, results):
+    """Raise unless the posterior mean of *name* is within 4 of its
+    standard deviations of *truth*."""
+    i = results['paramnames'].index(name)
+    mean, std = post['mean'][i], post['stdev'][i]
+    assert abs(mean - truth) < 4 * std, ('posterior far from the truth',
+                                         name, mean, std, truth)
+
+
+def example_tutorial_highdim():
+    m = load_script('examples/torch_port/tutorial_highdim.py',
+                    'torch_port_tutorial_highdim')
+    res = m.main(use_torch=True, device='cuda')
+    near(res['posterior'], 'period', 7.0, res)
+    return {'tutorial_highdim --torch': res}
+
+
+def example_run_problem():
+    m = load_script('examples/torch_port/run_problem.py',
+                    'torch_port_run_problem')
+    res = m.main(['--problem', 'eggbox', '--torch'], device='cuda')
+    assert in_gate(res['logz'], res['logzerr'], EGGBOX_LOGZ, 1.0), \
+        ('run_problem eggbox outside the gate', res['logz'])
+    return {'run_problem --problem eggbox --torch': res}
+
+
+def example_evaluate_scaling():
+    m = load_script('examples/torch_port/evaluate_scaling.py',
+                    'torch_port_evaluate_scaling')
+    rows = m.main(['--methods', 'popslice'], device='cuda')
+    for row in rows:
+        assert in_gate(row['logz'], row['logzerr'], 0.0, 1.5), \
+            ('evaluate_scaling gauss outside the gate', row)
+    return {'evaluate_scaling popslice d %d' % r['ndim']: r for r in rows}
+
+
+def example_tutorial_linefit():
+    m = load_script('examples/torch_port/tutorial_linefit.py',
+                    'torch_port_tutorial_linefit')
+    r_const, r_line = m.main(device='cuda')
+    assert r_line['logz'] - r_const['logz'] > 5, 'the line is not preferred'
+    for name, truth in (('slope', m.slope_true), ('offset', m.offset_true),
+                        ('sigma', m.sigma_true)):
+        near(r_line['posterior'], name, truth, r_line)
+    return {'linefit const': r_const, 'linefit line': r_line}
+
+
+def example_tutorial_outliers():
+    m = load_script('examples/torch_port/tutorial_outliers.py',
+                    'torch_port_tutorial_outliers')
+    results = m.main(device='cuda')
+    best = max(results, key=lambda k: results[k]['logz'])
+    assert best != 'gaussian', 'the plain gaussian won against the outliers'
+    return {'outliers ' + k: v for k, v in results.items()}
+
+
+def example_tutorial_intrinsic_distribution():
+    m = load_script('examples/torch_port/tutorial_intrinsic_distribution.py',
+                    'torch_port_tutorial_intrinsic_distribution')
+    res = m.main(device='cuda')
+    near(res['posterior'], 'mean', m.mean_true, res)
+    near(res['posterior'], 'spread', m.spread_true, res)
+    return {'intrinsic_distribution': res}
+
+
+def example_tutorial_warmstart():
+    import os
+    import tempfile
+    m = load_script('examples/torch_port/tutorial_warmstart.py',
+                    'torch_port_tutorial_warmstart')
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            cold, warm, cold2 = m.main(storage_backend='csv', device='cuda')
+        finally:
+            os.chdir(cwd)
+    dz = abs(warm['logz'] - cold2['logz'])
+    assert dz < 3 * (warm['logzerr'] + cold2['logzerr']), \
+        ('warm and cold logZ disagree', dz)
+    return {'warmstart cold': cold, 'warmstart warm': warm,
+            'warmstart cold rerun': cold2}
+
+
+def example_tutorial_sine_modelcomparison():
+    m = load_script('examples/torch_port/tutorial_sine_modelcomparison.py',
+                    'torch_port_tutorial_sine_modelcomparison')
+    out = m.main(quick=True, device='cuda')
+    assert np.isfinite(out['K_simulated']).all()
+    return {'sine_modelcomparison sine': out['result1'],
+            'sine_modelcomparison null': out['result0']}
+
+
+def example_tutorial_sine_bayesian_workflow():
+    m = load_script(
+        'examples/torch_port/tutorial_sine_bayesian_workflow.py',
+        'torch_port_tutorial_sine_bayesian_workflow')
+    out = m.main(quick=True, device='cuda')
+    runs = {'bayesian_workflow fit': out['result']}
+    for nsteps, res in zip(out['calib'].nsteps, out['calib'].results):
+        runs['bayesian_workflow calibrator nsteps %d' % nsteps] = res
+    return runs
+
+
+# (name, function, what it runs at): the host tutorials that take over a
+# minute at their defaults on the card's host run --quick here
+EXAMPLES = (
+    ('tutorial_highdim', example_tutorial_highdim, 'defaults, --torch'),
+    ('run_problem', example_run_problem, 'defaults, --problem eggbox --torch'),
+    ('evaluate_scaling', example_evaluate_scaling,
+     'defaults, --methods popslice'),
+    ('tutorial_linefit', example_tutorial_linefit, 'defaults'),
+    ('tutorial_outliers', example_tutorial_outliers, 'defaults'),
+    ('tutorial_intrinsic_distribution',
+     example_tutorial_intrinsic_distribution, 'defaults'),
+    ('tutorial_warmstart', example_tutorial_warmstart,
+     'defaults, --storage-backend csv'),
+    ('tutorial_sine_modelcomparison', example_tutorial_sine_modelcomparison,
+     '--quick'),
+    ('tutorial_sine_bayesian_workflow',
+     example_tutorial_sine_bayesian_workflow, '--quick'),
+)
+
+
+def run_example(name, fn, how):
+    """One ported example through its ``main`` on the card, every kernel
+    count set to 0 just before it and read just after; prints its wall,
+    each run's ncall, logZ and niter, and the launches. Its gate is
+    checked in *fn*. Returns {'wall_s', 'runs', 'launches'}."""
+    import torch
+    from ultranest_torch.ops import kernels
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    runs = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = dict(kernels.LAUNCHES)
+    print('example %s (%s): wall %.3f s, kernel launches %s' % (
+        name, how, wall, json.dumps(launched)))
+    for label, res in runs.items():
+        logz, logzerr, ncall, niter = summary(res)
+        print('  %s: logZ %.4f +- %.4f, ncall %s, niter %s' % (
+            label, logz, logzerr, ncall, niter))
+    return dict(wall_s=wall, runs={k: summary(v) for k, v in runs.items()},
+                launches=launched)
+
+
+# tests/test_fuzz.py:13-30: the seeds and caps of the JAX package's
+# fuzzer replay
+FUZZ_SEEDS = range(25, 37)
+
+
+def fuzz_runargs(seed, generate_runargs, log_dir):
+    """The fuzzer's configuration for *seed*, capped as
+    ``tests/test_fuzz.py:13-30`` caps it."""
+    import random
+    random.seed(seed)
+
+    def choose(myargs):
+        if random.random() < 0.25:
+            return myargs[0]
+        return random.choice(myargs)
+
+    runargs = generate_runargs(choose)
+    runargs['num_live_points'] = min(runargs['num_live_points'], 100)
+    runargs['max_ncalls'] = min(runargs['max_ncalls'], 30000.0)
+    runargs['x_dim'] = min(runargs['x_dim'], 6)
+    runargs['min_ess'] = 0
+    runargs['dlogz'] = max(runargs['dlogz'], 1.0)
+    runargs['frac_remain'] = max(runargs['frac_remain'], 0.05)
+    if runargs['log_dir'] is not None:
+        runargs['log_dir'] = log_dir
+    return runargs
+
+
+def run_fuzz_seed(seed, tmp):
+    """One fuzzer configuration on the card (run directories as csv: no
+    h5py there); the fuzzer's own 3-sigma check runs inside its main."""
+    import os
+
+    import torch
+    from ultranest_torch.ops import kernels
+    m = load_script('examples/torch_port/testfeatures.py',
+                    'torch_port_testfeatures')
+    runargs = fuzz_runargs(seed, m.generate_runargs,
+                           os.path.join(tmp, 'logs'))
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    res = m.main(m.AttrDict(runargs), device='cuda', storage_backend='csv')
+    torch.cuda.synchronize()
+    out = dict(seed=seed, wall_s=time.perf_counter() - t0,
+               launches=dict(kernels.LAUNCHES),
+               config={k: runargs[k] for k in (
+                   'problem', 'x_dim', 'stepsampler', 'engine', 'use_jax',
+                   'segment', 'pass_transform', 'log_dir', 'resume')})
+    out['ran'] = res is not None
+    if res is not None:
+        out.update(logz=float(res['logz']), logzerr=float(res['logzerr']),
+                   ncall=int(res['ncall']), niter=int(res['niter']))
+    print('fuzz seed %d %s: %s, wall %.3f s, kernel launches %s' % (
+        seed, json.dumps(out['config']),
+        'logZ %.4f +- %.4f, ncall %d, niter %d' % (
+            out['logz'], out['logzerr'], out['ncall'], out['niter'])
+        if res is not None else 'skipped by the fuzzer itself',
+        out['wall_s'], json.dumps(out['launches'])))
+    return out
+
+
+def build_language_libraries():
+    """Build ``languages/c/mylib.so`` and ``languages/c++/mycpplib.so``
+    with gcc and g++ (the Makefiles' flags) beside their sources, where
+    the runners load them (``languages/*/*.so`` is gitignored), and
+    ``languages/fortran/myfortlib.so`` if gfortran exists. Returns
+    {language: path}."""
+    import os
+    import shutil
+    here = os.path.dirname(os.path.abspath(__file__))
+    libs = {}
+    for lang, compiler, src, so, extra in (
+            ('c', 'gcc', 'mylib.c', 'mylib.so', ['-lm']),
+            ('c++', 'g++', 'mycpplib.cpp', 'mycpplib.so', []),
+            ('fortran', 'gfortran', 'myfortlib.f90', 'myfortlib.so', [])):
+        if lang == 'fortran' and shutil.which('gfortran') is None:
+            continue
+        d = os.path.join(here, 'languages', lang)
+        out = os.path.join(d, so)
+        subprocess.run([compiler, '-O3', '-march=native', '-fPIC', '-shared',
+                        '-o', out, os.path.join(d, src)] + extra,
+                       check=True, capture_output=True, text=True,
+                       timeout=120)
+        libs[lang] = out
+    return libs
+
+
+# the runners' problems: runc's 3-d gaussian (sigma 0.1) inside the prior
+# cube (-1, 1)^3, logZ = -log 8; runcpp's gaussian shell (r 0.4, width
+# 0.02) in the unit cube, logZ = log(4 pi (r^2 + w^2)); runfort's
+# normalised 3-d gaussian at 0.5 (sigma 0.1), logZ = 0
+LANGUAGE_RUNS = (
+    ('c', 'languages/c/runc_torch.py', -np.log(8.0)),
+    ('c++', 'languages/c++/runcpp_torch.py',
+     np.log(4 * np.pi * (0.4 ** 2 + 0.02 ** 2))),
+    ('fortran', 'languages/fortran/runfort_torch.py', 0.0),
+)
+
+
+def run_language(lang, script):
+    """One language runner's ``main`` on the card with its library
+    beside it, kernel counts set to 0 just before and read just after."""
+    import torch
+    from ultranest_torch.ops import kernels
+    m = load_script(script, 'torch_%s_runner' % lang.replace('+', 'p'))
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    res = m.main(device='cuda', show_status=False)
+    torch.cuda.synchronize()
+    return res, time.perf_counter() - t0, dict(kernels.LAUNCHES)
+
+
+def run_audit_seeds(seeds=(1, 2, 3)):
+    """``bias_audit.run_one`` on shell8 for *seeds* on the card, each
+    |z| < 4; kernel counts set to 0 just before and read just after."""
+    import torch
+    from ultranest_torch.evaluate import bias_audit
+    from ultranest_torch.ops import kernels
+    kernels.reset_counts()
+    rows = [bias_audit.run_one(bias_audit.PROBLEMS['shell8'], seed,
+                               device='cuda') for seed in seeds]
+    torch.cuda.synchronize()
+    launched = dict(kernels.LAUNCHES)
+    for row in rows:
+        z = (row['logz'] - row['truth']) / row['logzerr']
+        print('bias_audit.run_one shell8 seed %d: logZ %.4f +- %.4f (truth '
+              '%.4f, z %.3f), ncall %d, wall %.2f s' % (
+                  row['seed'], row['logz'], row['logzerr'], row['truth'], z,
+                  row['ncall'], row['wall_s']))
+        assert abs(z) < 4, ('shell8 audit seed outside |z| < 4', row)
+    print('bias_audit shell8 seeds %s kernel launches %s' % (
+        list(seeds), json.dumps(launched)))
+    return dict(rows=rows, launches=launched)
+
+
+def run_profile(problem):
+    """``profile_run`` on *problem* on the card (a warm-up run, then a
+    profiled one); prints the phase split and, for the spec walk, the
+    host ms per round of each of the round body's callees. Kernel counts
+    set to 0 just before and read just after (both runs)."""
+    import contextlib
+    import io
+
+    from ultranest_torch.evaluate import profile_run
+    from ultranest_torch.ops import kernels
+    kernels.reset_counts()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = profile_run.main(['--problem', problem, '--top', '15'],
+                               device='cuda')
+    launched = dict(kernels.LAUNCHES)
+    warm, row = out['warm'], out['profiled']
+    gate = (EGGBOX_LOGZ, 1.0) if problem == 'eggbox' else (0.0, 1.5)
+    for r in (warm, row):
+        assert in_gate(r['logz'], r['logzerr'], *gate), \
+            ('profile_run %s outside the gate' % problem, r)
+    print('profile_run %s: warm-up wall %.3f s, profiled wall %.3f s, ncall '
+          '%d, logZ %.4f +- %.4f, kernel launches %s' % (
+              problem, warm['wall_s'], row['wall_s'], row['ncall'],
+              row['logz'], row['logzerr'], json.dumps(launched)))
+    print('profile_run %s phases (s), warm-up: %s; profiled: %s' % (
+        problem, json.dumps(warm['phases_s']), json.dumps(row['phases_s'])))
+    if out['round_split_ms']:
+        print('profile_run %s host ms per spec-walk round (%d rounds, '
+              'profiled; total %.4f): %s' % (
+                  problem, row['rounds'], out['round_split_total_ms'],
+                  json.dumps({k: round(v, 4) for k, v in list(
+                      out['round_split_ms'].items())[:15]})))
+    tottime = buf.getvalue().split('==== sorted by tottime ====')[-1]
+    print('profile_run %s top tottime entries:' % problem)
+    for line in tottime.strip().splitlines()[:24]:
+        print('  ' + line)
+    return dict(out, launches=launched)
+
+
 def print_ranking(real):
     """Prints each kernel's launches x (device ms - bound ms) summed over
     the sampler paths of this run, largest first, every term from the
@@ -2068,6 +2442,53 @@ def main(argv=()):
                 launches[k] += m['launches'].get(k, 0)
     print('mesh phase: %d ranks on one card, identical logZ, ncall and niter '
           'on every rank, %.1f s' % (len(ranks), mesh_wall))
+
+    # the files outside the package, each through its own entry point:
+    # the examples, the fuzzer, the language runners and the evaluation
+    # tools (every path booked as the ones above)
+    import os
+    import shutil
+    t_phase = time.time()
+    for name, fn, how in EXAMPLES:
+        path('example_' + name, run_example, name, fn, how)
+    print('examples phase: %.1f s' % (time.time() - t_phase))
+    t_phase = time.time()
+    with tempfile.TemporaryDirectory() as tmp:
+        fuzz = [path('fuzz_%d' % seed, run_fuzz_seed, seed,
+                     os.path.join(tmp, str(seed))) for seed in FUZZ_SEEDS]
+    print('fuzz phase: seeds %d-%d, %d configurations ran, %d skipped by the '
+          'fuzzer itself, every check passed, %.1f s' % (
+              FUZZ_SEEDS[0], FUZZ_SEEDS[-1], sum(f['ran'] for f in fuzz),
+              sum(not f['ran'] for f in fuzz), time.time() - t_phase))
+    t_phase = time.time()
+    libs = build_language_libraries()
+    print('languages: built %s in %.2f s' % (
+        ', '.join('%s %s' % kv for kv in sorted(libs.items())),
+        time.time() - t_phase))
+    if 'fortran' not in libs:
+        print('fortran: not run (no gfortran)')
+    assert shutil.which('gcc') and shutil.which('g++')
+
+    def language(lang, script, truth):
+        res, wall, launched = run_language(lang, script)
+        print('language %s (%s): logZ %.4f +- %.4f (analytic %.4f), ncall %d, '
+              'niter %d, wall %.3f s, kernel launches %s' % (
+                  lang, script.rsplit('/', 1)[-1], res['logz'],
+                  res['logzerr'], truth, res['ncall'], res['niter'], wall,
+                  json.dumps(launched)))
+        assert in_gate(res['logz'], res['logzerr'], truth, 1.0), \
+            ('%s runner outside the gate' % lang, res['logz'])
+        return dict(launches=launched)
+
+    for lang, script, truth in LANGUAGE_RUNS:
+        if lang in libs:
+            path('language_' + lang, language, lang, script, truth)
+    print('languages phase: %.1f s' % (time.time() - t_phase))
+    t_phase = time.time()
+    path('bias_audit_shell8', run_audit_seeds)
+    for problem in ('asymgauss50', 'eggbox'):
+        path('profile_run_' + problem, run_profile, problem)
+    print('evaluate phase: %.1f s' % (time.time() - t_phase))
 
     checks = {'consume_scan': check_scan_traffic,
               'radius_member': check_member_traffic,

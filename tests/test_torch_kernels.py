@@ -26,6 +26,7 @@ The CUDA kernels themselves are held against these plain versions on a
 card by tests/test_torch_cuda.py.
 """
 import ast
+import glob
 import os
 import re
 
@@ -592,10 +593,19 @@ def test_native_sources_equal_the_reference(name):
 
 
 def _port_modules():
+    """The port's Python files: the package, chip_smoke.py, the ported
+    examples and the language runners."""
     out = [os.path.join(_REPO, 'chip_smoke.py')]
     for root, _, files in os.walk(os.path.join(_REPO, 'ultranest_torch')):
         out += [os.path.join(root, f) for f in files if f.endswith('.py')]
+    out += glob.glob(os.path.join(_REPO, 'examples', 'torch_port', '*.py'))
+    out += glob.glob(os.path.join(_REPO, 'languages', '*', '*_torch.py'))
     return sorted(out)
+
+
+# the runners in other languages load a Python package by name
+_FOREIGN_RUNNERS = ('languages/julia/runjl_torch.jl',
+                    'languages/r/runr_torch.r')
 
 
 def test_port_names_no_path_of_the_reference_package():
@@ -606,6 +616,13 @@ def test_port_names_no_path_of_the_reference_package():
     citation = re.compile(r'^[\w/.]+\.py:\d+(-\d+)?$')
     modules = _port_modules()
     assert len(modules) > 20
+    assert os.path.join(_REPO, 'examples', 'torch_port',
+                        'testfeatures.py') in modules
+    for name in _FOREIGN_RUNNERS:
+        with open(os.path.join(_REPO, name)) as f:
+            text = f.read()
+        assert 'import("ultranest_torch")' in text, name
+        assert 'ultranest_tpu")' not in text, name
     for path in modules:
         with open(path) as f:
             tree = ast.parse(f.read())

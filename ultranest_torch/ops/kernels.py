@@ -379,7 +379,7 @@ def bootstrap_radius_plain(tpoints, valid, masks):
     valid = valid != 0
     for b in range(masks.shape[0]):
         sel = masks[b] != 0
-        mind = torch.where(sel[:, None], d2, big).min(dim=0).values
+        mind = torch.where(sel[:, None], d2, big).amin(dim=0)
         outside = valid & ~sel
         best = torch.maximum(best, torch.where(outside, mind, -big).max())
     return best

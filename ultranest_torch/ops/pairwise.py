@@ -109,7 +109,7 @@ def compute_maxradiussq(apts, bpts, *, device):
     if _small(na, nb, apts.shape[1]):
         return float(_np_sqdist(apts, bpts).min(axis=0).max())
     d2 = pairwise_sqdist(_torch(apts, device), _torch(bpts, device))
-    return float(d2.min(dim=0).values.max())
+    return float(d2.amin(dim=0).max())
 
 
 def _nearby_host(apts, bpts, radiussq, count, device):
