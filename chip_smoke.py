@@ -5,17 +5,20 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
 
 1. checks for a CUDA device (exit 1 without one) and prints the card's
    name and power limit as ``nvidia-smi`` reports them;
-2. builds the four CUDA kernels with nvcc (one compiler per source, all
+2. builds the six CUDA kernels with nvcc (one compiler per source, all
    started together) and prints the build time;
 3. holds each kernel against its plain torch version on the card, at
    the shapes its paths give it (K1 also at d 40, its path for d > 32,
    and with 32768 live rows, in tiles; K2, bit for bit, also with 50
    rounds, two words of bits; K3 also with every row accepted, at
    npad 1024 to 32768, with no rows, and with signed zeros, NaN and
-   infinities, bit for bit), times both with CUDA events (the kernel
-   also on the device alone, its calls queued behind a spin kernel), and
-   prints each shape's bound: the larger of its float32 operations at
-   67 TFLOP/s and its bytes at 3.35 TB/s;
+   infinities, bit for bit; K4 and K5, the two halves of a spec-walk
+   round, bit for bit at every spec problem's shape and at D 1, with
+   walkers done, at their last step, on a face and with zero axes),
+   times both with CUDA events (the kernel also on the device alone,
+   its calls queued behind a spin kernel), and prints each shape's
+   bound: the larger of its float32 operations at 67 TFLOP/s and its
+   bytes at 3.35 TB/s;
 4. drives the paths, each with every kernel count set to 0 just before
    it and read just after it:
 
@@ -96,7 +99,16 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
 
    and checks that each path's kernels were launched in its run (K3 on
    every segment path; the classic run consumes on the host and
-   launches K2 in its region rebuilds);
+   launches K2 in its region rebuilds), and that every spec walk ran as
+   CUDA graphs (``SpecGraphs``): K4 and K5 launched, ``graph`` True on
+   every dispatch of the five spec problems, the async engine, the
+   mesh's asymgauss50 on both ranks, ``tutorial_highdim``, the shell8
+   audit seeds, ``profile_run`` asymgauss50 and the calibrator ladder,
+   and no dispatch of any path run from the host loop; one dispatch
+   each of asymgauss50 and gauss100 is kept and run again from the host
+   loop (every K4 and K5 call held bit for bit against the plain
+   versions) and as graphs (uf, Lf, done, nc, nuseful and width the host
+   loop's bits);
 5. replays every path's K1, K2 and K3 calls, kept during its run: each
    kernel on real traffic, held against the plain version (K1 and K2 on
    every call, K2 bit for bit) and timed per call beside the bound of
@@ -128,7 +140,18 @@ KERNEL_NOTES = {
                          'ultranest_tpu/ops/pallas_kernels.py:203'),
     'consume_scan': ('ultranest_torch/csrc/consume_scan.cu',
                      'ultranest_tpu/segmentops.py:78'),
+    # the two halves of the spec walk's lax.while_loop body (an XLA loop
+    # of the JAX package, ported by hand as K3 was)
+    'spec_propose': ('ultranest_torch/csrc/spec_propose.cu',
+                     'ultranest_tpu/popfused.py:575'),
+    'spec_update': ('ultranest_torch/csrc/spec_update.cu',
+                    'ultranest_tpu/popfused.py:587'),
 }
+# the paths beside the spec problems, the async engine and the mesh's
+# asymgauss50 whose spec walks must run (as CUDA graphs, K4 and K5
+# launched)
+SPEC_PATHS = ('example_tutorial_highdim', 'bias_audit_shell8',
+              'profile_run_asymgauss50', 'calibrator')
 EGGBOX_LOGZ = 235.856
 # the card's published peaks (H100 SXM, at a 700 W power limit): float32
 # outside the tensor cores, and HBM3 bytes per second
@@ -434,6 +457,297 @@ def check_consume_scan(kernels, rng, npad, P, kind='mixed'):
               int((wrec[:, 4] >= 2).sum()), int((wrec[:, 4] % 2).sum()), ms,
               dev, plain, bms, by))
     return 0.0, ms, plain, bms, by, dev
+
+
+# --- K4 and K5: the round of the spec walk ---------------------------------
+
+# K4/K5 shapes (P, D, d): asymgauss50, gauss100, loggamma30,
+# rosenbrock8 and multishell8, tutorial_highdim, and the async engine
+# (the spec walk at D 1, popsize 128, d 8)
+SPEC_SHAPES = ((4096, 8, 50), (2048, 8, 100), (256, 8, 30), (128, 8, 8),
+               (256, 8, 10), (128, 1, 8))
+SPEC_NSTEPS = 100
+
+
+def values_equal(a, b):
+    """Bit equality of two tensors of any dtype (float32 as int32, so
+    that -0.0 and +0.0 differ)."""
+    import torch
+    if a.dtype == torch.float32:
+        return torch.equal(a.view(torch.int32), b.view(torch.int32))
+    return torch.equal(a, b)
+
+
+def spec_round_inputs(rng, P, D, d, nsteps=SPEC_NSTEPS):
+    """A spec-walk state mid-dispatch on the card, with walkers done,
+    walkers at their last step, points on a face and zero axes in the
+    directions; the bank, its row's likelihoods, the filter's rows and
+    the threshold (a quarter of the walkers' candidates above it)."""
+    import torch
+    from ultranest_torch import popfused
+    from ultranest_torch.ops import kernels
+    f32 = np.float32
+    st = popfused._spec_state(P, d, 'cuda')
+    u = rng.uniform(0.05, 0.95, size=(P, d)).astype(f32)
+    u[::7, 0] = 0.0
+    v = (rng.normal(size=(P, d)) * 0.1).astype(f32)
+    v[::5, 0] = 0.0
+    st['u'].copy_(torch.as_tensor(u))
+    st['v'].copy_(torch.as_tensor(v))
+    tl, tr = kernels.cube_intersection(st['u'], st['v'])
+    st['tl'].copy_(tl)
+    st['tr'].copy_(tr)
+    st['L'].copy_(torch.as_tensor(rng.normal(size=P).astype(f32)))
+    step = rng.randint(0, nsteps, size=P)
+    step[::9] = nsteps - 1
+    st['step'].copy_(torch.as_tensor(step))
+    st['done'].copy_(torch.as_tensor(rng.uniform(size=P) < 0.2))
+    st['it'].fill_(3)
+    xibank = torch.as_tensor(rng.uniform(size=(8, P, D)).astype(f32),
+                             device='cuda')
+    dirbank = (rng.normal(size=(nsteps, P, d)) * 0.1).astype(f32)
+    dirbank[:, ::3, 0] = 0.0
+    dirbank = torch.as_tensor(dirbank, device='cuda')
+    Lp = torch.as_tensor(rng.normal(size=P * D).astype(f32), device='cuda')
+    tin = torch.as_tensor(rng.uniform(size=P * D) < 0.9, device='cuda')
+    Lmin = torch.tensor(float(np.quantile(Lp.cpu().numpy(), 0.75)),
+                        dtype=torch.float32, device='cuda')
+    return st, xibank, dirbank, Lp, tin, Lmin
+
+
+def propose_bound(P, D, d):
+    """Bound of K4: it reads u, v, the bracket and the round's row and
+    writes the chain, the shrunk bracket and the rows; 3 operations a
+    candidate and 2 a row's coordinate."""
+    ops = 3 * P * D + 2 * P * D * d
+    return bound(ops, 4 * (2 * P * d + 2 * P + P * D) + 8
+                 + 4 * (P * D + 2 * P + P * D * d))
+
+
+def update_bound(P, D, d, tin, before, after):
+    """Bound of K5 on these inputs: every walker's likelihoods (and the
+    filter's rows) and flag; an accepted walker's chain value, bracket,
+    step, point and direction read and its point, likelihood and step
+    written, a renewed one's direction row read and its direction and
+    bracket written, a rejecting one's shrunk bracket copied; 2
+    operations an accepted coordinate, 6 a renewed one."""
+    acc = int((after['nw'] - before['nw']).item())
+    renew = int(((after['step'] > before['step']) & ~after['done']).sum())
+    rej = int(((after['step'] == before['step']) & ~before['done']).sum())
+    nbytes = (4 * P * D + (P * D if tin is not None else 0) + 2 * P + 4
+              + 4 * P + 32
+              + acc * (4 + 8 + 8 + 8 * d + 4 * d + 4 + 8)
+              + renew * (8 * d + 8) + rej * 16)
+    return bound(2 * acc * d + 6 * renew * d, nbytes)
+
+
+def check_spec_kernels(kernels, rng, P, D, d):
+    """K4 and K5 against their plain versions, bit for bit, at one shape,
+    with and without the filter's rows. Returns the two kernels'
+    (0.0, kernel ms, plain ms, bound ms, what bounds it, device ms)."""
+    from ultranest_torch.evaluate.bench_membership import cuda_ms
+    st, xibank, dirbank, Lp, tin, Lmin = spec_round_inputs(rng, P, D, d)
+    prop = (st['u'], st['v'], st['tl'], st['tr'], xibank, st['it'])
+    got = kernels.spec_propose(*prop)
+    want = kernels.spec_propose_plain(*prop)
+    assert all(values_equal(a, b) for a, b in zip(got, want)), \
+        ('spec_propose disagrees', P, D, d)
+    ts, tlc, trc, _ = want
+    for t in (tin, None):
+        mine = {k: x.clone() for k, x in st.items()}
+        plain = {k: x.clone() for k, x in st.items()}
+        kernels.spec_update(Lp, t, ts, tlc, trc, Lmin, dirbank, mine)
+        kernels.spec_update_plain(Lp, t, ts, tlc, trc, Lmin, dirbank, plain)
+        bad = [k for k in kernels.SPEC_STATE
+               if not values_equal(mine[k], plain[k])]
+        assert not bad, ('spec_update disagrees', P, D, d, t is None, bad)
+    p_ms = cuda_ms(lambda: kernels.spec_propose(*prop), 50)
+    p_dev = queued_ms([lambda: kernels.spec_propose(*prop)] * 50)
+    p_plain = cuda_ms(lambda: kernels.spec_propose_plain(*prop), 5)
+    p_bms, p_by = propose_bound(P, D, d)
+    u_bms, u_by = update_bound(P, D, d, tin, st, mine)
+    # timed on copies: the update moves the walkers on
+    scratch = {k: x.clone() for k, x in st.items()}
+    upd = (Lp, tin, ts, tlc, trc, Lmin, dirbank, scratch)
+    u_ms = cuda_ms(lambda: kernels.spec_update(*upd), 50)
+    u_dev = queued_ms([lambda: kernels.spec_update(*upd)] * 50)
+    u_plain = cuda_ms(lambda: kernels.spec_update_plain(*upd), 5)
+    print('K4 spec_propose P=%d D=%d d=%d: bit-equal to plain, kernel %.4f '
+          'ms, device %.4f ms, plain %.4f ms, bound %.6f ms (%s)' % (
+              P, D, d, p_ms, p_dev, p_plain, p_bms, p_by))
+    print('K5 spec_update P=%d D=%d d=%d: bit-equal to plain (with and '
+          'without the filter), %d accepted, kernel %.4f ms, device %.4f '
+          'ms, plain %.4f ms, bound %.6f ms (%s)' % (
+              P, D, d, int((mine['nw'] - st['nw']).item()), u_ms, u_dev,
+              u_plain, u_bms, u_by))
+    return ((0.0, p_ms, p_plain, p_bms, p_by, p_dev),
+            (0.0, u_ms, u_plain, u_bms, u_by, u_dev))
+
+
+class SpecWalks:
+    """Keeps the ``stats`` of every ``popfused.spec_walk`` call made
+    inside the block (the spec and async walks of every sampler)."""
+
+    def __enter__(self):
+        from ultranest_torch import popfused
+        self.mod, self.orig, self.walks = popfused, popfused.spec_walk, []
+
+        def record(*args, **kw):
+            if kw.get('stats') is None:
+                kw['stats'] = {}
+            out = self.orig(*args, **kw)
+            self.walks.append(kw['stats'])
+            return out
+        popfused.spec_walk = record
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.spec_walk = self.orig
+
+    def summary(self):
+        """Walks, those run as graphs and from the host loop, rounds,
+        replays, captures and capture seconds."""
+        w = [s for s in self.walks if 'graph' in s]
+        return dict(walks=len(w), graph=sum(bool(s['graph']) for s in w),
+                    host_loop=sum(not s['graph'] for s in w),
+                    rounds=sum(s['rounds'] for s in w),
+                    replays=sum(s['replays'] for s in w),
+                    captures=sum(s['captures'] for s in w),
+                    capture_s=sum(s['capture_s'] for s in w))
+
+
+def check_spec_path(name, walks, launched, required):
+    """A path's spec walks all ran as CUDA graphs; a *required* spec path
+    ran some, and launched K4 and K5."""
+    assert walks['host_loop'] == 0, \
+        ('a spec walk fell back to the host loop', name, walks)
+    if required:
+        assert walks['graph'] > 0, ('no spec walk ran as graphs', name)
+        for k in ('spec_propose', 'spec_update'):
+            assert launched.get(k, 0) >= walks['rounds'] > 0, \
+                ('%s not launched on the spec path' % k, name, launched)
+    if walks['walks']:
+        print('%s spec walks: %d dispatches as CUDA graphs, %d rounds, %d '
+              'replays, %d captures in %.3f s' % (
+                  name, walks['graph'], walks['rounds'], walks['replays'],
+                  walks['captures'], walks['capture_s']))
+
+
+class DispatchKeeper:
+    """Keeps the inputs of the *index*-th walk of a spec sampler made
+    inside the block (``FusedPopulationSliceSampler._walk``)."""
+
+    def __init__(self, index):
+        self.index, self.count, self.kept = index, 0, None
+
+    def __enter__(self):
+        from ultranest_torch.popfused import FusedPopulationSliceSampler
+        self.cls, self.orig = FusedPopulationSliceSampler, \
+            FusedPopulationSliceSampler._walk
+        keeper = self
+
+        def keep(sampler, banks, live_u, live_L, nlive, axes, Lmin, scale,
+                 treg):
+            if keeper.count == keeper.index:
+                def c(x):
+                    return x.clone() if hasattr(x, 'clone') else x
+                keeper.kept = dict(
+                    sampler=sampler, banks={k: c(x) for k, x in banks.items()},
+                    live_u=c(live_u), live_L=c(live_L), nlive=nlive,
+                    axes=c(axes), Lmin=c(Lmin), scale=scale, treg=c(treg),
+                    nsteps=sampler.nsteps, treg_key=sampler._treg_key)
+            keeper.count += 1
+            return keeper.orig(sampler, banks, live_u, live_L, nlive, axes,
+                               Lmin, scale, treg)
+        FusedPopulationSliceSampler._walk = keep
+        return self
+
+    def __exit__(self, *exc):
+        self.cls._walk = self.orig
+
+
+def check_walk_traffic(kernels, name, kept):
+    """One real dispatch, kept by :class:`DispatchKeeper`: run from the
+    host loop with K4 and K5, each call held against the plain versions
+    bit for bit; then as CUDA graphs (a first run captures, a second
+    replays), whose uf, Lf, done, nc, nuseful and width must be the host
+    loop's bits. Prints rounds and wall per round of both."""
+    import torch
+    from ultranest_torch import popfused
+    from ultranest_torch.fused import _f32
+    s = kept['sampler']
+    saved, s._treg_key = s._treg_key, kept['treg_key']
+    ev = s._treg_eval()
+    s._treg_key = saved
+    banks, treg = kept['banks'], kept['treg']
+    P = banks['xibank'].shape[1]
+    args = (banks, kept['live_u'], kept['live_L'], kept['nlive'],
+            kept['axes'], kept['Lmin'], _f32(kept['scale']))
+    calls = dict(spec_propose=0, spec_update=0)
+    orig_p, orig_u = kernels.spec_propose, kernels.spec_update
+
+    def propose(*a):
+        got = orig_p(*a)
+        want = kernels.spec_propose_plain(*a)
+        assert all(values_equal(x, y) for x, y in zip(got, want)), \
+            ('spec_propose disagrees on real traffic', name,
+             calls['spec_propose'])
+        calls['spec_propose'] += 1
+        return got
+
+    def update(Lp, tin, ts, tlc, trc, Lmin, dirbank, st):
+        plain = {k: x.clone() for k, x in st.items()}
+        orig_u(Lp, tin, ts, tlc, trc, Lmin, dirbank, st)
+        kernels.spec_update_plain(Lp, tin, ts, tlc, trc, Lmin, dirbank,
+                                  plain)
+        bad = [k for k in kernels.SPEC_STATE
+               if not values_equal(st[k], plain[k])]
+        assert not bad, ('spec_update disagrees on real traffic', name,
+                         calls['spec_update'], bad)
+        calls['spec_update'] += 1
+
+    kernels.spec_propose, kernels.spec_update = propose, update
+    host = {}
+    try:
+        want = popfused.spec_walk(*args, lambda r: ev(r, treg),
+                                  kept['nsteps'], target_done=P, stats=host)
+        torch.cuda.synchronize()
+    finally:
+        kernels.spec_propose, kernels.spec_update = orig_p, orig_u
+    assert calls['spec_propose'] == calls['spec_update'] == host['rounds']
+    t0 = time.perf_counter()
+    popfused.spec_walk(*args, lambda r: ev(r, treg), kept['nsteps'],
+                       target_done=P)
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
+    graphs = popfused.SpecGraphs(name)
+    treg_s = graphs.static('treg', treg)
+    runs = []
+    for _ in range(2):
+        st = {}
+        t0 = time.perf_counter()
+        got = popfused.spec_walk(*args, lambda r: ev(r, treg_s),
+                                 kept['nsteps'], target_done=P, stats=st,
+                                 graphs=graphs)
+        torch.cuda.synchronize()
+        runs.append((time.perf_counter() - t0, st))
+        for i in (0, 1, 2, 4, 5, 6):
+            assert values_equal(got[i], want[i]), \
+                ('the graph dispatch differs from the host loop', name, i)
+        assert st['graph'] and st['rounds'] == host['rounds']
+    (cap_wall, cap), (rep_wall, rep) = runs
+    print('%s real dispatch (P %d, D %d, d %d, nsteps %d, %d rounds): every '
+          'K4 and K5 call bit-equal to plain (%d each); host loop %.4f ms a '
+          'round; as CUDA graphs uf, Lf, done, nc, nuseful and width '
+          'bit-equal to the host loop, %.4f ms a round replayed (%d '
+          'replays), first run %.3f s with %d captures in %.3f s' % (
+              name, P, banks['xibank'].shape[2], kept['live_u'].shape[1],
+              kept['nsteps'], host['rounds'], calls['spec_propose'],
+              1e3 * host_s / host['rounds'], 1e3 * rep_wall / rep['rounds'],
+              rep['replays'], cap_wall, cap['captures'], cap['capture_s']))
+    return dict(rounds=host['rounds'], host_ms_per_round=1e3 * host_s
+                / host['rounds'], graph_ms_per_round=1e3 * rep_wall
+                / rep['rounds'])
 
 
 class KernelCapture:
@@ -844,6 +1158,13 @@ def run_population_problem(name, seed=None, mesh=None):
                dispatches=len(walks), rounds=rounds,
                launch_ms_per_round=1e3 * phases.get('launch', 0.0)
                / max(rounds, 1),
+               ms_per_round=1e3 * (phases.get('launch', 0.0)
+                                   + phases.get('fetch', 0.0))
+               / max(rounds, 1),
+               graph_walks=sum(bool(w.get('graph')) for w in walks),
+               replays=sum(w.get('replays', 0) for w in walks),
+               captures=sum(w.get('captures', 0) for w in walks),
+               capture_s=sum(w.get('capture_s', 0.0) for w in walks),
                rounds_per_dispatch=[w['rounds'] for w in walks],
                reads_per_dispatch=[w['reads'] for w in walks],
                nsteps_changes=changes, spec_depth=ss.spec_depth,
@@ -887,6 +1208,11 @@ def print_population_run(run):
               run['rounds'], run['launch_ms_per_round'], run['spec_depth'],
               run['nsteps_final'], run['peak_device_mib']))
     print('%s phases (s):' % name, json.dumps(run['phases_s']))
+    print('%s spec walk: %.4f ms per round (launch + fetch over rounds), %d '
+          'of %d dispatches as CUDA graphs, %d replays, %d captures in %.3f '
+          's' % (name, run['ms_per_round'], run['graph_walks'],
+                 run['dispatches'], run['replays'], run['captures'],
+                 run['capture_s']))
     print('%s segment exits:' % name, json.dumps(run['segment_exits']))
     print('%s nsteps changes (dispatch, from, to):' % name,
           json.dumps(run['nsteps_changes']))
@@ -1772,13 +2098,15 @@ def mesh_child(rank, port, out_dir):
                                                                   mesh)
         out['radius_wall_s'] = time.perf_counter() - t0
         traffic = {}
-        with KernelCapture(kernels) as cap:
+        with KernelCapture(kernels) as cap, SpecWalks() as walks:
             out['eggbox'] = run_eggbox(mesh=mesh)
         traffic['eggbox'] = cap.calls
-        with KernelCapture(kernels) as cap:
+        out['eggbox']['spec_walks'] = walks.summary()
+        with KernelCapture(kernels) as cap, SpecWalks() as walks:
             out['asymgauss50'] = run_population_problem('asymgauss50',
                                                         mesh=mesh)
         traffic['asymgauss50'] = cap.calls
+        out['asymgauss50']['spec_walks'] = walks.summary()
         torch.save(traffic_on_host(traffic),
                    os.path.join(out_dir, 'traffic%d.pt' % rank))
         print('MESH_RANK ' + json.dumps(out), flush=True)
@@ -2272,6 +2600,11 @@ def main(argv=()):
     shapes['consume_scan'] = [check_consume_scan(kernels, rng, *shape)
                               for shape in SCAN_SHAPES]
     errs['consume_scan'] = 0.0
+    spec = [check_spec_kernels(kernels, rng, *shape) for shape in SPEC_SHAPES]
+    for i, name in enumerate(kernels.POPULATION_KERNELS):
+        shapes[name] = [res[i] for res in spec]
+        errs[name] = 0.0
+        launches[name] = 0
     torch.cuda.synchronize()
 
     rows, launches['radius_member_t'] = check_membership_shootout(kernels)
@@ -2306,16 +2639,24 @@ def main(argv=()):
         if plots is None else 'wrote ' + ', '.join(
             '%s.pdf (%d bytes)' % kv for kv in plots.items())))
 
-    launch_s, rounds = 0.0, 0
+    launch_s, rounds, spec_kept = 0.0, 0, {}
     for name in ('asymgauss50', 'rosenbrock8', 'multishell8', 'loggamma30',
                  'gauss100'):
-        with KernelCapture(kernels) as cap:
+        # a dispatch of asymgauss50 and of gauss100 is kept, to be run
+        # again from the host loop and as graphs (check_walk_traffic)
+        with KernelCapture(kernels) as cap, SpecWalks() as walks, \
+                DispatchKeeper(5) as keeper:
             run = run_population_problem(name)
         traffic[name] = cap.calls
         path_launches[name] = run['launches']
         print_population_run(run)
+        check_spec_path(name, walks.summary(), run['launches'], True)
+        if name in ('asymgauss50', 'gauss100'):
+            spec_kept[name] = keeper.kept
         launch_s += run['phases_s']['launch']
         rounds += run['rounds']
+        for k in kernels.POPULATION_KERNELS:
+            launches[k] += run['launches'][k]
         if name == 'rosenbrock8':
             print('rosenbrock8: the JAX package on a TPU gave logZ -42.915 '
                   '+- 0.483 (BENCH_r05.json), an algorithmic yardstick')
@@ -2327,13 +2668,19 @@ def main(argv=()):
           '%d rounds, %.4f ms per round (popfused.ROUND_OVERHEAD_S %.4f ms)'
           % (launch_s, rounds, 1e3 * launch_s / rounds,
              1e3 * ROUND_OVERHEAD_S))
+    for name, kept in spec_kept.items():
+        assert kept is not None, ('no dispatch kept', name)
+        check_walk_traffic(kernels, name, kept)
+    del spec_kept
 
     engines = {}
     for name in ('sync', 'async', 'sync8', 'rwalk', 'async_classic'):
-        with KernelCapture(kernels) as cap:
+        with KernelCapture(kernels) as cap, SpecWalks() as walks:
             run = engines[name] = run_engine(name)
         traffic[name] = cap.calls
         path_launches[name] = run['launches']
+        check_spec_path('engine ' + name, walks.summary(), run['launches'],
+                        name.startswith('async'))
         print('engine %s: logZ %.4f +- %.4f, wall %.3f s, ncall %d, niter '
               '%d, ncall/niter %.3f, %d dispatches, %d rounds, %d host '
               'reads, scale %.4g' % (
@@ -2390,13 +2737,17 @@ def main(argv=()):
 
     def path(name, run_fn, *args):
         """Runs one path under KernelCapture and books its traffic and
-        launches (*run_fn* returns a summary with its ``launches``)."""
-        with KernelCapture(kernels) as cap:
+        launches (*run_fn* returns a summary with its ``launches``); its
+        spec walks must run as CUDA graphs (and some must, on the paths
+        of :data:`SPEC_PATHS`)."""
+        with KernelCapture(kernels) as cap, SpecWalks() as walks:
             out = run_fn(*args)
         traffic[name] = cap.calls
         path_launches[name] = out['launches']
-        for k in kernels.REGION_KERNELS:
+        for k in kernels.REGION_KERNELS + kernels.POPULATION_KERNELS:
             launches[k] += out['launches'].get(k, 0)
+        check_spec_path(name, walks.summary(), out['launches'],
+                        name in SPEC_PATHS)
         return out
 
     for kind in ('rejection', 'population'):
@@ -2438,8 +2789,10 @@ def main(argv=()):
             name = 'mesh_%s_rank%d' % (run, r['rank'])
             traffic[name] = calls[run]
             path_launches[name] = m['launches']
-            for k in kernels.REGION_KERNELS:
+            for k in kernels.REGION_KERNELS + kernels.POPULATION_KERNELS:
                 launches[k] += m['launches'].get(k, 0)
+            check_spec_path(name, m['spec_walks'], m['launches'],
+                            run == 'asymgauss50')
     print('mesh phase: %d ranks on one card, identical logZ, ncall and niter '
           'on every rank, %.1f s' % (len(ranks), mesh_wall))
 
@@ -2505,7 +2858,7 @@ def main(argv=()):
     print_ranking(real)
     print('chip_smoke: every phase passed in %.1f s' % (time.time() - t_start))
 
-    # no single PyTorch call computes any of the four functions, so none
+    # no single PyTorch call computes any of the six functions, so none
     # has a library yardstick (library_ms null)
     print(json.dumps({'kernels': [
         dict(name=name, route='cuda', source=KERNEL_NOTES[name][0],

@@ -733,3 +733,194 @@ def test_collectives_on_a_world_one_nccl_group(cuda):
         assert torch.equal(parallel.pmean(x, mesh), x)
     finally:
         dist.destroy_process_group()
+
+
+def _spec_round_inputs(cuda, P, D, d, nsteps=6, seed=0):
+    """A spec-walk state mid-dispatch, its round's bank row and the
+    likelihoods of its candidates, with the cases K5 must get right:
+    walkers done already, walkers at their last step, rounds without a
+    hit, directions with zero axes (both signs) and points on a face."""
+    from ultranest_torch import popfused
+    rng = np.random.RandomState(seed + P + D + d)
+    f32 = np.float32
+    st = popfused._spec_state(P, d, cuda)
+    u = rng.uniform(0.05, 0.95, size=(P, d)).astype(f32)
+    u[::7, 0] = 0.0
+    u[3::7, -1] = 1.0
+    v = (rng.normal(size=(P, d)) * 0.1).astype(f32)
+    v[::5, 0] = 0.0
+    v[1::5, 0] = -0.0
+    st['u'].copy_(torch.as_tensor(u))
+    st['v'].copy_(torch.as_tensor(v))
+    tl, tr = kernels.cube_intersection(st['u'], st['v'])
+    st['tl'].copy_(tl)
+    st['tr'].copy_(tr)
+    st['L'].copy_(torch.as_tensor(rng.normal(size=P).astype(f32)))
+    st['step'].copy_(torch.as_tensor(rng.randint(0, nsteps, size=P)))
+    st['done'].copy_(torch.as_tensor(rng.uniform(size=P) < 0.2))
+    st['it'].fill_(2)
+    xibank = torch.as_tensor(rng.uniform(size=(5, P, D)).astype(f32),
+                             device=cuda)
+    dirbank = (rng.normal(size=(nsteps, P, d)) * 0.1).astype(f32)
+    dirbank[:, ::3, 1 % d] = 0.0
+    dirbank[:, 1::3, 0] = -0.0
+    dirbank = torch.as_tensor(dirbank, device=cuda)
+    Lp = torch.as_tensor(rng.normal(size=P * D).astype(f32), device=cuda)
+    tin = torch.as_tensor(rng.uniform(size=P * D) < 0.8, device=cuda)
+    Lmin = torch.tensor(0.9, dtype=torch.float32, device=cuda)
+    return st, xibank, dirbank, Lp, tin, Lmin
+
+
+def _same_bits(a, b):
+    if a.dtype == torch.float32:
+        return torch.equal(a.view(torch.int32), b.view(torch.int32))
+    return torch.equal(a, b)
+
+
+@pytest.mark.parametrize('P,D,d', [(4096, 8, 50), (2048, 8, 100),
+                                   (256, 8, 30), (128, 8, 8), (256, 8, 10),
+                                   (128, 1, 8), (100, 40, 3), (33, 3, 1)])
+@pytest.mark.parametrize('with_tin', [True, False])
+def test_spec_kernels_equal_plain(cuda, P, D, d, with_tin):
+    """K4 and K5 bit for bit against their plain versions on the card."""
+    st, xibank, dirbank, Lp, tin, Lmin = _spec_round_inputs(cuda, P, D, d)
+    tin = tin if with_tin else None
+    kernels.reset_counts()
+    got = kernels.spec_propose(st['u'], st['v'], st['tl'], st['tr'], xibank,
+                               st['it'])
+    want = kernels.spec_propose_plain(st['u'], st['v'], st['tl'], st['tr'],
+                                      xibank, st['it'])
+    for a, b in zip(got, want):
+        assert _same_bits(a, b)
+    ts, tlc, trc, _ = want
+    plain = {k: t.clone() for k, t in st.items()}
+    kernels.spec_update(Lp, tin, ts, tlc, trc, Lmin, dirbank, st)
+    kernels.spec_update_plain(Lp, tin, ts, tlc, trc, Lmin, dirbank, plain)
+    torch.cuda.synchronize()
+    for k in kernels.SPEC_STATE:
+        assert _same_bits(st[k], plain[k]), k
+    assert kernels.LAUNCHES['spec_propose'] == 1 == \
+        kernels.LAUNCHES['spec_update']
+    assert sum(kernels.PLAIN_CALLS.values()) == 0
+    assert int(st['it']) == 3 and int(st['nw']) > 0
+
+
+def _graph_walk_inputs(cuda, P=512, D=8, d=8, nsteps=12, seed=5):
+    from ultranest_torch import popfused
+    from ultranest_torch.models.problems import asymgauss
+    prob = asymgauss(d)
+    rng = np.random.RandomState(seed)
+    nlive = 200
+    u = np.clip(0.5 + 0.05 * rng.normal(size=(nlive, d)), 0.01, 0.99)
+    L = prob.loglike(u).astype(np.float32)
+    live_u = torch.as_tensor(u, dtype=torch.float32, device=cuda)
+    live_L = torch.as_tensor(L, device=cuda)
+    axes = torch.diag(live_u.std(dim=0))
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    R = popfused.spec_max_rounds(nsteps, 64, D) + 3
+    banks = popfused.draw_spec_banks(g, P, D, nsteps, R, nlive, d)
+    return prob, banks, live_u, live_L, nlive, axes, live_L.min(), nsteps
+
+
+def test_graph_walk_equals_host_loop_and_counts_replays(cuda):
+    """The rounds as CUDA graphs give the host loop's bits; each replay
+    adds its graph's launches to LAUNCHES, a capture adds none."""
+    from ultranest_torch import popfused
+    prob, banks, live_u, live_L, nlive, axes, Lmin, nsteps = \
+        _graph_walk_inputs(cuda)
+
+    def ev(rows):
+        return prob.torch_loglike(rows).to(torch.float32), None
+    args = (banks, live_u, live_L, nlive, axes, Lmin, 1.0, ev, nsteps)
+    host = {}
+    kernels.reset_counts()
+    want = popfused.spec_walk(*args, stats=host)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES['spec_propose'] == host['rounds']
+    graphs = popfused.SpecGraphs('asymgauss')
+    for n in range(2):
+        stats = {}
+        kernels.reset_counts()
+        got = popfused.spec_walk(*args, stats=stats, graphs=graphs)
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
+            assert _same_bits(a, b)
+        assert stats['graph'] and stats['rounds'] == host['rounds']
+        assert stats['reads'] == host['reads']
+        # the round cap is no multiple of SPEC_CHECK_EVERY: a chunk
+        # graph and a one-round graph
+        assert stats['captures'] == (2 if n == 0 else 0)
+        assert stats['rounds'] < banks['xibank'].shape[0]
+        # the warm-up round before a capture launches for real
+        assert kernels.LAUNCHES['spec_propose'] == \
+            kernels.LAUNCHES['spec_update'] == stats['rounds'] + (n == 0)
+        assert stats['replays'] == stats['rounds'] // \
+            popfused.SPEC_CHECK_EVERY
+    assert sum(kernels.PLAIN_CALLS.values()) == 0
+
+
+def test_graph_dispatch_syncs_only_at_its_flag_reads(cuda):
+    """A spec segment dispatch of the sampler runs as graphs; under
+    ``set_sync_debug_mode('error')`` nothing but its flag reads waits."""
+    s, region, u, L = _spec_sampler(cuda)
+    s.segment_start(u, L)
+    s.segment_launch(region)              # captures
+    torch.cuda.synchronize()
+    assert s.walk_log[-1]['graph'] and s.walk_log[-1]['captures'] == 1
+    kernels.reset_counts()
+    torch.cuda.set_sync_debug_mode('error')
+    try:
+        for _ in range(3):
+            s.segment_launch(region)
+    finally:
+        torch.cuda.set_sync_debug_mode('default')
+    walks = s.walk_log[-3:]
+    assert all(w['graph'] and w['captures'] == 0 and w['replays'] > 0
+               for w in walks)
+    rounds = sum(w['rounds'] for w in walks)
+    assert kernels.LAUNCHES['spec_propose'] == rounds == \
+        kernels.LAUNCHES['spec_update']
+    for _ in range(4):
+        assert s.segment_fetch()['done_frac'] == 1.0
+
+
+def test_uncapturable_likelihood_warns_and_runs_the_kernels(cuda):
+    """A likelihood that reads a value to the host cannot be captured:
+    one warning names it, the walk logs ``graph`` False, runs K4 and K5
+    from the host loop and gives the capturable likelihood's bits; the
+    stream and the allocator stay usable."""
+    from ultranest_torch import popfused
+    prob, banks, live_u, live_L, nlive, axes, Lmin, nsteps = \
+        _graph_walk_inputs(cuda, P=256, seed=7)
+
+    def ev(rows):
+        return prob.torch_loglike(rows).to(torch.float32), None
+
+    def reads_the_host(rows):
+        if float(rows[0, 0].item()) > 2.0:      # never: a host read
+            rows = rows * 1.0
+        return ev(rows)
+    args = (banks, live_u, live_L, nlive, axes, Lmin, 1.0)
+    want = popfused.spec_walk(*args, ev, nsteps)
+    graphs = popfused.SpecGraphs('reads_the_host')
+    stats = {}
+    kernels.reset_counts()
+    with pytest.warns(RuntimeWarning, match='reads_the_host'):
+        got = popfused.spec_walk(*args, reads_the_host, nsteps, stats=stats,
+                                 graphs=graphs)
+    torch.cuda.synchronize()
+    assert graphs.failed and not stats['graph']
+    assert kernels.LAUNCHES['spec_propose'] >= stats['rounds'] > 0
+    for a, b in zip(got, want):
+        assert _same_bits(a, b)
+    assert torch.cuda.current_stream() == torch.cuda.default_stream()
+    again = {}
+    popfused.spec_walk(*args, reads_the_host, nsteps, stats=again,
+                       graphs=graphs)
+    assert not again['graph'] and again['captures'] == 0
+    ok = {}
+    got = popfused.spec_walk(*args, ev, nsteps, stats=ok,
+                             graphs=popfused.SpecGraphs('ev'))
+    for a, b in zip(got, want):
+        assert _same_bits(a, b)
+    assert ok['graph']

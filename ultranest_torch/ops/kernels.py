@@ -3,7 +3,7 @@
 Hand-written CUDA kernels of the region-rejection path
 ------------------------------------------------------
 
-Four kernels, sources in ``ultranest_torch/csrc/``:
+Six kernels, sources in ``ultranest_torch/csrc/``:
 
 * K1 :func:`radius_member` (``csrc/radius_member.cu``) replaces the
   Pallas ``_member_kernel`` (``ultranest_tpu/ops/pallas_kernels.py``);
@@ -13,7 +13,12 @@ Four kernels, sources in ``ultranest_torch/csrc/``:
 * K2 :func:`bootstrap_radius` (``csrc/bootstrap_radius.cu``) replaces
   the Pallas ``_bootstrap_kernel`` (same file);
 * K3 :func:`consume_scan` (``csrc/consume_scan.cu``) replaces the XLA
-  scan of ``ultranest_tpu/segmentops.py:78-134``.
+  scan of ``ultranest_tpu/segmentops.py:78-134``;
+* K4 :func:`spec_propose` (``csrc/spec_propose.cu``) and K5
+  :func:`spec_update` (``csrc/spec_update.cu``) are the two halves of a
+  round of the spec walk around the user's likelihood: the body of the
+  JAX package's ``lax.while_loop`` (``ultranest_tpu/popfused.py:575-585``
+  and ``:587-640``).
 
 Each source file says what bounds its kernel on an H100 and what its
 design does about it. K1, K1t and K2 share ``csrc/member_core.cuh``: the
@@ -35,12 +40,16 @@ it checks device, dtype, shape and contiguity, launches the kernel on
 ``torch.cuda.current_stream()`` and raises if the launch reports an
 error; there is no fallback. ``LAUNCHES`` counts kernel launches, and
 nothing else; ``PLAIN_CALLS`` counts wrapper calls the plain version
-served on the CPU.
+served on the CPU. A launch made while the current stream is being
+captured into a CUDA graph runs nothing yet: it counts in ``CAPTURED``,
+and each replay of the graph adds the graph's launches to ``LAUNCHES``
+(:class:`ultranest_torch.popfused.SpecGraphs`).
 """
 
 import collections
 import ctypes
 import hashlib
+import math
 import os
 import shutil
 import subprocess
@@ -52,18 +61,23 @@ import torch
 from ..native import build_dir
 
 __all__ = ['radius_member', 'radius_member_t', 'bootstrap_radius',
-           'consume_scan', 'radius_member_plain', 'radius_member_t_plain',
-           'bootstrap_radius_plain', 'consume_scan_plain', 'build',
-           'LAUNCHES', 'PLAIN_CALLS', 'reset_counts', 'KERNELS',
-           'REGION_KERNELS', 'member_group_size', 'build_dir']
+           'consume_scan', 'spec_propose', 'spec_update',
+           'radius_member_plain', 'radius_member_t_plain',
+           'bootstrap_radius_plain', 'consume_scan_plain',
+           'spec_propose_plain', 'spec_update_plain', 'cube_intersection',
+           'SPEC_STATE', 'build', 'LAUNCHES', 'PLAIN_CALLS', 'CAPTURED',
+           'reset_counts', 'KERNELS', 'REGION_KERNELS', 'POPULATION_KERNELS',
+           'member_group_size', 'build_dir']
 
 KERNELS = ('radius_member', 'radius_member_t', 'bootstrap_radius',
-           'consume_scan')
+           'consume_scan', 'spec_propose', 'spec_update')
 # the kernels the region-rejection path launches (K1t runs only in the
 # membership shootout, ultranest_torch.evaluate.bench_membership)
 REGION_KERNELS = ('radius_member', 'bootstrap_radius', 'consume_scan')
+# the round of the spec and async walks (popfused.spec_walk)
+POPULATION_KERNELS = ('spec_propose', 'spec_update')
 SOURCES = ('radius_member.cu', 'radius_member_t.cu', 'bootstrap_radius.cu',
-           'consume_scan.cu')
+           'consume_scan.cu', 'spec_propose.cu', 'spec_update.cu')
 # headers the sources include: hashed with them, so that an edit rebuilds
 HEADERS = ('member_core.cuh', 'member_kernel.cuh')
 NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
@@ -90,6 +104,7 @@ BUILD_DIR = os.path.join(_PKG, '_build')
 
 LAUNCHES = collections.Counter()
 PLAIN_CALLS = collections.Counter()
+CAPTURED = collections.Counter()
 
 _LIB = None
 _LOCK = threading.Lock()
@@ -161,8 +176,11 @@ def _lib():
             lib.un_bootstrap_radius.argtypes = [vp, vp, vp, ci, ci, ci, vp,
                                                 vp, vp]
             lib.un_consume_scan.argtypes = [vp, ci, vp, vp, ci, vp, vp, vp]
+            lib.un_spec_propose.argtypes = [vp] * 6 + [ci] * 4 + [vp] * 5
+            lib.un_spec_update.argtypes = [vp] * 7 + [ci] * 4 + [vp] * 13
             for fn in (lib.un_radius_member, lib.un_radius_member_t,
-                       lib.un_bootstrap_radius, lib.un_consume_scan):
+                       lib.un_bootstrap_radius, lib.un_consume_scan,
+                       lib.un_spec_propose, lib.un_spec_update):
                 fn.restype = ci
             _LIB = lib
     return _LIB
@@ -194,7 +212,18 @@ def _launch(name, fn, *args):
     if rc != 0:
         raise RuntimeError('%s kernel launch failed: cudaError_t %d'
                            % (name, rc))
-    LAUNCHES[name] += 1
+    if torch.cuda.is_current_stream_capturing():
+        CAPTURED[name] += 1
+    else:
+        LAUNCHES[name] += 1
+
+
+def _check_shape(t, name, dtype, shape):
+    """Dtype, exact shape and contiguity of one kernel operand."""
+    _check(t, name, dtype, len(shape))
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError('%s must have shape %s, got %s'
+                         % (name, tuple(shape), tuple(t.shape)))
 
 
 # ---------------------------------------------------------------- K1 -----
@@ -511,3 +540,194 @@ def consume_scan(live_L, rows_L, rows_valid):
             live_L.data_ptr(), npad, rows_L.data_ptr(),
             rows_valid.data_ptr(), P, live_L2.data_ptr(), recs.data_ptr())
     return live_L2, recs
+
+
+# ------------------------------------------------------------ K4, K5 -----
+
+# the state of the spec walk that K5 updates in place, one row a walker
+# (u, v: (P, d); L, tl, tr, wbuf: (P,) float32; step (P,) int64; done
+# (P,) bool) and the counters (0-d int64: billed rows, useful rows,
+# accepted steps, the round)
+SPEC_STATE = ('u', 'L', 'v', 'tl', 'tr', 'step', 'done', 'wbuf', 'ncr',
+              'nur', 'nw', 'it')
+
+
+def cube_intersection(u, v):
+    """Line coordinates where rays u + t*v cross the unit cube faces.
+
+    Where ``v == 0`` the divisions give inf or nan; both are masked to
+    -inf / +inf before the reductions, so none reaches ``max``/``min``.
+    """
+    nz = v != 0
+    a = torch.where(nz, (0.0 - u) / v, -math.inf)
+    b = torch.where(nz, (1.0 - u) / v, math.inf)
+    return torch.minimum(a, b).amax(dim=1), torch.maximum(a, b).amin(dim=1)
+
+
+def spec_propose_plain(u, v, tl, tr, xibank, it):
+    """Plain torch K4: ``(ts (P, D), tlc (P,), trc (P,), up (P*D, d))``.
+
+    Candidate j of each walker's shrink chain is drawn from the round's
+    row ``xibank[it]`` as if all earlier ones were rejected; ``tlc``,
+    ``trc`` are the bracket shrunk by all D; ``up`` the candidates'
+    rows ``u + ts * v``.
+    """
+    xi = xibank.index_select(0, it.reshape(1))[0]        # (P, D)
+    P, D = xi.shape
+    tlc, trc = tl, tr
+    ts = []
+    for j in range(D):
+        t = tlc + xi[:, j] * (trc - tlc)
+        ts.append(t)
+        tlc = torch.where(t < 0, t, tlc)
+        trc = torch.where(t >= 0, t, trc)
+    ts = torch.stack(ts, dim=1)
+    up = u[:, None, :] + ts[..., None] * v[:, None, :]
+    return ts, tlc, trc, up.reshape(P * D, -1)
+
+
+def spec_propose(u, v, tl, tr, xibank, it):
+    """K4: propose one round of the spec walk (:func:`spec_propose_plain`).
+
+    Parameters
+    ----------
+    u, v: (P, d) float32
+        walkers' points and directions
+    tl, tr: (P,) float32
+        their brackets on the line ``u + t v``
+    xibank: (max_rounds, P, D) float32
+        uniforms of every round; the kernel reads row *it*
+    it: 0-d int64
+        the round counter, on the device
+
+    Returns ``ts (P, D), tlc (P,), trc (P,), up (P*D, d)``, float32.
+    """
+    if _on_cpu(u, v, tl, tr, xibank, it):
+        PLAIN_CALLS['spec_propose'] += 1
+        return spec_propose_plain(u, v, tl, tr, xibank, it)
+    P, d = u.shape
+    R, _, D = xibank.shape
+    _check_shape(u, 'u', torch.float32, (P, d))
+    _check_shape(v, 'v', torch.float32, (P, d))
+    for t, name in ((tl, 'tl'), (tr, 'tr')):
+        _check_shape(t, name, torch.float32, (P,))
+    _check_shape(xibank, 'xibank', torch.float32, (R, P, D))
+    _check_shape(it, 'it', torch.int64, ())
+    if R < 1 or D < 1:
+        raise ValueError('xibank needs a round and a candidate, got shape %s'
+                         % (tuple(xibank.shape),))
+    ts = torch.empty((P, D), dtype=torch.float32, device=u.device)
+    tlc = torch.empty(P, dtype=torch.float32, device=u.device)
+    trc = torch.empty(P, dtype=torch.float32, device=u.device)
+    up = torch.empty((P * D, d), dtype=torch.float32, device=u.device)
+    _launch('spec_propose', _lib().un_spec_propose, u.data_ptr(),
+            v.data_ptr(), tl.data_ptr(), tr.data_ptr(), xibank.data_ptr(),
+            it.data_ptr(), R, P, D, d, ts.data_ptr(), tlc.data_ptr(),
+            trc.data_ptr(), up.data_ptr())
+    return ts, tlc, trc, up
+
+
+def spec_update_plain(Lp, tin, ts, tlc, trc, Lmin, dirbank, state):
+    """Plain torch K5: update the walk *state* in place after the round's
+    likelihoods *Lp* (:data:`SPEC_STATE`; ``csrc/spec_update.cu`` states
+    the update). Returns None."""
+    st = state
+    u, L, v, tl, tr, step, done = (st[k] for k in SPEC_STATE[:7])
+    P, D = ts.shape
+    nsteps = dirbank.shape[0]
+    arD = torch.arange(D, device=ts.device)
+    arP = torch.arange(P, device=ts.device)
+    Lp = Lp.reshape(P, D)
+    active = ~done
+    # billing: the walkers still working this round, rows the p-space
+    # filter let through
+    billed = active[:, None].expand(P, D) if tin is None \
+        else tin.reshape(P, D) & active[:, None]
+    st['ncr'].add_(billed.sum())
+    hit = Lp > Lmin
+    anyhit0 = hit.any(dim=1)
+    anyhit = anyhit0 & active
+    # first hit in chain order (D where there is none, then clamped;
+    # rows without a hit do not use it)
+    jstar = torch.where(hit, arD, D).amin(dim=1).clamp(max=D - 1)
+    # useful work: a sequential sampler evaluates candidates 0..jstar,
+    # or all D on a round without a hit
+    kneed = torch.where(anyhit0, jstar + 1, D)
+    st['nur'].add_(((arD[None, :] < kneed[:, None]) & billed).sum())
+    tstar = ts.gather(1, jstar[:, None])[:, 0]
+    Lstar = Lp.gather(1, jstar[:, None])[:, 0]
+    u_new = torch.where(anyhit[:, None], u + tstar[:, None] * v, u)
+    step_new = step + anyhit
+    st['wbuf'].copy_(torch.where(anyhit, tr - tl, 0.0))
+    st['nw'].add_(anyhit.sum())
+    done_new = done | (anyhit & (step_new >= nsteps))
+    # no acceptance: keep the fully shrunk bracket
+    rej = ~anyhit & ~done_new
+    tl_new = torch.where(rej, tlc, tl)
+    tr_new = torch.where(rej, trc, tr)
+    # accepted and not done: the next pre-drawn direction and a fresh
+    # full chord
+    renew = anyhit & ~done_new
+    vn = dirbank[step_new.clamp(0, nsteps - 1), arP]
+    v_new = torch.where(renew[:, None], vn, v)
+    tln, trn = cube_intersection(u_new, v_new)
+    L.copy_(torch.where(anyhit, Lstar, L))
+    u.copy_(u_new)
+    v.copy_(v_new)
+    tl.copy_(torch.where(renew, tln, tl_new))
+    tr.copy_(torch.where(renew, trn, tr_new))
+    step.copy_(step_new)
+    done.copy_(done_new)
+    st['it'].add_(1)
+
+
+def spec_update(Lp, tin, ts, tlc, trc, Lmin, dirbank, state):
+    """K5: update the spec walk's *state* in place after one round.
+
+    Parameters
+    ----------
+    Lp: (P*D,) float32
+        likelihoods of the rows :func:`spec_propose` gave
+    tin: (P*D,) bool or None
+        rows the p-space filter let through (None: every row billed)
+    ts, tlc, trc: the chain and the shrunk bracket from :func:`spec_propose`
+    Lmin: 0-d float32
+        the likelihood threshold
+    dirbank: (nsteps, P, d) float32
+        each walker's direction of each step
+    state: dict
+        :data:`SPEC_STATE`'s tensors, updated in place; ``wbuf`` receives
+        each walker's accepted bracket width (0 where none), for the
+        caller's float sum
+
+    On the card one launch; the int64 counters are summed in it.
+    """
+    st = state
+    if _on_cpu(Lp, ts, tlc, trc, Lmin, dirbank, *(st[k] for k in SPEC_STATE)):
+        PLAIN_CALLS['spec_update'] += 1
+        return spec_update_plain(Lp, tin, ts, tlc, trc, Lmin, dirbank, st)
+    P, D = ts.shape
+    nsteps, _, d = dirbank.shape
+    _check_shape(Lp, 'Lp', torch.float32, (P * D,))
+    if tin is not None:
+        _on_cpu(Lp, tin)
+        _check_shape(tin, 'tin', torch.bool, (P * D,))
+    _check_shape(ts, 'ts', torch.float32, (P, D))
+    _check_shape(Lmin, 'Lmin', torch.float32, ())
+    _check_shape(dirbank, 'dirbank', torch.float32, (nsteps, P, d))
+    if nsteps < 1:
+        raise ValueError('dirbank needs a step')
+    want = dict(u=(torch.float32, (P, d)), v=(torch.float32, (P, d)),
+                L=(torch.float32, (P,)), tl=(torch.float32, (P,)),
+                tr=(torch.float32, (P,)), wbuf=(torch.float32, (P,)),
+                step=(torch.int64, (P,)), done=(torch.bool, (P,)))
+    for name in SPEC_STATE:
+        dtype, shape = want.get(name, (torch.int64, ()))
+        _check_shape(st[name], name, dtype, shape)
+    for t, name in ((tlc, 'tlc'), (trc, 'trc')):
+        _check_shape(t, name, torch.float32, (P,))
+    _launch('spec_update', _lib().un_spec_update, Lp.data_ptr(),
+            None if tin is None else tin.data_ptr(), ts.data_ptr(),
+            tlc.data_ptr(), trc.data_ptr(), Lmin.data_ptr(),
+            dirbank.data_ptr(), nsteps, P, D, d,
+            *(st[k].data_ptr() for k in SPEC_STATE))

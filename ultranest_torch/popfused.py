@@ -18,8 +18,14 @@ dispatch yields ``popsize`` independent samples. Four walks:
   Gaussian Metropolis steps in region-axes space.
 
 The reference runs its shrink loops as ``lax.while_loop`` with the
-condition on the device. Eager torch has no device-side loop, so here
-the rounds are a host loop of torch ops (:func:`_drive`). The spec and
+condition on the device. Eager torch has no device-side loop. On a card
+the spec and async walks run their rounds as CUDA graphs
+(:class:`SpecGraphs`): a round is two hand kernels around the user's
+likelihood (K4 ``kernels.spec_propose``, K5 ``kernels.spec_update``),
+and a chunk of :data:`SPEC_CHECK_EVERY` rounds is one captured graph,
+replayed. On the CPU, and for a likelihood that cannot be captured, the
+same round runs from a host loop (:func:`_drive_rounds`). The sync and
+random walks are host loops of torch ops (:func:`_drive`). The spec and
 async walks read the loop's "done" flag once every
 :data:`SPEC_CHECK_EVERY` rounds, through a pinned copy and a CUDA event,
 one check behind the rounds already queued (the card never waits for
@@ -52,14 +58,18 @@ The doubled-nsteps prewarm thread and the fingerprint-keyed kernel cache
 have no counterpart: eager torch does not compile per shape.
 """
 
+import collections
 import logging
 import math
 import time
+import warnings
 
 import numpy as np
 import torch
 
 from .fused import _as_f32, _f32, _inside_ellipsoid, tregion_geometry
+from .ops import kernels
+from .ops.kernels import cube_intersection as _cube_intersection
 from .ops.pairwise import pad_rows, round_up
 from .ordertest import UniformOrderAccumulator
 from .parallel import (all_gather_rows, check_mesh, pmean, psum,
@@ -75,8 +85,8 @@ from .segmentops import (consume_scan, pack_segment, whitened_cloud_var,
 __all__ = ['FusedPopulationSliceSampler', 'FusedPopulationRandomWalkSampler',
            'draw_spec_banks', 'draw_sync_banks', 'draw_rwalk_banks',
            'spec_walk', 'sync_walk', 'rwalk_walk', 'spec_max_rounds',
-           'optimal_spec_depth', 'SPEC_CHECK_EVERY', 'SYNC_CHECK_EVERY',
-           'ROUND_OVERHEAD_S']
+           'optimal_spec_depth', 'SpecGraphs', 'SPEC_CHECK_EVERY',
+           'SYNC_CHECK_EVERY', 'ROUND_OVERHEAD_S']
 
 # rounds between two host reads of a walk's "done" flag
 SPEC_CHECK_EVERY = 8
@@ -87,15 +97,16 @@ SPEC_CHECK_EVERY = 8
 # 1 and 3.70-4.15 s read every 8 one check behind, with equal results.
 SYNC_CHECK_EVERY = 2
 # Fixed cost of one spec-walk round on the card, the A of
-# optimal_spec_depth: the host enqueue of the round's ~115 torch ops,
-# which the device (idle ~90% of the time) never hides. Measured as the
-# segment launch phase summed over the spec-walk bench problems
-# (asymgauss50, rosenbrock8, multishell8, loggamma30, gauss100, as
-# chip_smoke.py runs them) over their rounds: 97.43 s over 51 616
-# rounds, 1.888 ms per round (1.68-2.36 ms per problem) on an NVIDIA
-# H100 80GB HBM3 at a 700 W power limit. The reference's 350 us was
-# taken on a TPU.
-ROUND_OVERHEAD_S = 1.888e-3
+# optimal_spec_depth: a round replayed from a CUDA graph (K4, the
+# likelihood, K5, the width sum), the host waiting on the card one flag
+# read behind. Measured as the segment launch phase summed over the
+# spec-walk bench problems (asymgauss50, rosenbrock8, multishell8,
+# loggamma30, gauss100, as chip_smoke.py runs them) over their rounds:
+# 5.050 s over 51 616 rounds, 0.0978 ms per round (0.084-0.128 ms per
+# problem) on an NVIDIA H100 80GB HBM3 at a 700 W power limit. The
+# host loop of torch ops it replaced cost 1.888 ms a round there; the
+# reference's 350 us was taken on a TPU.
+ROUND_OVERHEAD_S = 9.78e-5
 
 _LOG = logging.getLogger('ultranest_torch.popfused')
 # likelihood-cost probe results: (loglike, transform, popsize, x_dim,
@@ -201,29 +212,18 @@ def draw_rwalk_banks(generator, P, nsteps, nlive, x_dim):
         idx0=torch.randint(0, nlive, (P,), generator=g, device=dev))
 
 
-def _direction_bank(banks, live_u, axes, scale):
+def _direction_bank(banks, live_u, axes, scale, out=None):
     """(nsteps, P, d) direction of every walker's every step.
 
     A 50/50 mix of differential-evolution pairs and region axes, scaled
-    (``popfused.py:549-556``).
+    (``popfused.py:549-556``); written into *out* where given.
     """
     i1 = banks['i1']
     i2 = torch.where(banks['i2'] >= i1, banks['i2'] + 1, banks['i2'])
     dirbank = torch.where((banks['pick'] < 0.5)[..., None],
-                          live_u[i1] - live_u[i2], axes[banks['jx']])
+                          live_u[i1] - live_u[i2], axes[banks['jx']],
+                          out=out)
     return dirbank.mul_(scale)
-
-
-def _cube_intersection(u, v):
-    """Line coordinates where rays u + t*v cross the unit cube faces.
-
-    Where ``v == 0`` the divisions give inf or nan; both are masked to
-    -inf / +inf before the reductions, so none reaches ``max``/``min``.
-    """
-    nz = v != 0
-    a = torch.where(nz, (0.0 - u) / v, -math.inf)
-    b = torch.where(nz, (1.0 - u) / v, math.inf)
-    return torch.minimum(a, b).amax(dim=1), torch.maximum(a, b).amin(dim=1)
 
 
 def _finish_flag(handle):
@@ -244,6 +244,30 @@ def _median(x):
     return (s[(n - 1) // 2] + s[n // 2]) * 0.5
 
 
+def _drive_rounds(run, max_rounds, every, lag):
+    """The loop of :func:`_drive`: ``run(n)`` runs the next *n* rounds and
+    returns the loop's 0-d bool "finished" flag.
+
+    Runs *every* rounds (fewer at the cap) between two reads of the
+    flag, *lag* reads behind, until a read gives True or *max_rounds*
+    rounds ran. Returns ``(reads, rounds)``.
+    """
+    flags = []
+    reads = 0
+    it = 0
+    while it < max_rounds:
+        n = min(every, max_rounds - it)
+        flag = run(n)
+        it += n
+        # a CUDA flag is copied out; a CPU one may be rewritten in place
+        flags.append(start_fetch(flag if flag.is_cuda else flag.clone()))
+        if len(flags) > lag:
+            reads += 1
+            if _finish_flag(flags.pop(0)):
+                break
+    return reads, it
+
+
 def _drive(body, state, max_rounds, finished, every=1, lagged=False):
     """Host loop standing in for the reference's ``lax.while_loop``.
 
@@ -258,23 +282,198 @@ def _drive(body, state, max_rounds, finished, every=1, lagged=False):
     the rounds run, no-op rounds included.
     """
     lag = 1 if lagged and state[0].device.type == 'cuda' else 0
-    flags = []
-    reads = 0
-    it = 0
-    while it < max_rounds:
-        for _ in range(min(every, max_rounds - it)):
-            state = body(it, *state)
-            it += 1
-        flags.append(start_fetch(finished(state)))
-        if len(flags) > lag:
-            reads += 1
-            if _finish_flag(flags.pop(0)):
-                break
-    return state, reads, it
+    box = [state, 0]
+
+    def run(n):
+        for _ in range(n):
+            box[0] = body(box[1], *box[0])
+            box[1] += 1
+        return finished(box[0])
+    reads, rounds = _drive_rounds(run, max_rounds, every, lag)
+    return box[0], reads, rounds
+
+
+def _spec_state(P, d, dev):
+    """Zeroed buffers of the spec walk's state (:data:`kernels.SPEC_STATE`
+    and ``widths``, the running float sum of the accepted widths)."""
+    def f32(*shape):
+        return torch.zeros(shape, dtype=torch.float32, device=dev)
+
+    def i64(*shape):
+        return torch.zeros(shape, dtype=torch.int64, device=dev)
+    return dict(u=f32(P, d), L=f32(P), v=f32(P, d), tl=f32(P), tr=f32(P),
+                step=i64(P), done=torch.zeros(P, dtype=torch.bool, device=dev),
+                wbuf=f32(P), ncr=i64(), nur=i64(), nw=i64(), it=i64(),
+                widths=f32())
+
+
+def _spec_init(st, banks, live_u, live_L, dirbank):
+    """Start a dispatch: each walker at its live point ``idx0``, on its
+    first direction and full chord; counters and round at 0."""
+    idx0 = banks['idx0']
+    st['u'].copy_(live_u[idx0])
+    st['L'].copy_(live_L[idx0])
+    st['v'].copy_(dirbank[0])
+    tl, tr = _cube_intersection(st['u'], st['v'])
+    st['tl'].copy_(tl)
+    st['tr'].copy_(tr)
+    for k in ('step', 'done', 'wbuf', 'ncr', 'nur', 'nw', 'it', 'widths'):
+        st[k].zero_()
+
+
+def _spec_round(xibank, evaluate, Lmin, dirbank, st):
+    """One round: K4 proposes every walker's D candidates, the likelihood
+    evaluates them, K5 updates the state; the accepted widths are summed
+    as the reference sums them, one round at a time."""
+    ts, tlc, trc, up = kernels.spec_propose(st['u'], st['v'], st['tl'],
+                                            st['tr'], xibank, st['it'])
+    Lp, tin = evaluate(up)
+    kernels.spec_update(Lp.reshape(-1).contiguous(), tin, ts, tlc, trc, Lmin,
+                        dirbank, st)
+    st['widths'].add_(st['wbuf'].sum())
+
+
+class SpecGraphs:
+    """The spec walk's rounds as CUDA graphs, captured once per shape.
+
+    The reference runs a dispatch's rounds as one ``lax.while_loop`` on
+    the device. Here a chunk of :data:`SPEC_CHECK_EVERY` rounds (K4, the
+    likelihood, K5 and the width sum, then the "finished" flag) is one
+    captured graph, replayed between the host's flag reads; a one-round
+    graph serves the rounds below the cap that a chunk would pass and
+    the exact walk that reads every round. A graph reads and writes only
+    buffers that stay put (the banks, the threshold, the state and the
+    flag: :class:`_SpecGraphEntry`), so a dispatch copies its inputs in
+    and replays. The caller's likelihood must read only tensors that
+    stay put too: :meth:`static` keeps such copies.
+
+    Entries are keyed by P, D, d, nsteps, the round cap, the finishing
+    target, the device and :attr:`tag` (the caller's: the sampler puts
+    its p-space filter's key and its likelihood there); the most recent
+    :attr:`MAX_ENTRIES` are kept. A capture follows a warm-up round on a
+    side stream, so that the likelihood's first-call work (cached
+    constants) is done before it. A likelihood that cannot be captured
+    (one that reads a value to the host or copies from host memory per
+    call) makes the capture fail: :attr:`failed` keeps why, one warning
+    names the likelihood, and the walks of this cache run their rounds
+    from the host loop, with the same kernels.
+    """
+
+    MAX_ENTRIES = 4
+
+    def __init__(self, name='likelihood'):
+        self.name = name
+        self.tag = ()
+        self.failed = None
+        self._entries = collections.OrderedDict()
+        self._static = {}
+
+    def static(self, name, t):
+        """A buffer of *t*'s shape, dtype and device under *name*, that
+        stays put between calls, holding a copy of *t*."""
+        key = (name, tuple(t.shape), t.dtype, t.device)
+        buf = self._static.get(key)
+        if buf is None:
+            buf = self._static[key] = torch.empty(
+                t.shape, dtype=t.dtype, device=t.device)
+        return buf.copy_(t)
+
+    def entry(self, key, make):
+        """The entry of *key*, made by ``make()`` where there is none."""
+        e = self._entries.pop(key, None)
+        if e is None:
+            e = make()
+        self._entries[key] = e
+        while len(self._entries) > self.MAX_ENTRIES:
+            self._entries.popitem(last=False)
+        return e
+
+    def drop(self, key):
+        self._entries.pop(key, None)
+
+    def capture(self, entry, sizes, body, flag):
+        """Warm up one round on a side stream, then capture a graph of
+        *n* rounds and the flag for each *n* in *sizes*. Returns the
+        seconds it took, or None where the capture failed (then the
+        stream and the allocator are as before, and :attr:`failed`
+        says why)."""
+        t0 = time.perf_counter()
+        dev = entry.flag.device
+        if dev.type != 'cuda':
+            raise ValueError('CUDA graphs need CUDA tensors, got %s' % dev)
+        cur = torch.cuda.current_stream(dev)
+        try:
+            if entry.pool is None:
+                entry.pool = torch.cuda.graph_pool_handle()
+            side = torch.cuda.Stream(device=dev)
+            side.wait_stream(cur)
+            with torch.cuda.stream(side):
+                body()
+                flag()
+            cur.wait_stream(side)
+            torch.cuda.synchronize(dev)
+            for n in sizes:
+                g = torch.cuda.CUDAGraph()
+                kernels.CAPTURED.clear()
+                # a fresh stream per capture: a failed capture leaves
+                # nothing behind on a stream that is used again
+                cs = torch.cuda.Stream(device=dev)
+                cs.wait_stream(cur)
+                with torch.cuda.stream(cs):
+                    g.capture_begin(pool=entry.pool)
+                    try:
+                        for _ in range(n):
+                            body()
+                        flag()
+                    finally:
+                        g.capture_end()
+                cur.wait_stream(cs)
+                entry.graphs[n] = (g, collections.Counter(kernels.CAPTURED))
+        except Exception as exc:
+            try:
+                torch.cuda.synchronize(dev)
+            except Exception:
+                pass
+            self.failed = '%s: %s' % (type(exc).__name__,
+                                      str(exc).strip().splitlines()[0]
+                                      if str(exc).strip() else '')
+            msg = ('the likelihood %s cannot be captured in a CUDA graph '
+                   '(%s); its spec walks run their rounds from the host '
+                   'loop, with the same kernels' % (self.name, self.failed))
+            _LOG.warning(msg)
+            warnings.warn(msg, RuntimeWarning, stacklevel=3)
+            return None
+        return time.perf_counter() - t0
+
+
+class _SpecGraphEntry:
+    """The buffers a captured spec walk reads and writes, and its graphs
+    (rounds -> (graph, kernel launches of one replay))."""
+
+    def __init__(self, P, D, d, nsteps, max_rounds, dev):
+        self.xibank = torch.empty((max_rounds, P, D), dtype=torch.float32,
+                                  device=dev)
+        self.dirbank = torch.empty((nsteps, P, d), dtype=torch.float32,
+                                   device=dev)
+        self.Lmin = torch.zeros((), dtype=torch.float32, device=dev)
+        self.state = _spec_state(P, d, dev)
+        self.flag = torch.zeros((), dtype=torch.bool, device=dev)
+        self.graphs = {}
+        self.pool = None
+
+
+def _set_scalar(buf, x):
+    """Write float or 0-d tensor *x* into the 0-d buffer *buf*, on the
+    device, without a host copy."""
+    if torch.is_tensor(x):
+        buf.copy_(x)
+    else:
+        buf.fill_(x)
+    return buf
 
 
 def spec_walk(banks, live_u, live_L, nlive, axes, Lmin, scale, evaluate,
-              nsteps, target_done=None, stats=None):
+              nsteps, target_done=None, stats=None, graphs=None):
     """Speculative-shrink population walk (``popfused.py:538-650``).
 
     A slice-shrink rejection updates the bracket without a likelihood
@@ -284,6 +483,12 @@ def spec_walk(banks, live_u, live_L, nlive, axes, Lmin, scale, evaluate,
     accepted chain is exactly the sequential sampler's. At D = 1 this is
     the async engine's walk (``popfused.py:697-812``): one row per
     walker per round, shrinking on rejection.
+
+    A round is K4 (:func:`kernels.spec_propose`), the likelihood, K5
+    (:func:`kernels.spec_update`) and the sum of the accepted widths.
+    With *graphs* on a card, the rounds run as captured CUDA graphs
+    (:class:`SpecGraphs`); otherwise from a host loop (the plain
+    versions of K4 and K5 on the CPU). Both give the same bits.
 
     Parameters
     ----------
@@ -301,7 +506,8 @@ def spec_walk(banks, live_u, live_L, nlive, axes, Lmin, scale, evaluate,
         slice length factor
     evaluate: function
         ``(rows) -> (L float32, billed bool or None)``: transform,
-        optional p-space filter and likelihood of (n, d) rows
+        optional p-space filter and likelihood of (n, d) rows; with
+        *graphs* it must read only tensors that stay put between calls
     nsteps: int
         slice steps per walker
     target_done: int or None
@@ -309,8 +515,13 @@ def spec_walk(banks, live_u, live_L, nlive, axes, Lmin, scale, evaluate,
         round's condition is read before the next round runs; otherwise
         once every :data:`SPEC_CHECK_EVERY` rounds.
     stats: dict or None
-        if given, receives ``reads`` (blocking host reads of the flag)
-        and ``rounds`` (rounds run, no-op rounds included)
+        if given, receives ``reads`` (blocking host reads of the flag),
+        ``rounds`` (rounds run, no-op rounds included), ``graph``
+        (whether the rounds ran as graphs), ``replays``, ``captures``
+        and ``capture_s`` (graphs captured in this call, and the seconds
+        that took)
+    graphs: SpecGraphs or None
+        run the rounds as this cache's CUDA graphs (CUDA tensors only)
 
     Returns
     -------
@@ -321,89 +532,78 @@ def spec_walk(banks, live_u, live_L, nlive, axes, Lmin, scale, evaluate,
     """
     xibank = banks['xibank']
     max_rounds, P, D = xibank.shape
+    d = live_u.shape[1]
     dev = live_u.device
     if target_done is None:
         target_done = P
-    dirbank = _direction_bank(banks, live_u, axes, scale)
-    idx0 = banks['idx0']
-    u = live_u[idx0]
-    L = live_L[idx0]
-    v = dirbank[0]
-    tl, tr = _cube_intersection(u, v)
-    step = torch.zeros(P, dtype=torch.int64, device=dev)
-    done = torch.zeros(P, dtype=torch.bool, device=dev)
-    widths = torch.zeros((), dtype=torch.float32, device=dev)
-    nw = torch.zeros((), dtype=torch.int64, device=dev)
-    ncr = torch.zeros((), dtype=torch.int64, device=dev)
-    nur = torch.zeros((), dtype=torch.int64, device=dev)
-    arD = torch.arange(D, device=dev)
-    arP = torch.arange(P, device=dev)
-
-    def round_body(it, u, L, v, tl, tr, step, done, widths, nw, ncr, nur):
-        xi = xibank[it]
-        # the speculative shrink chain: candidate j is drawn as if all
-        # earlier ones were rejected
-        tlc, trc = tl, tr
-        ts = []
-        for j in range(D):
-            t = tlc + xi[:, j] * (trc - tlc)
-            ts.append(t)
-            tlc = torch.where(t < 0, t, tlc)
-            trc = torch.where(t >= 0, t, trc)
-        ts = torch.stack(ts, dim=1)                            # (P, D)
-        up = u[:, None, :] + ts[..., None] * v[:, None, :]
-        Lp, tin = evaluate(up.reshape(P * D, -1))
-        Lp = Lp.reshape(P, D)
-        active = ~done
-        # billing: the walkers still working this round, rows the
-        # p-space filter let through
-        billed = active[:, None].expand(P, D) if tin is None \
-            else tin.reshape(P, D) & active[:, None]
-        ncr = ncr + billed.sum()
-        hit = Lp > Lmin
-        anyhit0 = hit.any(dim=1)
-        anyhit = anyhit0 & active
-        # first hit in chain order (D where there is none, then clamped;
-        # rows without a hit do not use it)
-        jstar = torch.where(hit, arD, D).amin(dim=1).clamp(max=D - 1)
-        # useful work: a sequential sampler evaluates candidates
-        # 0..jstar, or all D on a round without a hit
-        kneed = torch.where(anyhit0, jstar + 1, D)
-        nur = nur + ((arD[None, :] < kneed[:, None]) & billed).sum()
-        tstar = ts.gather(1, jstar[:, None])[:, 0]
-        Lstar = Lp.gather(1, jstar[:, None])[:, 0]
-        u = torch.where(anyhit[:, None], u + tstar[:, None] * v, u)
-        L = torch.where(anyhit, Lstar, L)
-        step = step + anyhit
-        widths = widths + torch.where(anyhit, tr - tl, 0.0).sum()
-        nw = nw + anyhit.sum()
-        done = done | (anyhit & (step >= nsteps))
-        # no acceptance: keep the fully shrunk bracket
-        rej = ~anyhit & ~done
-        tl = torch.where(rej, tlc, tl)
-        tr = torch.where(rej, trc, tr)
-        # accepted and not done: the next pre-drawn direction and a
-        # fresh full chord
-        renew = anyhit & ~done
-        vn = dirbank[step.clamp(0, nsteps - 1), arP]
-        v = torch.where(renew[:, None], vn, v)
-        tln, trn = _cube_intersection(u, v)
-        tl = torch.where(renew, tln, tl)
-        tr = torch.where(renew, trn, tr)
-        return u, L, v, tl, tr, step, done, widths, nw, ncr, nur
-
     # Only with every walker required to finish are extra rounds no-ops
     # (every update is masked by ~done or anyhit)
     exact = target_done < P
-    state, reads, rounds = _drive(
-        round_body, (u, L, v, tl, tr, step, done, widths, nw, ncr, nur),
-        max_rounds, lambda st: st[6].sum() >= target_done,
-        every=1 if exact else SPEC_CHECK_EVERY, lagged=not exact)
+    every = 1 if exact else SPEC_CHECK_EVERY
+    info = dict(graph=False, replays=0, captures=0, capture_s=0.0)
+    entry = None
+    if graphs is not None and graphs.failed is None:
+        key = (P, D, d, nsteps, max_rounds, target_done, str(dev),
+               graphs.tag)
+        entry = graphs.entry(key, lambda: _SpecGraphEntry(
+            P, D, d, nsteps, max_rounds, dev))
+        entry.xibank.copy_(xibank)
+        dirbank = _direction_bank(banks, live_u, axes, scale,
+                                  out=entry.dirbank)
+        Lmin_t = _set_scalar(entry.Lmin, Lmin)
+        st = entry.state
+        sizes = [every] + ([1] if max_rounds % every and every > 1 else [])
+        missing = [n for n in sizes if n not in entry.graphs]
+        if missing:
+            def body(e=entry):
+                _spec_round(e.xibank, evaluate, e.Lmin, e.dirbank, e.state)
+
+            def flag(e=entry):
+                e.flag.copy_(e.state['done'].sum() >= target_done)
+            _spec_init(st, banks, live_u, live_L, dirbank)
+            took = graphs.capture(entry, missing, body, flag)
+            if took is None:
+                graphs.drop(key)
+                entry = None
+            else:
+                info.update(captures=len(missing), capture_s=took)
+    if entry is not None:
+        _spec_init(st, banks, live_u, live_L, dirbank)
+
+        def run(n):
+            # a chunk, or the rounds below the cap one at a time
+            g, launched = entry.graphs[n if n == every else 1]
+            for _ in range(1 if n == every else n):
+                g.replay()
+                kernels.LAUNCHES.update(launched)
+                info['replays'] += 1
+            return entry.flag
+        reads, rounds = _drive_rounds(run, max_rounds, every,
+                                      0 if exact else 1)
+        info['graph'] = True
+        # the next dispatch rewrites the entry's buffers
+        st = {k: t.clone() for k, t in entry.state.items()}
+    else:
+        dirbank = _direction_bank(banks, live_u, axes, scale)
+        Lmin_t = _set_scalar(torch.empty((), dtype=torch.float32,
+                                         device=dev), Lmin)
+        st = _spec_state(P, d, dev)
+        _spec_init(st, banks, live_u, live_L, dirbank)
+
+        def round_body():
+            _spec_round(xibank, evaluate, Lmin_t, dirbank, st)
+
+        def run(n):
+            for _ in range(n):
+                round_body()
+            return st['done'].sum() >= target_done
+        lag = 1 if not exact and dev.type == 'cuda' else 0
+        reads, rounds = _drive_rounds(run, max_rounds, every, lag)
     if stats is not None:
-        stats.update(reads=reads, rounds=rounds)
-    uf, Lf, _, tl, tr, step, done, widths, nw, ncr, nur = state
-    width = widths / torch.clamp(nw, min=1)
-    return uf, Lf, done, idx0, ncr, nur, width
+        stats.update(reads=reads, rounds=rounds, **info)
+    width = st['widths'] / torch.clamp(st['nw'], min=1)
+    return (st['u'], st['L'], st['done'], banks['idx0'], st['ncr'],
+            st['nur'], width)
 
 
 def sync_walk(banks, live_u, live_L, axes, Lmin, scale, evaluate,
@@ -890,6 +1090,12 @@ class FusedPopulationSliceSampler(GenericPopulationSampler):
         ev = self._treg_eval()
         stats = dict(nsteps=self.nsteps)
         self.walk_log.append(stats)
+        graphs = None
+        if self.engine != 'sync' and self.device.type == 'cuda':
+            graphs = self._spec_graphs()
+            # the graphs read the filter's pack from a buffer that stays
+            # put between dispatches
+            treg = graphs.static('treg', treg)
 
         def evaluate(rows):
             return ev(rows, treg)
@@ -900,8 +1106,18 @@ class FusedPopulationSliceSampler(GenericPopulationSampler):
                                     * self._local_popsize)))
         out = spec_walk(banks, live_u, live_L, nlive, axes, Lmin,
                         _f32(scale), evaluate, self.nsteps,
-                        target_done=target, stats=stats)
+                        target_done=target, stats=stats, graphs=graphs)
         return out + (out[2].to(torch.float32).mean(),)
+
+    def _spec_graphs(self):
+        """This sampler's :class:`SpecGraphs`, tagged with what its walks'
+        likelihood calls depend on besides the shapes."""
+        if getattr(self, '_graphs', None) is None:
+            ll = self.torch_loglike
+            self._graphs = SpecGraphs(getattr(ll, '__qualname__', repr(ll)))
+        self._graphs.tag = (self._treg_key, self.torch_loglike,
+                            self._transform)
+        return self._graphs
 
     def _run_segment(self, banks, live_u, live_L, nlive, axes, scale, treg,
                      tpack):
