@@ -16,9 +16,12 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    round, bit for bit at every spec problem's shape and at D 1, with
    walkers done, at their last step, on a face and with zero axes),
    times both with CUDA events (the kernel also on the device alone,
-   its calls queued behind a spin kernel), and prints each shape's
-   bound: the larger of its float32 operations at 67 TFLOP/s and its
-   bytes at 3.35 TB/s;
+   its calls queued behind a spin kernel; K4 and K5 also among 50 calls
+   in a CUDA graph, beside an empty kernel's time there, the floor of a
+   launch), and prints each shape's bound: the larger of its float32
+   operations at 67 TFLOP/s and its bytes at 3.35 TB/s (K4 and K5 also
+   their share of it, their first form's device time and the registers
+   ptxas gave their instantiation);
 4. drives the paths, each with every kernel count set to 0 just before
    it and read just after it:
 
@@ -37,7 +40,14 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
      rosenbrock8 (popsize 128, nsteps 16; no gate), multishell8 (128,
      16), loggamma30 (256, 60) and the governed gauss100 (2048, nsteps
      100 growing under ``adaptive_nsteps``), each gated as
-     ``bench.py:353-372`` gates it;
+     ``bench.py:353-372`` gates it; each prints the depth the spec-depth
+     probe chose, t_row, the likelihood's fixed cost and A (as every
+     sampler of every path that probes does), and where the depth is
+     below 8 the same problem runs again at depth 8 with the probe off
+     and both walls are printed; then A, one replayed round without the
+     likelihood (``popfused.measure_round_overhead``), at each of the
+     five problems' shapes; after the walk checks below, gauss100_hard
+     at the bench's configuration, gated;
    * the sync, async and random-walk engines in segment mode at the JAX
      package's engine tests' configurations (``tests/test_popfused.py:
      40-107``), gated as those tests gate, and one classic-mode async
@@ -112,8 +122,9 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
 5. replays every path's K1, K2 and K3 calls, kept during its run: each
    kernel on real traffic, held against the plain version (K1 and K2 on
    every call, K2 bit for bit) and timed per call beside the bound of
-   those inputs; then prints the kernels ranked by launches x (device ms
-   - bound ms) over the replayed calls;
+   those inputs; times K4 and K5 at every (walkers, depth, dimension)
+   the paths' spec walks ran; then prints the kernels ranked by
+   launches x (device ms - bound ms) over the paths;
 6. prints one JSON line describing the kernels (each at its first
    shape), then the result line ``{"ok": true, "device": {...}}`` last.
 
@@ -123,6 +134,7 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
 Any failed check raises, which exits non-zero before the last line.
 """
 
+import collections
 import json
 import re
 import subprocess
@@ -541,10 +553,45 @@ def update_bound(P, D, d, tin, before, after):
     return bound(2 * acc * d + 6 * renew * d, nbytes)
 
 
-def check_spec_kernels(kernels, rng, P, D, d):
+# device-only ms of K4 and K5 in their first form, before their redesign,
+# at each of SPEC_SHAPES (an NVIDIA H100 80GB HBM3 at 700 W; PERF.md's
+# kernel table)
+FIRST_FORM_DEVICE_MS = {(4096, 8, 50): (0.0174, 0.0056),
+                        (2048, 8, 100): (0.0319, 0.0074),
+                        (256, 8, 30): (0.0122, 0.0041),
+                        (128, 8, 8): (0.0056, 0.0038),
+                        (256, 8, 10): (0.0060, 0.0038),
+                        (128, 1, 8): (0.0027, 0.0038)}
+
+
+def spec_instantiations(d, vec):
+    """The template instantiations of K4 and K5 that a row of *d* floats
+    takes, K4 with *vec* floats a thread (as ptxas_summary names them)."""
+    group = 8 if d <= 8 else 16 if d <= 16 else 32
+    nk = 1 if d <= 32 else 2 if d <= 64 else 4
+    return ('spec_propose_kernel<%d>' % vec,
+            'spec_update_kernel<%d, %d>' % (group, nk))
+
+
+def graph_ms(fn, calls=50):
+    """Device ms of one call of *fn* among *calls* captured in one CUDA
+    graph and replayed behind a spin kernel (as the spec walk's graphs
+    run the kernels; ``popfused.graph_call_seconds``)."""
+    from ultranest_torch import popfused
+    t = popfused.graph_call_seconds(fn, 'cuda', calls=calls, reps=2)
+    assert t is not None, 'a kernel call could not be captured'
+    return 1e3 * t
+
+
+def check_spec_kernels(kernels, rng, P, D, d, registers=None):
     """K4 and K5 against their plain versions, bit for bit, at one shape,
-    with and without the filter's rows. Returns the two kernels'
-    (0.0, kernel ms, plain ms, bound ms, what bounds it, device ms)."""
+    with and without the filter's rows; times each on the device alone
+    (queued behind a spin kernel, and among 50 calls in a CUDA graph)
+    and prints it beside its bound, its share of the bound, its first
+    form's time and the registers of its instantiation (*registers*:
+    name -> registers, from ptxas). Returns the two kernels' (0.0,
+    kernel ms, plain ms, bound ms, what bounds it, device ms, graph
+    ms)."""
     from ultranest_torch.evaluate.bench_membership import cuda_ms
     st, xibank, dirbank, Lp, tin, Lmin = spec_round_inputs(rng, P, D, d)
     prop = (st['u'], st['v'], st['tl'], st['tr'], xibank, st['it'])
@@ -563,6 +610,7 @@ def check_spec_kernels(kernels, rng, P, D, d):
         assert not bad, ('spec_update disagrees', P, D, d, t is None, bad)
     p_ms = cuda_ms(lambda: kernels.spec_propose(*prop), 50)
     p_dev = queued_ms([lambda: kernels.spec_propose(*prop)] * 50)
+    p_graph = graph_ms(lambda: kernels.spec_propose(*prop))
     p_plain = cuda_ms(lambda: kernels.spec_propose_plain(*prop), 5)
     p_bms, p_by = propose_bound(P, D, d)
     u_bms, u_by = update_bound(P, D, d, tin, st, mine)
@@ -571,17 +619,37 @@ def check_spec_kernels(kernels, rng, P, D, d):
     upd = (Lp, tin, ts, tlc, trc, Lmin, dirbank, scratch)
     u_ms = cuda_ms(lambda: kernels.spec_update(*upd), 50)
     u_dev = queued_ms([lambda: kernels.spec_update(*upd)] * 50)
+    u_graph = graph_ms(lambda: kernels.spec_update(*upd))
     u_plain = cuda_ms(lambda: kernels.spec_update_plain(*upd), 5)
-    print('K4 spec_propose P=%d D=%d d=%d: bit-equal to plain, kernel %.4f '
-          'ms, device %.4f ms, plain %.4f ms, bound %.6f ms (%s)' % (
-              P, D, d, p_ms, p_dev, p_plain, p_bms, p_by))
-    print('K5 spec_update P=%d D=%d d=%d: bit-equal to plain (with and '
-          'without the filter), %d accepted, kernel %.4f ms, device %.4f '
-          'ms, plain %.4f ms, bound %.6f ms (%s)' % (
-              P, D, d, int((mine['nw'] - st['nw']).item()), u_ms, u_dev,
-              u_plain, u_bms, u_by))
-    return ((0.0, p_ms, p_plain, p_bms, p_by, p_dev),
-            (0.0, u_ms, u_plain, u_bms, u_by, u_dev))
+    names = spec_instantiations(d, kernels.propose_vector_width(
+        d, st['u'], st['v'], got[3]))
+    regs = [(registers or {}).get(n) for n in names]
+    old = FIRST_FORM_DEVICE_MS.get((P, D, d), (float('nan'),) * 2)
+    for i, (k, what, ms, dev, gms, plain_ms, bms, by) in enumerate((
+            ('K4', 'spec_propose', p_ms, p_dev, p_graph, p_plain, p_bms,
+             p_by),
+            ('K5', 'spec_update', u_ms, u_dev, u_graph, u_plain, u_bms,
+             u_by))):
+        print('%s %s P=%d D=%d d=%d: bit-equal to plain%s, kernel %.4f ms, '
+              'device %.4f ms, in a graph %.4f ms, plain %.4f ms, bound '
+              '%.6f ms (%s), %.1f%% of the bound, first form device %.4f ms, '
+              '%s: %s registers' % (
+                  k, what, P, D, d, ' (with and without the filter), %d '
+                  'accepted' % int((mine['nw'] - st['nw']).item())
+                  if k == 'K5' else '', ms, dev, gms, plain_ms, bms, by,
+                  100 * bms / dev, old[i], names[i], regs[i]))
+    return ((0.0, p_ms, p_plain, p_bms, p_by, p_dev, p_graph),
+            (0.0, u_ms, u_plain, u_bms, u_by, u_dev, u_graph))
+
+
+def check_launch_floor(kernels):
+    """An empty kernel's device ms among 50 in a CUDA graph, and queued:
+    the floor of any launch, which K5's time is set beside."""
+    g = graph_ms(kernels._launch_empty)
+    q = queued_ms([kernels._launch_empty] * 50)
+    print('empty kernel: device %.4f ms, in a graph %.4f ms (the floor of a '
+          'launch)' % (q, g))
+    return q, g
 
 
 class SpecWalks:
@@ -591,12 +659,16 @@ class SpecWalks:
     def __enter__(self):
         from ultranest_torch import popfused
         self.mod, self.orig, self.walks = popfused, popfused.spec_walk, []
+        self.shapes = []
 
         def record(*args, **kw):
             if kw.get('stats') is None:
                 kw['stats'] = {}
             out = self.orig(*args, **kw)
             self.walks.append(kw['stats'])
+            # (P, D, d): the walkers, the depth and the dimension
+            self.shapes.append(tuple(args[0]['xibank'].shape[1:])
+                               + (args[1].shape[1],))
             return out
         popfused.spec_walk = record
         return self
@@ -606,19 +678,33 @@ class SpecWalks:
 
     def summary(self):
         """Walks, those run as graphs and from the host loop, rounds,
-        replays, captures and capture seconds."""
+        replays, captures and capture seconds, and the K4 and K5
+        launches by shape ("P,D,d": rounds and, where the walk captured
+        its graphs, the warm-up round before)."""
         w = [s for s in self.walks if 'graph' in s]
+        by_shape = collections.Counter()
+        for st, shape in zip(self.walks, self.shapes):
+            if 'graph' in st:
+                by_shape['%d,%d,%d' % shape] += st['rounds'] + \
+                    (st['captures'] > 0)
         return dict(walks=len(w), graph=sum(bool(s['graph']) for s in w),
                     host_loop=sum(not s['graph'] for s in w),
                     rounds=sum(s['rounds'] for s in w),
                     replays=sum(s['replays'] for s in w),
                     captures=sum(s['captures'] for s in w),
-                    capture_s=sum(s['capture_s'] for s in w))
+                    capture_s=sum(s['capture_s'] for s in w),
+                    launches_by_shape=dict(by_shape))
+
+
+# each path's K4 and K5 launches by shape ("P,D,d"), booked by
+# check_spec_path, for the ranking (spec_gaps)
+SPEC_LAUNCHES = {}
 
 
 def check_spec_path(name, walks, launched, required):
     """A path's spec walks all ran as CUDA graphs; a *required* spec path
-    ran some, and launched K4 and K5."""
+    ran some, and launched K4 and K5. Books the path's launches by shape
+    in :data:`SPEC_LAUNCHES`."""
     assert walks['host_loop'] == 0, \
         ('a spec walk fell back to the host loop', name, walks)
     if required:
@@ -627,10 +713,71 @@ def check_spec_path(name, walks, launched, required):
             assert launched.get(k, 0) >= walks['rounds'] > 0, \
                 ('%s not launched on the spec path' % k, name, launched)
     if walks['walks']:
+        SPEC_LAUNCHES[name] = walks['launches_by_shape']
         print('%s spec walks: %d dispatches as CUDA graphs, %d rounds, %d '
               'replays, %d captures in %.3f s' % (
                   name, walks['graph'], walks['rounds'], walks['replays'],
                   walks['captures'], walks['capture_s']))
+
+
+class DepthProbes:
+    """Records, inside the block, the spec-depth probe's decision of
+    every sampler that makes one
+    (``FusedPopulationSliceSampler._resolve_spec_depth``), under the name
+    in :attr:`path`, and prints one line for each: the depth chosen,
+    t_row (the likelihood's device seconds per popsize batch), its
+    fixed cost a call (and how both were taken) and A
+    (``ROUND_OVERHEAD_S``)."""
+
+    def __init__(self):
+        self.path, self.rows = None, []
+
+    def __enter__(self):
+        from ultranest_torch.popfused import FusedPopulationSliceSampler
+        self.cls = FusedPopulationSliceSampler
+        self.orig = FusedPopulationSliceSampler._resolve_spec_depth
+        probes = self
+
+        def resolve(sampler, x_dim):
+            fresh = not sampler._depth_resolved
+            probes.orig(sampler, x_dim)
+            if fresh and sampler.spec_probe is not None:
+                p = sampler.spec_probe
+                probes.rows.append(dict(path=probes.path, x_dim=x_dim,
+                                        popsize=sampler.popsize, **p))
+                print('spec depth (%s): popsize %d, d %d: depth %d -> %d, '
+                      't_row %.6f ms a batch, the likelihood\'s fixed cost '
+                      '%.6f ms a call (%s), A %.6f ms' % (
+                          probes.path, sampler.popsize, x_dim,
+                          p['depth_from'], p['depth'], 1e3 * p['t_row_s'],
+                          1e3 * p['fixed_s'], p['how'],
+                          1e3 * p['round_overhead_s']))
+        FusedPopulationSliceSampler._resolve_spec_depth = resolve
+        return self
+
+    def __exit__(self, *exc):
+        self.cls._resolve_spec_depth = self.orig
+
+
+def measure_round_overheads(names):
+    """A, one replayed round without the likelihood
+    (``popfused.measure_round_overhead``), at each spec problem's shape
+    (popsize, depth 8, d, nsteps); prints them beside
+    ``ROUND_OVERHEAD_S``. Returns {name: seconds}."""
+    from ultranest_torch import popfused
+    from ultranest_torch.models import problems
+    out = {}
+    for name in names:
+        (factory, kw), popsize, nsteps = POPULATION_PROBLEMS[name][:3]
+        ndim = getattr(problems, factory)(**kw).ndim
+        out[name] = popfused.measure_round_overhead(popsize, 8, ndim, nsteps)
+    print('A, a replayed round without the likelihood (K4, K5, the width '
+          'sum, an eighth of the flag; popfused.measure_round_overhead), ms: '
+          '%s; mean %.6f ms; popfused.ROUND_OVERHEAD_S %.6f ms' % (
+              ', '.join('%s %.6f' % (k, 1e3 * v) for k, v in out.items()),
+              1e3 * np.mean(list(out.values())),
+              1e3 * popfused.ROUND_OVERHEAD_S))
+    return out
 
 
 class DispatchKeeper:
@@ -1102,14 +1249,17 @@ POPULATION_PROBLEMS = {
 }
 
 
-def run_population_problem(name, seed=None, mesh=None):
+def run_population_problem(name, seed=None, mesh=None, spec_depth=8,
+                           spec_depth_auto=None):
     """One problem of :data:`POPULATION_PROBLEMS` on the spec-walk path.
 
     As ``bench.py:_run_popfused``: ``ScalingLayer``, ``SimpleRegion``,
     ``FusedPopulationSliceSampler(engine='spec', spec_depth=8)``, 400
     live points, ``dlogz=2.0``, ``frac_remain=0.1``, on the card; with a
     *mesh*, the walkers split over its shards (``mesh=`` on the sampler
-    and the step sampler). Every
+    and the step sampler). *spec_depth* and *spec_depth_auto* go to the
+    step sampler (the depth probe runs on the card unless it is False).
+    Every
     kernel count is set to 0 just before the run and read just after it.
     Raises if logZ is outside the bench gate, the samples are malformed,
     the segment path never engaged or K3 was never launched; returns the
@@ -1132,7 +1282,8 @@ def run_population_problem(name, seed=None, mesh=None):
     ss = sampler.stepsampler = FusedPopulationSliceSampler(
         popsize=popsize, nsteps=nsteps, torch_loglike=prob.torch_loglike,
         torch_transform=prob.torch_transform, seed=seed, engine='spec',
-        spec_depth=8, device='cuda', mesh=mesh, **extra)
+        spec_depth=spec_depth, spec_depth_auto=spec_depth_auto,
+        device='cuda', mesh=mesh, **extra)
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_counts()
     t0 = time.perf_counter()
@@ -1168,6 +1319,7 @@ def run_population_problem(name, seed=None, mesh=None):
                rounds_per_dispatch=[w['rounds'] for w in walks],
                reads_per_dispatch=[w['reads'] for w in walks],
                nsteps_changes=changes, spec_depth=ss.spec_depth,
+               spec_probe=ss.spec_probe,
                peak_device_mib=torch.cuda.max_memory_allocated() / 2**20,
                nsteps_final=int(ss.nsteps), phases_s=phases,
                billed=int(ss.ncalls),
@@ -2531,15 +2683,57 @@ def run_profile(problem):
     return dict(out, launches=launched)
 
 
-def print_ranking(real):
+def spec_gaps(kernels, spec_launches):
+    """K4's and K5's launches x (device ms - bound ms) over the paths:
+    *spec_launches* maps a path to its launches by shape ("P,D,d",
+    :meth:`SpecWalks.summary`); each shape is timed once on the device
+    alone (:func:`spec_round_inputs`, K5 on a state it moves on), queued
+    and among 50 calls in a CUDA graph, beside its bound. The paths run
+    K4 and K5 inside the spec walk's graphs only, so the graph time is
+    the one ranked. Prints each shape and returns {kernel: ms}."""
+    shapes = collections.Counter()
+    for by_shape in spec_launches.values():
+        shapes.update(by_shape)
+    gap = dict(spec_propose=0.0, spec_update=0.0)
+    rng = np.random.RandomState(7)
+    for key, n in sorted(shapes.items()):
+        P, D, d = (int(x) for x in key.split(','))
+        st, xibank, dirbank, Lp, tin, Lmin = spec_round_inputs(rng, P, D, d)
+        prop = (st['u'], st['v'], st['tl'], st['tr'], xibank, st['it'])
+        ts, tlc, trc, _ = kernels.spec_propose(*prop)
+        after = {k: x.clone() for k, x in st.items()}
+        kernels.spec_update(Lp, tin, ts, tlc, trc, Lmin, dirbank, after)
+        upd = (Lp, tin, ts, tlc, trc, Lmin, dirbank,
+               {k: x.clone() for k, x in st.items()})
+        p_dev = queued_ms([lambda: kernels.spec_propose(*prop)] * 50)
+        u_dev = queued_ms([lambda: kernels.spec_update(*upd)] * 50)
+        p_graph = graph_ms(lambda: kernels.spec_propose(*prop))
+        u_graph = graph_ms(lambda: kernels.spec_update(*upd))
+        p_b, u_b = propose_bound(P, D, d)[0], \
+            update_bound(P, D, d, tin, st, after)[0]
+        gap['spec_propose'] += n * (p_graph - p_b)
+        gap['spec_update'] += n * (u_graph - u_b)
+        print('K4/K5 at P=%d D=%d d=%d, %d launches on the paths (%s): K4 '
+              'device %.4f ms, in a graph %.4f ms (bound %.6f); K5 device '
+              '%.4f ms, in a graph %.4f ms (bound %.6f)' % (
+                  P, D, d, n, ', '.join(sorted(
+                      k for k, v in spec_launches.items() if key in v)),
+                  p_dev, p_graph, p_b, u_dev, u_graph, u_b))
+    return gap
+
+
+def print_ranking(real, spec=None):
     """Prints each kernel's launches x (device ms - bound ms) summed over
     the sampler paths of this run, largest first, every term from the
-    path's own replayed calls (*real*: kernel -> path -> its numbers)."""
+    path's own replayed calls (*real*: kernel -> path -> its numbers)
+    and, for K4 and K5, from their launches by shape (*spec*:
+    :func:`spec_gaps`)."""
     gap = {k: sum(r['calls'] * (r['device_ms'] - r['bound_ms'])
                   for r in paths.values()) for k, paths in real.items()}
+    gap.update(spec or {})
     gap['radius_member_t'] = 0.0
     print('ranking by launches x (device ms - bound ms) over the sampler '
-          'paths\' replayed calls: ' + ', '.join(
+          'paths: ' + ', '.join(
               '%s %.3f ms' % (k, v) for k, v in sorted(
                   gap.items(), key=lambda kv: -kv[1])))
     return gap
@@ -2574,7 +2768,6 @@ def main(argv=()):
         'TF32 must stay off for the whitening matmuls'
 
     from ultranest_torch.ops import kernels
-    from ultranest_torch.popfused import ROUND_OVERHEAD_S
     t0 = time.time()
     so = kernels.build()
     print('built %s in %.2f s' % (so.rsplit('/', 1)[-1], time.time() - t0))
@@ -2600,7 +2793,11 @@ def main(argv=()):
     shapes['consume_scan'] = [check_consume_scan(kernels, rng, *shape)
                               for shape in SCAN_SHAPES]
     errs['consume_scan'] = 0.0
-    spec = [check_spec_kernels(kernels, rng, *shape) for shape in SPEC_SHAPES]
+    registers = {name: regs for name, regs, _ in
+                 ptxas_summary(kernels.BUILD_LOG)}
+    check_launch_floor(kernels)
+    spec = [check_spec_kernels(kernels, rng, *shape, registers=registers)
+            for shape in SPEC_SHAPES]
     for i, name in enumerate(kernels.POPULATION_KERNELS):
         shapes[name] = [res[i] for res in spec]
         errs[name] = 0.0
@@ -2615,8 +2812,10 @@ def main(argv=()):
           % launches['radius_member_t'])
 
     # every path's K1, K2 and K3 calls are kept (KernelCapture) and
-    # replayed after the runs: the kernels on real traffic
+    # replayed after the runs: the kernels on real traffic; every spec
+    # sampler's depth decision is printed and kept (DepthProbes)
     traffic, path_launches = {}, {}
+    probes = DepthProbes().__enter__()
     eggbox_sampler = []
     with KernelCapture(kernels) as cap:
         run = run_eggbox(keep=eggbox_sampler)
@@ -2640,10 +2839,12 @@ def main(argv=()):
             '%s.pdf (%d bytes)' % kv for kv in plots.items())))
 
     launch_s, rounds, spec_kept = 0.0, 0, {}
-    for name in ('asymgauss50', 'rosenbrock8', 'multishell8', 'loggamma30',
-                 'gauss100'):
+    spec_problems = ('asymgauss50', 'rosenbrock8', 'multishell8',
+                     'loggamma30', 'gauss100')
+    for name in spec_problems:
         # a dispatch of asymgauss50 and of gauss100 is kept, to be run
         # again from the host loop and as graphs (check_walk_traffic)
+        probes.path = name
         with KernelCapture(kernels) as cap, SpecWalks() as walks, \
                 DispatchKeeper(5) as keeper:
             run = run_population_problem(name)
@@ -2664,14 +2865,34 @@ def main(argv=()):
             assert run['nsteps_final'] > 100, 'the governor never grew nsteps'
         # K3 runs on every path from here on: its count is the sum
         launches['consume_scan'] += run['launches']['consume_scan']
-    print('spec-walk round cost over the five problems: launch %.3f s over '
-          '%d rounds, %.4f ms per round (popfused.ROUND_OVERHEAD_S %.4f ms)'
-          % (launch_s, rounds, 1e3 * launch_s / rounds,
-             1e3 * ROUND_OVERHEAD_S))
+        if run['spec_depth'] < 8:
+            # a lowered depth must not cost time: the same run at depth 8
+            probes.path = name + ' at depth 8'
+            fixed = run_population_problem(name, spec_depth=8,
+                                           spec_depth_auto=False)
+            print('%s: the probe chose depth %d: wall %.3f s, ncall %d, logZ '
+                  '%.4f; at depth 8: wall %.3f s, ncall %d, logZ %.4f' % (
+                      name, run['spec_depth'], run['wall_s'], run['ncall'],
+                      run['logz'], fixed['wall_s'], fixed['ncall'],
+                      fixed['logz']))
+    print('spec-walk launch phase over the five problems: %.3f s over %d '
+          'rounds, %.4f ms per round' % (launch_s, rounds,
+                                         1e3 * launch_s / rounds))
+    measure_round_overheads(spec_problems)
     for name, kept in spec_kept.items():
         assert kept is not None, ('no dispatch kept', name)
         check_walk_traffic(kernels, name, kept)
     del spec_kept
+    # the slowest bench problem, at the bench's configuration
+    probes.path = 'gauss100_hard'
+    with KernelCapture(kernels) as cap, SpecWalks() as walks:
+        run = run_population_problem('gauss100_hard')
+    traffic['gauss100_hard'] = cap.calls
+    path_launches['gauss100_hard'] = run['launches']
+    print_population_run(run)
+    check_spec_path('gauss100_hard', walks.summary(), run['launches'], True)
+    for k in kernels.REGION_KERNELS + kernels.POPULATION_KERNELS:
+        launches[k] += run['launches'].get(k, 0)
 
     engines = {}
     for name in ('sync', 'async', 'sync8', 'rwalk', 'async_classic'):
@@ -2740,6 +2961,7 @@ def main(argv=()):
         launches (*run_fn* returns a summary with its ``launches``); its
         spec walks must run as CUDA graphs (and some must, on the paths
         of :data:`SPEC_PATHS`)."""
+        probes.path = name
         with KernelCapture(kernels) as cap, SpecWalks() as walks:
             out = run_fn(*args)
         traffic[name] = cap.calls
@@ -2855,7 +3077,14 @@ def main(argv=()):
                 counts.get(k, 0), ('calls kept and launched differ', k, name)
     if save_traffic:
         torch.save(traffic_on_host(traffic), save_traffic)
-    print_ranking(real)
+    spec = spec_gaps(kernels, SPEC_LAUNCHES)
+    print('K4 and K5 launches on the paths: %d by shape, %d counted' % (
+        sum(sum(v.values()) for v in SPEC_LAUNCHES.values()),
+        launches['spec_propose']))
+    print_ranking(real, spec)
+    print('spec depths chosen by the probe (path, popsize, d, depth): %s' % (
+        json.dumps([(r['path'], r['popsize'], r['x_dim'], r['depth'])
+                    for r in probes.rows])))
     print('chip_smoke: every phase passed in %.1f s' % (time.time() - t_start))
 
     # no single PyTorch call computes any of the six functions, so none

@@ -2,17 +2,20 @@
 """One kernel built from several sources and timed side by side.
 
 ``--kernel`` names the kernel: ``consume_scan`` (K3), ``radius_member``
-(K1), ``radius_member_t`` (K1t) or ``bootstrap_radius`` (K2). Each
-``--source NAME=PATH`` is a source file with that kernel's C entry point
+(K1), ``radius_member_t`` (K1t), ``bootstrap_radius`` (K2),
+``spec_propose`` (K4) or ``spec_update`` (K5). Each ``--source
+NAME=PATH`` is a source file with that kernel's C entry point
 (``un_consume_scan``, ``un_radius_member``, ``un_radius_member_t``,
-``un_bootstrap_radius``), e.g. the file of another commit taken from a
-``git archive``; a header it includes lies beside it. Each is built into
-a shared library of its own with nvcc, all compilers started together.
-``--legacy NAME`` marks a source with the entry point of before the
-redesign of K1, K1t and K2 (no group argument, no scratch argument).
+``un_bootstrap_radius``, ``un_spec_propose``, ``un_spec_update``), e.g.
+the file of another commit taken from a ``git archive``; a header it
+includes lies beside it. Each is built into a shared library of its own
+with nvcc, all compilers started together. ``--legacy NAME`` marks a
+source with the entry point of before the redesign of K1, K1t and K2 (no
+group argument, no scratch argument) or of K4 (no vector width).
 Then, on one CUDA card, at each of the kernel's shapes in
 ``chip_smoke.py`` (``SCAN_SHAPES``, ``MEMBER_SHAPES``,
-``BOOTSTRAP_SHAPES``; K1t: the membership shootout's shapes, at ``r2 =
+``BOOTSTRAP_SHAPES``, ``SPEC_SHAPES``: K5 also beside an empty kernel;
+K1t: the membership shootout's shapes, at ``r2 =
 4 d`` and at the candidates' median nearest distance, beside the
 package's K1, and each group size of a source that takes one) and on
 every path's real calls saved by ``python3 chip_smoke.py --save-traffic
@@ -352,10 +355,125 @@ def bench_bootstrap(fns, traffic, results):
                                         times=times)
 
 
+def propose_fn(so, legacy=False):
+    """The source's K4 as ``kernels.spec_propose`` calls it (no count);
+    *legacy*: the entry point of before its redesign (no vector width)."""
+    fn = ctypes.CDLL(so).un_spec_propose
+    fn.argtypes = [VP] * 6 + [CI] * (4 if legacy else 5) + [VP] * 5
+    fn.restype = CI
+
+    def call(u, v, tl, tr, xibank, it):
+        (P, d), (R, _, D) = u.shape, xibank.shape
+        dev = u.device
+        ts = torch.empty((P, D), dtype=torch.float32, device=dev)
+        tlc = torch.empty(P, dtype=torch.float32, device=dev)
+        trc = torch.empty(P, dtype=torch.float32, device=dev)
+        up = torch.empty((P * D, d), dtype=torch.float32, device=dev)
+        vec = [] if legacy else [kernels.propose_vector_width(d, u, v, up)]
+        _check_rc('un_spec_propose', fn(
+            u.data_ptr(), v.data_ptr(), tl.data_ptr(), tr.data_ptr(),
+            xibank.data_ptr(), it.data_ptr(), R, P, D, d, *vec,
+            ts.data_ptr(), tlc.data_ptr(), trc.data_ptr(), up.data_ptr(),
+            _stream()))
+        return ts, tlc, trc, up
+
+    return call
+
+
+def update_fn(so, legacy=False):
+    """The source's K5 as ``kernels.spec_update`` calls it (no count;
+    its entry point is the same before and after its redesign)."""
+    fn = ctypes.CDLL(so).un_spec_update
+    fn.argtypes, fn.restype = [VP] * 7 + [CI] * 4 + [VP] * 13, CI
+
+    def call(Lp, tin, ts, tlc, trc, Lmin, dirbank, st):
+        (P, D), (nsteps, _, d) = ts.shape, dirbank.shape
+        _check_rc('un_spec_update', fn(
+            Lp.data_ptr(), None if tin is None else tin.data_ptr(),
+            ts.data_ptr(), tlc.data_ptr(), trc.data_ptr(), Lmin.data_ptr(),
+            dirbank.data_ptr(), nsteps, P, D, d,
+            *(st[k].data_ptr() for k in kernels.SPEC_STATE), _stream()))
+
+    return call
+
+
+def _spec_inputs(P, D, d):
+    return chip_smoke.spec_round_inputs(np.random.RandomState(P + D + d), P,
+                                        D, d)
+
+
+def bench_propose(fns, traffic, results):
+    """K4 at ``chip_smoke.SPEC_SHAPES`` (no saved traffic: K4 runs inside
+    the spec walk's graphs)."""
+    for P, D, d in chip_smoke.SPEC_SHAPES:
+        st, xibank, _, _, _, _ = _spec_inputs(P, D, d)
+        a = (st['u'], st['v'], st['tl'], st['tr'], xibank, st['it'])
+        want = kernels.spec_propose_plain(*a)
+        for name, fn in fns.items():
+            assert all(chip_smoke.values_equal(x, y)
+                       for x, y in zip(fn(*a), want)), \
+                ('spec_propose differs', name, P, D, d)
+        bms, _ = chip_smoke.propose_bound(P, D, d)
+        times = time_sources(fns, [a])
+        report('K4 P=%d D=%d d=%d' % (P, D, d), bms, times)
+        results['shapes'].append(dict(P=P, D=D, d=d, bound_ms=bms,
+                                      times=times))
+
+
+def bench_update(fns, traffic, results):
+    """K5 at ``chip_smoke.SPEC_SHAPES``, bit-equal to the plain version
+    with and without the filter's rows, timed on one state that each
+    call moves on; first an empty kernel, the floor of a launch."""
+    floor = time_sources({'empty kernel': kernels._launch_empty}, [()])
+    report('empty kernel', 0.0, floor)
+    results['empty_kernel'] = floor
+    for P, D, d in chip_smoke.SPEC_SHAPES:
+        st, xibank, dirbank, Lp, tin, Lmin = _spec_inputs(P, D, d)
+        ts, tlc, trc, _ = kernels.spec_propose_plain(
+            st['u'], st['v'], st['tl'], st['tr'], xibank, st['it'])
+        for t in (tin, None):
+            plain = {k: x.clone() for k, x in st.items()}
+            kernels.spec_update_plain(Lp, t, ts, tlc, trc, Lmin, dirbank,
+                                      plain)
+            for name, fn in fns.items():
+                mine = {k: x.clone() for k, x in st.items()}
+                fn(Lp, t, ts, tlc, trc, Lmin, dirbank, mine)
+                bad = [k for k in kernels.SPEC_STATE
+                       if not chip_smoke.values_equal(mine[k], plain[k])]
+                assert not bad, ('spec_update differs', name, P, D, d,
+                                 t is None, bad)
+            if t is not None:
+                bms, _ = chip_smoke.update_bound(P, D, d, t, st, plain)
+        scratch = {k: x.clone() for k, x in st.items()}
+        times = time_sources(fns, [(Lp, tin, ts, tlc, trc, Lmin, dirbank,
+                                    scratch)])
+        report('K5 P=%d D=%d d=%d' % (P, D, d), bms, times)
+        # mid-dispatch: no walker done and none near its last step (2000
+        # steps of directions), so every call updates as a round does
+        # before walkers finish
+        mid = {k: x.clone() for k, x in st.items()}
+        mid['step'].zero_()
+        mid['done'].zero_()
+        dirs = 0.1 * torch.randn((2000, P, d), device='cuda')
+        after = {k: x.clone() for k, x in mid.items()}
+        kernels.spec_update_plain(Lp, tin, ts, tlc, trc, Lmin, dirs, after)
+        mid_bms, _ = chip_smoke.update_bound(P, D, d, tin, mid, after)
+        mid_times = time_sources(fns, [(Lp, tin, ts, tlc, trc, Lmin, dirs,
+                                        mid)])
+        report('K5 P=%d D=%d d=%d mid-dispatch' % (P, D, d), mid_bms,
+               mid_times)
+        del dirs
+        results['shapes'].append(dict(P=P, D=D, d=d, bound_ms=bms,
+                                      times=times, mid_bound_ms=mid_bms,
+                                      mid_times=mid_times))
+
+
 BENCHES = {'consume_scan': (scan_fn, bench_scan),
            'radius_member': (member_fn, bench_member),
            'radius_member_t': (member_t_fn, bench_member_t),
-           'bootstrap_radius': (bootstrap_fn, bench_bootstrap)}
+           'bootstrap_radius': (bootstrap_fn, bench_bootstrap),
+           'spec_propose': (propose_fn, bench_propose),
+           'spec_update': (update_fn, bench_update)}
 
 
 def host_us(fn, n=1000, chunk=100):

@@ -924,3 +924,148 @@ def test_uncapturable_likelihood_warns_and_runs_the_kernels(cuda):
     for a, b in zip(got, want):
         assert _same_bits(a, b)
     assert ok['graph']
+
+
+# --- K4 and K5 as redesigned for Hopper ------------------------------------
+
+def _edge_round_inputs(cuda, P, D, d, seed=11):
+    """:func:`_spec_round_inputs` with NaN chain values (a NaN in the
+    bank, a bracket of -inf to +inf), chain values of zero (a bracket of
+    -1 to 1 cut at its middle), zeros of both signs in the points,
+    directions and brackets, and NaN and tied likelihoods."""
+    st, xibank, dirbank, Lp, tin, Lmin = _spec_round_inputs(cuda, P, D, d,
+                                                            seed=seed)
+    it = int(st['it'])
+    xibank[it, ::11, 0] = float('nan')
+    st['tl'][1::13] = -float('inf')
+    st['tr'][1::13] = float('inf')
+    st['tl'][2::13] = -1.0
+    st['tr'][2::13] = 1.0
+    xibank[it, 2::13, :] = 0.5
+    st['tl'][3::13] = -0.0
+    st['tr'][4::13] = 0.0
+    st['u'][5::13, 0] = -0.0
+    st['v'][6::13, :] = 0.0
+    st['v'][7::13, :] = -0.0
+    Lp[::9] = float('nan')
+    Lp[4::9] = Lmin
+    return st, xibank, dirbank, Lp, tin, Lmin
+
+
+# P not a multiple of K4's 256-vector tile nor of K5's walkers a block;
+# D 1 and 40 (five ballots of 8); d 1 and 3 (scalar rows, 8 lanes a
+# walker), 8 and 16 (4 and 2 walkers a warp), 17, 50 (8-byte rows), 100
+# (16-byte rows), 130 (K5's coordinates above 128, read after the ballot)
+@pytest.mark.parametrize('P,D,d', [(4097, 8, 50), (2047, 8, 100),
+                                   (37, 1, 1), (129, 1, 3), (255, 8, 8),
+                                   (77, 8, 16), (300, 3, 17), (65, 5, 50),
+                                   (31, 8, 100), (70, 12, 130),
+                                   (5, 40, 8), (1, 8, 3)])
+@pytest.mark.parametrize('with_tin', [True, False])
+def test_spec_kernels_at_the_edges(cuda, P, D, d, with_tin):
+    """K4 and K5 bit for bit against their plain versions on NaN chain
+    values, signed zeros and NaN likelihoods, at ragged tiles."""
+    st, xibank, dirbank, Lp, tin, Lmin = _edge_round_inputs(cuda, P, D, d)
+    tin = tin if with_tin else None
+    prop = (st['u'], st['v'], st['tl'], st['tr'], xibank, st['it'])
+    got = kernels.spec_propose(*prop)
+    want = kernels.spec_propose_plain(*prop)
+    for a, b in zip(got, want):
+        assert _same_bits(a, b)
+    assert torch.isnan(want[0]).any()
+    ts, tlc, trc, _ = want
+    plain = {k: t.clone() for k, t in st.items()}
+    kernels.spec_update(Lp, tin, ts, tlc, trc, Lmin, dirbank, st)
+    kernels.spec_update_plain(Lp, tin, ts, tlc, trc, Lmin, dirbank, plain)
+    torch.cuda.synchronize()
+    for k in kernels.SPEC_STATE:
+        assert _same_bits(st[k], plain[k]), k
+
+
+@pytest.mark.parametrize('d', [100, 50, 3])
+def test_spec_propose_on_unaligned_rows(cuda, d):
+    """Points and directions that are views one float into a buffer:
+    K4 falls back to narrower accesses and keeps the bits."""
+    P, D = 96, 8
+    st, xibank, _, _, _, _ = _spec_round_inputs(cuda, P, D, d)
+    u = torch.empty(P * d + 1, device=cuda)[1:].view(P, d).copy_(st['u'])
+    v = torch.empty(P * d + 1, device=cuda)[1:].view(P, d).copy_(st['v'])
+    assert kernels.propose_vector_width(d, u, v) == 1
+    assert kernels.propose_vector_width(d, st['u'], st['v']) == \
+        (4 if d % 4 == 0 else 2 if d % 2 == 0 else 1)
+    prop = (u, v, st['tl'], st['tr'], xibank, st['it'])
+    for a, b in zip(kernels.spec_propose(*prop),
+                    kernels.spec_propose_plain(*prop)):
+        assert _same_bits(a, b)
+
+
+def test_depth_probe_times_a_graph_and_decides_the_same_twice(cuda):
+    """The probe times the likelihood as a captured graph's replay; two
+    samplers probed afresh choose the same depth (the bench's depth 8
+    for both problems)."""
+    from ultranest_torch import popfused
+    from ultranest_torch.models.problems import asymgauss, rosenbrock
+    for prob, popsize in ((asymgauss(50), 4096), (rosenbrock(8), 128)):
+        depths = []
+        for _ in range(2):
+            popfused._PROBE_CACHE.clear()
+            s = popfused.FusedPopulationSliceSampler(
+                popsize=popsize, nsteps=4, torch_loglike=prob.torch_loglike,
+                torch_transform=prob.torch_transform, device=cuda)
+            s._resolve_spec_depth(prob.ndim)
+            assert s.spec_probe['how'] == 'graph'
+            assert 0 <= s.spec_probe['t_row_s'] < 1e-3
+            assert 0 < s.spec_probe['fixed_s'] + s.spec_probe['t_row_s'] \
+                < 1e-3
+            depths.append(s.spec_depth)
+        assert depths[0] == depths[1] == 8, (prob.name, depths)
+    popfused._PROBE_CACHE.clear()
+
+
+def test_round_overhead_replays_the_host_loops_rounds(cuda):
+    """A, the round without the likelihood, from a captured chunk of
+    rounds: a positive device time, and the state the host loop's rounds
+    with the same constant likelihood leave."""
+    from ultranest_torch import popfused
+    P, D, d = 512, 8, 10
+    st, xibank, dirbank, Lp, _, Lmin = _spec_round_inputs(cuda, P, D, d,
+                                                          nsteps=40)
+    st['it'].zero_()
+    st['done'].zero_()
+    st['step'].zero_()
+    xibank = torch.rand((8, P, D), device=cuda)
+    want = {k: t.clone() for k, t in st.items()}
+    for _ in range(8):
+        popfused._spec_round(xibank, lambda rows: (Lp, None), Lmin, dirbank,
+                             want)
+    a = popfused.round_overhead(st, xibank, dirbank, Lmin, Lp, trials=3)
+    torch.cuda.synchronize()
+    assert 0 < a < 1e-3
+    for k in want:
+        assert _same_bits(st[k], want[k]), k
+    assert 0 < popfused.measure_round_overhead(256, 8, 8, 16, device=cuda,
+                                               trials=2) < 1e-3
+
+
+def test_depth_probe_of_an_uncapturable_likelihood_times_the_eager_call(
+        cuda):
+    """A likelihood that reads a value to the host cannot be captured:
+    the probe's capture marks the sampler's graphs failed (one warning
+    naming it), so its walks will run from the host loop, and the probe
+    times the eager calls they will pay."""
+    from ultranest_torch import popfused
+    from ultranest_torch.models.problems import asymgauss
+    prob = asymgauss(8)
+
+    def reads_the_host(x):
+        if float(x[0, 0].item()) > 2.0:      # never: a host read
+            x = x * 1.0
+        return prob.torch_loglike(x)
+    popfused._PROBE_CACHE.clear()
+    s = popfused.FusedPopulationSliceSampler(
+        popsize=128, nsteps=4, torch_loglike=reads_the_host, device=cuda)
+    with pytest.warns(RuntimeWarning, match='reads_the_host'):
+        s._resolve_spec_depth(8)
+    assert s.spec_probe['how'] == 'eager' and s._spec_graphs().failed
+    assert s.spec_probe['t_row_s'] + s.spec_probe['fixed_s'] > 0
+    popfused._PROBE_CACHE.clear()

@@ -230,3 +230,55 @@ def test_profile_run_splits_the_round():
     assert 'round_body (own)' in split
     assert sum(split.values()) == pytest.approx(total, rel=1e-6)
     assert 'function calls' in profile_run.top_entries(pr, 'tottime', 5)
+
+
+def test_bias_audit_fixed_nsteps_entry():
+    """The port's gauss100 entry at a fixed nsteps of 800: the bench's
+    gauss100 with the governor off, held to the JAX record's gauss100;
+    the JAX tool's own entries stay as they are."""
+    spec = bias_audit.PORT_PROBLEMS['gauss100_fixed800']
+    ref = bias_audit.PROBLEMS['gauss100']
+    assert spec['nsteps'] == 800 and 'skw' not in spec
+    assert spec['anchor'] == 'gauss100'
+    assert {k: spec[k] for k in ('factory', 'fkw', 'popsize')} == \
+        {k: ref[k] for k in ('factory', 'fkw', 'popsize')}
+    assert not set(bias_audit.PORT_PROBLEMS) & set(bias_audit.PROBLEMS)
+
+
+JAX_RECORD = os.path.join(_REPO, 'evaluate', 'records',
+                          'bias_audit_anchors_r5_2026-08-20.json')
+PORT_RECORD = os.path.join(
+    _REPO, 'ultranest_torch', 'evaluate', 'records',
+    'bias_audit_gauss100_h100_20seeds_2026-10-17.json')
+
+
+def test_bias_audit_welch_comparison_against_a_jax_record(monkeypatch,
+                                                         tmp_path):
+    """Welch's t of the mean logZ equals scipy's unequal-variance t test
+    on the port's 20-seed gauss100 record against the JAX package's; the
+    CLI puts it in the audit line of a port entry, against its anchor."""
+    import scipy.stats
+    jax_rows = bias_audit.record_rows(JAX_RECORD, 'gauss100')
+    port_rows = bias_audit.record_rows(PORT_RECORD, 'gauss100')
+    assert len(jax_rows) == 10 and len(port_rows) == 20
+    w = bias_audit.welch(port_rows, jax_rows)
+    ref = scipy.stats.ttest_ind([r['logz'] for r in port_rows],
+                                [r['logz'] for r in jax_rows],
+                                equal_var=False)
+    assert w['t'] == round(float(ref.statistic), 3)
+    assert w['p'] == round(float(ref.pvalue), 4)
+    assert (w['n'], w['ref_n']) == (20, 10)
+    assert abs(w['mean'] - 0.556) < 1e-3 and abs(w['ref_mean'] - 0.474) < 1e-3
+    with pytest.raises(KeyError):
+        bias_audit.record_rows(PORT_RECORD, 'gauss100_hard')
+    monkeypatch.setattr(bias_audit, 'run_one', lambda spec, seed, **kw: dict(
+        seed=seed, logz=0.1 * seed, logzerr=1.0, truth=0.0))
+    out = tmp_path / 'fixed.jsonl'
+    assert bias_audit.main(['--problem', 'gauss100_fixed800', '--seeds', '3',
+                            '--device', 'cpu', '--out', str(out),
+                            '--jax-record', JAX_RECORD]) == 0
+    line = json.loads(out.read_text())
+    assert line['problem'] == 'gauss100_fixed800'
+    assert line['welch']['anchor'] == 'gauss100'
+    assert line['welch']['n'] == 3 and line['welch']['ref_n'] == 10
+    assert line['welch']['mean'] == 0.2

@@ -282,3 +282,47 @@ def test_segment_dispatch_records_replay():
     live_u2, live_L2 = s._seg_state
     np.testing.assert_array_equal(np.sort(live_L2.numpy()[:len(lL)]),
                                   np.sort(lL.astype(np.float32)))
+
+
+def test_segment_pending_counts_dispatches_in_flight_as_the_reference():
+    """``segment_pending`` (``ultranest_tpu/fused.py:774-777``) through a
+    segment start, two launches, two fetches and the stop, on both
+    packages' samplers fed the same live set and region."""
+    ref_region = _reference_region('blobs')
+    state = reference_state(ref_region, live_L=_loglike_np(ref_region.u))
+    region = region_from_reference(state, 'cpu')
+    live_u, live_L = live_from_state(state)
+    port = tfused.FusedRegionSampler(_loglike_torch, None, 3, seed=6,
+                                     device='cpu')
+    ref = jfused.FusedRegionSampler(
+        lambda x: -0.5 * (((x - 0.5) / 0.1) ** 2).sum(axis=1), None, 3,
+        seed=6)
+    seen = []
+
+    def both():
+        seen.append((ref.segment_pending(), port.segment_pending()))
+
+    both()
+    for s, reg in ((ref, ref_region), (port, region)):
+        s.segment_start(live_u, live_L, ndraw=1024)
+    both()
+    for s, reg in ((ref, ref_region), (port, region)):
+        s.segment_launch(reg)
+    both()
+    for s, reg in ((ref, ref_region), (port, region)):
+        s.segment_launch(reg)
+    both()
+    for s in (ref, port):
+        s.segment_fetch()
+    both()
+    for s in (ref, port):
+        s.segment_fetch()
+    both()
+    for s, reg in ((ref, ref_region), (port, region)):
+        s.segment_launch(reg)
+    both()
+    for s in (ref, port):
+        s.segment_stop()
+    both()
+    assert [r for r, _ in seen] == [p for _, p in seen] == \
+        [0, 0, 1, 2, 1, 0, 1, 0]

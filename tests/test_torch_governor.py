@@ -231,7 +231,7 @@ def test_spec_depth_probe_is_off_on_cpu_and_memoised(monkeypatch):
     assert s.spec_depth == 1 and calls == [2, 2]
     # the probe times the rows of one round at the configured depth
     t_row = tpop._PROBE_CACHE[(slow_loglike, None, 64, 2, 8,
-                               torch.device('cpu'))]
+                               torch.device('cpu'))]['t_row_s']
     assert 0.005 < t_row < 0.1
 
 

@@ -310,6 +310,31 @@ def test_build_dir_prefers_the_package_and_raises_without_any(tmp_path,
         kernels.build()
 
 
+def test_build_keeps_the_compilers_report_beside_the_library(tmp_path,
+                                                            monkeypatch):
+    """``kernels.BUILD_LOG`` (ptxas registers and spills) is the build's
+    output, and a later process that finds the library built reads the
+    same report back (a stand-in nvcc writes each output file)."""
+    from ultranest_torch.ops import kernels
+    fake = tmp_path / 'nvcc'
+    fake.write_text('#!/bin/sh\nout=""; prev=""\n'
+                    'for a in "$@"; do [ "$prev" = "-o" ] && out="$a"; '
+                    'prev="$a"; done\n'
+                    'echo "ptxas info    : Used 30 registers"\n'
+                    'echo x > "$out"\n')
+    fake.chmod(0o755)
+    monkeypatch.setenv('NVCC', str(fake))
+    monkeypatch.setattr(kernels, 'BUILD_DIR', str(tmp_path / '_build'))
+    monkeypatch.setattr(kernels, 'BUILD_LOG', '')
+    so = kernels.build()
+    assert (tmp_path / '_build' / so.rsplit('/', 1)[-1]).exists()
+    report = kernels.BUILD_LOG
+    # one compiler per source, then the link
+    assert report.count('Used 30 registers') == len(kernels.SOURCES) + 1
+    monkeypatch.setattr(kernels, 'BUILD_LOG', '')
+    assert kernels.build() == so and kernels.BUILD_LOG == report
+
+
 def _small_run(seed=3):
     from ultranest_torch import ReactiveNestedSampler
 

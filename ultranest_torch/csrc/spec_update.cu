@@ -18,8 +18,8 @@
 //     tl, tr = the chord of u + t v through the unit cube
 // The state (u, L, v, tl, tr, step, done) is updated in place: each
 // walker owns its row. The round counter it advances by one. The three
-// counts are int64 sums (atomics, exact in any order); the float sum of
-// wbuf is left to the caller, so that its order stays torch's.
+// counts are int64 sums (exact in any order); the float sum of wbuf is
+// left to the caller, so that its order stays torch's.
 //
 // The chord, as the plain version's _cube_intersection: per axis with
 // v != 0, a = (0 - u) / v and b = (1 - u) / v, each operation rounded
@@ -31,13 +31,26 @@
 // signs on two axes (a walker exactly on a cube corner), the two folds
 // may keep either sign, as torch's reductions may.
 //
-// Bound on an H100: bytes. A walker reads its D likelihoods, ts and
-// tin, and its u, v (and, renewed, a row of dirbank); it writes u, v
-// and a few scalars: at P 4096, D 8, d 50 about 2.5 MB, under 1 us at
-// 3.35 TB/s. Design: one warp a walker, its lanes over the chain (32
-// candidates at a time, a ballot finds the first hit) and then over
-// the d coordinates, so that the row reads and writes are coalesced;
-// the chord's max and min fold across the lanes with shuffles.
+// Bound on an H100: bytes, but far below a launch. A walker reads its
+// D likelihoods, ts and tin, and its u, v (and, renewed, a row of
+// dirbank); it writes u, v and a few scalars: at P 4096, D 8, d 50
+// about 2.5 MB, under 1 us at 3.35 TB/s, which is less than an empty
+// kernel takes on the card. So what sets its time is the latency of
+// its chain of dependent reads, and the launch. Design: a group of G
+// lanes a walker (G 8 for d <= 8, 16 for d <= 16, else 32, so that a
+// warp packs 4, 2 or 1 walkers), its lanes over the chain (G
+// candidates at a time, a ballot finds the first hit) and over the d
+// coordinates. The reads that do not wait for the first hit are issued
+// before the ballot: the candidates' Lp, ts and tin, the walker's
+// flag, step, bracket and shrunk bracket, and, for a walker not done,
+// its u and v and the one row of dirbank a renewal can take (step +
+// 1's), up to NK coordinates a lane in registers (the rest, above d
+// 128, read after the ballot); the hit's t and L come from the lane
+// that read them by a shuffle. The chord's max and min fold across the
+// group's lanes with shuffles, in the warps where some walker renews.
+// The counts are summed in shared memory, one 64-bit atomic a counter
+// a block: atomics on the same three addresses from every walker
+// serialise in L2.
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
@@ -46,7 +59,6 @@ namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
 
 // torch.maximum / torch.minimum: a NaN operand wins; a tie keeps a
 __device__ __forceinline__ float max_nan(float a, float b) {
@@ -61,6 +73,20 @@ __device__ __forceinline__ float min_nan(float a, float b) {
   return b < a ? b : a;
 }
 
+// fold one axis of the chord of u + t v through the unit cube into
+// (lo, hi)
+__device__ __forceinline__ void chord(float uk, float vk, float& lo,
+                                      float& hi) {
+  float a = -CUDART_INF_F, b = CUDART_INF_F;
+  if (vk != 0.0f) {
+    a = __fdiv_rn(__fsub_rn(0.0f, uk), vk);
+    b = __fdiv_rn(__fsub_rn(1.0f, uk), vk);
+  }
+  lo = max_nan(lo, min_nan(a, b));
+  hi = min_nan(hi, max_nan(a, b));
+}
+
+template <int G, int NK>
 __global__ void __launch_bounds__(kThreads)
 spec_update_kernel(const float* __restrict__ Lp,
                    const uint8_t* __restrict__ tin,
@@ -74,71 +100,123 @@ spec_update_kernel(const float* __restrict__ Lp,
                    uint8_t* __restrict__ done, float* __restrict__ wbuf,
                    int64_t* __restrict__ ncr, int64_t* __restrict__ nur,
                    int64_t* __restrict__ nw, int64_t* __restrict__ it) {
+  __shared__ unsigned counts[3];   // billed, useful, accepted
+  if (threadIdx.x < 3) counts[threadIdx.x] = 0;
   if (blockIdx.x == 0 && threadIdx.x == 0) *it += 1;
   const int lane = threadIdx.x & 31;
-  const int p = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  if (p >= P) return;   // the whole warp: p is the warp's
+  const int gl = lane & (G - 1);      // lane in the walker's group
+  const int gbase = lane - gl;
+  const unsigned gbits = G == 32 ? kFull : (1u << (G & 31)) - 1u;
+  const int p = static_cast<int>((blockIdx.x * kThreads + threadIdx.x) / G);
+  const bool live = p < P;   // the lanes past P only join the shuffles
+
+  // every read that does not wait for the first hit
   const float Lmin = *Lmin_p;
-  const bool active = done[p] == 0;
+  bool active = false;
+  int64_t step0 = 0;
+  float tl0 = 0.0f, tr0 = 0.0f, tlc0 = 0.0f, trc0 = 0.0f;
+  if (live) {
+    active = done[p] == 0;
+    step0 = step[p];
+    if (gl == 0) {
+      tl0 = tl[p];
+      tr0 = tr[p];
+      tlc0 = tlc[p];
+      trc0 = trc[p];
+    }
+  }
   const int64_t row = static_cast<int64_t>(p) * D;
+  const int64_t off = static_cast<int64_t>(p) * d;
+  // the one direction a renewal can take: step + 1's
+  int64_t s = step0 + 1;
+  s = s < nsteps ? s : nsteps - 1;
+  s = s < 0 ? 0 : s;
+  const float* vn = dirbank + (s * P + p) * static_cast<int64_t>(d);
+  float uk[NK], vk[NK], wk[NK];
+#pragma unroll
+  for (int i = 0; i < NK; ++i) {
+    const int k = gl + i * G;
+    uk[i] = vk[i] = wk[i] = 0.0f;
+    if (active && k < d) {
+      uk[i] = u[off + k];
+      vk[i] = v[off + k];
+      wk[i] = vn[k];
+    }
+  }
 
-  // the first hit in chain order
+  // the first hit in chain order, G candidates at a time; billed rows,
+  // and those a sequential sampler would have evaluated (j <= jstar, or
+  // all while no candidate hit)
   int jstar = D;
-  for (int j0 = 0; j0 < D && jstar == D; j0 += 32) {
-    const int j = j0 + lane;
-    const bool hit = j < D && Lp[row + j] > Lmin;
-    const unsigned hb = __ballot_sync(kFull, hit);
-    if (hb) jstar = j0 + __ffs(hb) - 1;
-  }
-  const bool anyhit0 = jstar < D;
-  const int kneed = anyhit0 ? jstar + 1 : D;
-  if (!anyhit0) jstar = D - 1;
-  // billed rows, and those a sequential sampler would have evaluated
+  float tstar = 0.0f, Lstar = 0.0f;
   int nbilled = 0, nuseful = 0;
-  for (int j0 = 0; j0 < D; j0 += 32) {
-    const int j = j0 + lane;
-    const bool bill = j < D && active && (tin == nullptr || tin[row + j] != 0);
-    nbilled += __popc(__ballot_sync(kFull, bill));
-    nuseful += __popc(__ballot_sync(kFull, bill && j < kneed));
+  for (int j0 = 0; j0 < D; j0 += G) {
+    const int j = j0 + gl;
+    const bool in = live && j < D;
+    float Lj = 0.0f, tj = 0.0f;
+    bool bill = false;
+    if (in) {
+      Lj = Lp[row + j];
+      tj = ts[row + j];
+      bill = active && (tin == nullptr || tin[row + j] != 0);
+    }
+    const unsigned hb = (__ballot_sync(kFull, in && Lj > Lmin) >> gbase)
+                        & gbits;
+    const int first = hb ? __ffs(hb) - 1 : 0;
+    const float tf = __shfl_sync(kFull, tj, gbase + first);
+    const float Lf = __shfl_sync(kFull, Lj, gbase + first);
+    if (hb && jstar == D) {
+      jstar = j0 + first;
+      tstar = tf;
+      Lstar = Lf;
+    }
+    nbilled += __popc((__ballot_sync(kFull, bill) >> gbase) & gbits);
+    nuseful += __popc((__ballot_sync(kFull, bill && j <= jstar) >> gbase)
+                      & gbits);
   }
 
-  const bool anyhit = anyhit0 && active;
-  const int64_t step_new = step[p] + (anyhit ? 1 : 0);
+  const bool anyhit = jstar < D && active;
+  const int64_t step_new = step0 + (anyhit ? 1 : 0);
   const bool done_new = !active || (anyhit && step_new >= nsteps);
   const bool renew = anyhit && !done_new;
-  const float tstar = ts[row + jstar];
-  const int64_t off = static_cast<int64_t>(p) * d;
   float lo = -CUDART_INF_F, hi = CUDART_INF_F;
   if (anyhit) {
-    const int64_t s = step_new < nsteps ? step_new : nsteps - 1;
-    const float* vn = dirbank + (s * P + p) * static_cast<int64_t>(d);
-    for (int k = lane; k < d; k += 32) {
-      const float uk = __fadd_rn(u[off + k], __fmul_rn(tstar, v[off + k]));
-      u[off + k] = uk;
-      if (renew) {
-        const float vk = vn[k];
-        v[off + k] = vk;
-        float a = -CUDART_INF_F, b = CUDART_INF_F;
-        if (vk != 0.0f) {
-          a = __fdiv_rn(__fsub_rn(0.0f, uk), vk);
-          b = __fdiv_rn(__fsub_rn(1.0f, uk), vk);
+#pragma unroll
+    for (int i = 0; i < NK; ++i) {
+      const int k = gl + i * G;
+      if (k < d) {
+        const float un = __fadd_rn(uk[i], __fmul_rn(tstar, vk[i]));
+        u[off + k] = un;
+        if (renew) {
+          v[off + k] = wk[i];
+          chord(un, wk[i], lo, hi);
         }
-        lo = max_nan(lo, min_nan(a, b));
-        hi = min_nan(hi, max_nan(a, b));
+      }
+    }
+    for (int k = gl + NK * G; k < d; k += G) {
+      const float un = __fadd_rn(u[off + k], __fmul_rn(tstar, v[off + k]));
+      u[off + k] = un;
+      if (renew) {
+        const float w = vn[k];
+        v[off + k] = w;
+        chord(un, w, lo, hi);
       }
     }
   }
-  if (renew) {
-    for (int o = 16; o > 0; o >>= 1) {
-      lo = max_nan(lo, __shfl_down_sync(kFull, lo, o));
-      hi = min_nan(hi, __shfl_down_sync(kFull, hi, o));
+  // every lane of a warp in which some walker renews takes part; a
+  // group that renews nothing folds +-inf
+  if (__any_sync(kFull, renew)) {
+#pragma unroll
+    for (int o = G / 2; o > 0; o >>= 1) {
+      lo = max_nan(lo, __shfl_xor_sync(kFull, lo, o));
+      hi = min_nan(hi, __shfl_xor_sync(kFull, hi, o));
     }
   }
-  if (lane == 0) {
-    const float tl0 = tl[p], tr0 = tr[p];
+  __syncthreads();   // the block's counts are zeroed
+  if (live && gl == 0) {
     wbuf[p] = anyhit ? __fsub_rn(tr0, tl0) : 0.0f;
     if (anyhit) {
-      L[p] = Lp[row + jstar];
+      L[p] = Lstar;
       step[p] = step_new;
     }
     done[p] = done_new ? 1 : 0;
@@ -146,16 +224,38 @@ spec_update_kernel(const float* __restrict__ Lp,
       tl[p] = lo;
       tr[p] = hi;
     } else if (!anyhit && !done_new) {
-      tl[p] = tlc[p];
-      tr[p] = trc[p];
+      tl[p] = tlc0;
+      tr[p] = trc0;
     }
-    if (nbilled) atomicAdd(reinterpret_cast<unsigned long long*>(ncr),
-                           static_cast<unsigned long long>(nbilled));
-    if (nuseful) atomicAdd(reinterpret_cast<unsigned long long*>(nur),
-                           static_cast<unsigned long long>(nuseful));
-    if (anyhit) atomicAdd(reinterpret_cast<unsigned long long*>(nw), 1ull);
+    if (nbilled) atomicAdd(&counts[0], static_cast<unsigned>(nbilled));
+    if (nuseful) atomicAdd(&counts[1], static_cast<unsigned>(nuseful));
+    if (anyhit) atomicAdd(&counts[2], 1u);
+  }
+  __syncthreads();
+  if (threadIdx.x < 3 && counts[threadIdx.x]) {
+    int64_t* dst = threadIdx.x == 0 ? ncr : threadIdx.x == 1 ? nur : nw;
+    atomicAdd(reinterpret_cast<unsigned long long*>(dst),
+              static_cast<unsigned long long>(counts[threadIdx.x]));
   }
 }
+
+template <int G, int NK>
+int launch(const float* Lp, const uint8_t* tin, const float* ts,
+           const float* tlc, const float* trc, const float* Lmin,
+           const float* dirbank, int nsteps, int P, int D, int d, float* u,
+           float* L, float* v, float* tl, float* tr, int64_t* step,
+           uint8_t* done, float* wbuf, int64_t* ncr, int64_t* nur,
+           int64_t* nw, int64_t* it, cudaStream_t stream) {
+  const int64_t threads = static_cast<int64_t>(P) * G;
+  const int blocks = P > 0 ? static_cast<int>((threads + kThreads - 1)
+                                              / kThreads) : 1;
+  spec_update_kernel<G, NK><<<blocks, kThreads, 0, stream>>>(
+      Lp, tin, ts, tlc, trc, Lmin, dirbank, nsteps, P, D, d, u, L, v, tl, tr,
+      step, done, wbuf, ncr, nur, nw, it);
+  return static_cast<int>(cudaGetLastError());
+}
+
+__global__ void empty_kernel() {}
 
 }  // namespace
 
@@ -168,10 +268,22 @@ extern "C" int un_spec_update(const float* Lp, const uint8_t* tin,
                               float* tr, int64_t* step, uint8_t* done,
                               float* wbuf, int64_t* ncr, int64_t* nur,
                               int64_t* nw, int64_t* it, void* stream) {
-  const int blocks = P > 0 ? (P + kWarps - 1) / kWarps : 1;
-  spec_update_kernel<<<blocks, kThreads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-      Lp, tin, ts, tlc, trc, Lmin, dirbank, nsteps, P, D, d, u, L, v, tl, tr,
-      step, done, wbuf, ncr, nur, nw, it);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define UN_SPEC_UPDATE(G, NK)                                              \
+  return launch<G, NK>(Lp, tin, ts, tlc, trc, Lmin, dirbank, nsteps, P, D, \
+                       d, u, L, v, tl, tr, step, done, wbuf, ncr, nur, nw,  \
+                       it, s)
+  if (d <= 8) UN_SPEC_UPDATE(8, 1);
+  if (d <= 16) UN_SPEC_UPDATE(16, 1);
+  if (d <= 32) UN_SPEC_UPDATE(32, 1);
+  if (d <= 64) UN_SPEC_UPDATE(32, 2);
+  UN_SPEC_UPDATE(32, 4);
+#undef UN_SPEC_UPDATE
+}
+
+// An empty kernel: the least time a launch takes on the card, the floor
+// that K5's time is set beside.
+extern "C" int un_empty_kernel(void* stream) {
+  empty_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>();
   return static_cast<int>(cudaGetLastError());
 }

@@ -551,6 +551,12 @@ class FusedRegionSampler:
             plateau=flags >= 2, dup=(flags % 2) >= 1,
             nc=nc, done_frac=float(scal[1]), width=float(scal[2]))
 
+    def segment_pending(self):
+        """Number of dispatches in flight (``fused.py:774-777``): launched
+        and not yet fetched; 0 outside segment mode."""
+        q = getattr(self, '_seg_queue', None)
+        return len(q) if q else 0
+
     def segment_stop(self):
         """Leave segment mode, dropping device state and queued work."""
         self._seg_state = None

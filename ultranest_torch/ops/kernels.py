@@ -128,7 +128,12 @@ def _nvcc():
 
 
 def build():
-    """Compile the CUDA sources (once per source hash); returns the path."""
+    """Compile the CUDA sources (once per source hash); returns the path.
+
+    :data:`BUILD_LOG` holds the compilers' output (``-Xptxas -v``: each
+    kernel's registers and spills), also where the library was built
+    before (kept beside it).
+    """
     global BUILD_LOG
     h = hashlib.sha256(' '.join(NVCC_FLAGS).encode())
     srcs = [os.path.join(_CSRC, s) for s in SOURCES]
@@ -139,6 +144,10 @@ def build():
     so = os.path.join(out_dir, 'libultranest_kernels-%s.so'
                       % h.hexdigest()[:16])
     if os.path.exists(so):
+        # the compilers' report (registers, spills) of the build that made it
+        if os.path.exists(so + '.log'):
+            with open(so + '.log') as f:
+                BUILD_LOG = f.read()
         return so
     nvcc = _nvcc()
     with tempfile.TemporaryDirectory(dir=out_dir) as tmpdir:
@@ -159,6 +168,9 @@ def build():
         BUILD_LOG += proc.stdout + proc.stderr
         if proc.returncode != 0:
             raise RuntimeError('nvcc link failed:\n' + BUILD_LOG)
+        with open(tmp + '.log', 'w') as f:
+            f.write(BUILD_LOG)
+        os.replace(tmp + '.log', so + '.log')
         os.replace(tmp, so)
     return so
 
@@ -176,11 +188,13 @@ def _lib():
             lib.un_bootstrap_radius.argtypes = [vp, vp, vp, ci, ci, ci, vp,
                                                 vp, vp]
             lib.un_consume_scan.argtypes = [vp, ci, vp, vp, ci, vp, vp, vp]
-            lib.un_spec_propose.argtypes = [vp] * 6 + [ci] * 4 + [vp] * 5
+            lib.un_spec_propose.argtypes = [vp] * 6 + [ci] * 5 + [vp] * 5
             lib.un_spec_update.argtypes = [vp] * 7 + [ci] * 4 + [vp] * 13
+            lib.un_empty_kernel.argtypes = [vp]
             for fn in (lib.un_radius_member, lib.un_radius_member_t,
                        lib.un_bootstrap_radius, lib.un_consume_scan,
-                       lib.un_spec_propose, lib.un_spec_update):
+                       lib.un_spec_propose, lib.un_spec_update,
+                       lib.un_empty_kernel):
                 fn.restype = ci
             _LIB = lib
     return _LIB
@@ -613,18 +627,33 @@ def spec_propose(u, v, tl, tr, xibank, it):
         _check_shape(t, name, torch.float32, (P,))
     _check_shape(xibank, 'xibank', torch.float32, (R, P, D))
     _check_shape(it, 'it', torch.int64, ())
-    if R < 1 or D < 1:
-        raise ValueError('xibank needs a round and a candidate, got shape %s'
-                         % (tuple(xibank.shape),))
+    if R < 1 or D < 1 or d < 1:
+        raise ValueError('spec_propose needs a round, a candidate and a '
+                         'coordinate, got xibank %s and u %s'
+                         % (tuple(xibank.shape), tuple(u.shape)))
+    if P * D * d >= 2**31:
+        raise ValueError('spec_propose takes fewer than 2**31 row values, '
+                         'got P %d, D %d, d %d' % (P, D, d))
     ts = torch.empty((P, D), dtype=torch.float32, device=u.device)
     tlc = torch.empty(P, dtype=torch.float32, device=u.device)
     trc = torch.empty(P, dtype=torch.float32, device=u.device)
     up = torch.empty((P * D, d), dtype=torch.float32, device=u.device)
     _launch('spec_propose', _lib().un_spec_propose, u.data_ptr(),
             v.data_ptr(), tl.data_ptr(), tr.data_ptr(), xibank.data_ptr(),
-            it.data_ptr(), R, P, D, d, ts.data_ptr(), tlc.data_ptr(),
-            trc.data_ptr(), up.data_ptr())
+            it.data_ptr(), R, P, D, d, propose_vector_width(d, u, v, up),
+            ts.data_ptr(), tlc.data_ptr(), trc.data_ptr(), up.data_ptr())
     return ts, tlc, trc, up
+
+
+def propose_vector_width(d, *tensors):
+    """Floats a K4 thread reads or writes in one access: 4 or 2 where *d* is
+    a multiple of it and every tensor's data is aligned to its bytes
+    (16 or 8), else 1."""
+    for vec in (4, 2):
+        if d % vec == 0 and all(t.data_ptr() % (4 * vec) == 0
+                                for t in tensors):
+            return vec
+    return 1
 
 
 def spec_update_plain(Lp, tin, ts, tlc, trc, Lmin, dirbank, state):
@@ -731,3 +760,13 @@ def spec_update(Lp, tin, ts, tlc, trc, Lmin, dirbank, state):
             tlc.data_ptr(), trc.data_ptr(), Lmin.data_ptr(),
             dirbank.data_ptr(), nsteps, P, D, d,
             *(st[k].data_ptr() for k in SPEC_STATE))
+
+
+def _launch_empty():
+    """Launch an empty kernel on the current stream: the floor of a
+    launch, which ``chip_smoke.py`` sets beside K5's time. Counted
+    nowhere."""
+    rc = _lib().un_empty_kernel(
+        ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+    if rc != 0:
+        raise RuntimeError('empty kernel launch failed: cudaError_t %d' % rc)

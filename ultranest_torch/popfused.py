@@ -62,6 +62,7 @@ import collections
 import logging
 import math
 import time
+import types
 import warnings
 
 import numpy as np
@@ -85,7 +86,8 @@ from .segmentops import (consume_scan, pack_segment, whitened_cloud_var,
 __all__ = ['FusedPopulationSliceSampler', 'FusedPopulationRandomWalkSampler',
            'draw_spec_banks', 'draw_sync_banks', 'draw_rwalk_banks',
            'spec_walk', 'sync_walk', 'rwalk_walk', 'spec_max_rounds',
-           'optimal_spec_depth', 'SpecGraphs', 'SPEC_CHECK_EVERY',
+           'optimal_spec_depth', 'SpecGraphs', 'graph_call_seconds',
+           'round_overhead', 'measure_round_overhead', 'SPEC_CHECK_EVERY',
            'SYNC_CHECK_EVERY', 'ROUND_OVERHEAD_S']
 
 # rounds between two host reads of a walk's "done" flag
@@ -96,21 +98,22 @@ SPEC_CHECK_EVERY = 8
 # live points) took 2.09-2.20 s at 2, 2.00-2.52 s at 4, 2.31-2.33 s at
 # 1 and 3.70-4.15 s read every 8 one check behind, with equal results.
 SYNC_CHECK_EVERY = 2
-# Fixed cost of one spec-walk round on the card, the A of
-# optimal_spec_depth: a round replayed from a CUDA graph (K4, the
-# likelihood, K5, the width sum), the host waiting on the card one flag
-# read behind. Measured as the segment launch phase summed over the
-# spec-walk bench problems (asymgauss50, rosenbrock8, multishell8,
-# loggamma30, gauss100, as chip_smoke.py runs them) over their rounds:
-# 5.050 s over 51 616 rounds, 0.0978 ms per round (0.084-0.128 ms per
-# problem) on an NVIDIA H100 80GB HBM3 at a 700 W power limit. The
-# host loop of torch ops it replaced cost 1.888 ms a round there; the
-# reference's 350 us was taken on a TPU.
-ROUND_OVERHEAD_S = 9.78e-5
+# Fixed cost of one spec-walk round on the card without the likelihood,
+# the A of optimal_spec_depth: K4, K5, the width sum and an eighth of the
+# "finished" flag, replayed from a CUDA graph with the likelihood
+# replaced by a constant on the device (round_overhead), measured by
+# measure_round_overhead at the five spec-walk bench problems' shapes as
+# chip_smoke.py runs them (asymgauss50 0.0145 ms, rosenbrock8 0.0084,
+# multishell8 0.0084, loggamma30 0.0092, gauss100 0.0137), their mean,
+# on an NVIDIA H100 80GB HBM3 at a 700 W power limit. The depth probe
+# adds the likelihood's own fixed cost a call to it. The graph walk's
+# launch phase over rounds, likelihood included, was 0.0978 ms before
+# K4 and K5 were redesigned; the reference's 350 us was taken on a TPU.
+ROUND_OVERHEAD_S = 1.0847e-5
 
 _LOG = logging.getLogger('ultranest_torch.popfused')
 # likelihood-cost probe results: (loglike, transform, popsize, x_dim,
-# device) -> seconds per popsize-row batch
+# depth, device) -> _probe_likelihood_cost's dict
 _PROBE_CACHE = {}
 
 
@@ -460,6 +463,169 @@ class _SpecGraphEntry:
         self.flag = torch.zeros((), dtype=torch.bool, device=dev)
         self.graphs = {}
         self.pool = None
+
+
+# spin cycles (torch.cuda._sleep) that keep the card busy while the host
+# queues the replays a timing measures: about a millisecond on an H100
+_SPIN_CYCLES = 2_000_000
+
+
+def _replay_seconds(graph, dev, reps):
+    """Device seconds of one replay of *graph*, its *reps* replays queued
+    behind a spin kernel so that the card runs them back to back and the
+    host's launches do not pace them."""
+    cycles = _SPIN_CYCLES
+    for _ in range(4):
+        torch.cuda.synchronize(dev)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(reps):
+            graph.replay()
+        end.record()
+        behind = not start.query()
+        end.synchronize()
+        if behind:
+            break
+        cycles *= 4
+    return start.elapsed_time(end) * 1e-3 / reps
+
+
+def _eager_seconds(fn, on_card):
+    """Seconds of one eager call of *fn*, the best of three after a
+    warm-up call: CUDA events on a card, else the host clock."""
+    best = math.inf
+    for i in range(4):
+        if on_card:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            t = start.elapsed_time(end) * 1e-3
+        else:
+            t0 = time.perf_counter()
+            fn()
+            t = time.perf_counter() - t0
+        if i:               # the first call warms caches and allocator
+            best = min(best, t)
+    return best
+
+
+def graph_call_seconds(fn, device, calls=4, reps=8, trials=5, graphs=None):
+    """Device seconds of one call of *fn* inside a CUDA graph, as a round
+    replayed from the spec walk's graphs pays it.
+
+    *calls* calls are captured in one graph by :meth:`SpecGraphs.capture`
+    of *graphs* (a fresh cache if None): a warm-up call on a side stream
+    first; where *fn* cannot be captured the cache's
+    :attr:`SpecGraphs.failed` says why and None is returned. The graph's
+    replays are timed on the card alone (queued behind a spin kernel),
+    the best of *trials*.
+    """
+    dev = torch.device(device)
+    graphs = graphs or SpecGraphs(getattr(fn, '__qualname__', repr(fn)))
+    entry = types.SimpleNamespace(flag=torch.zeros((), device=dev),
+                                  pool=None, graphs={})
+    if graphs.capture(entry, [calls], fn, lambda: None) is None:
+        return None
+    graph = entry.graphs[calls][0]
+    return min(_replay_seconds(graph, dev, reps)
+               for _ in range(trials)) / calls
+
+
+def _copy_state(dst, src):
+    for k, t in src.items():
+        dst[k].copy_(t)
+
+
+def round_overhead(st, xibank, dirbank, Lmin, Lconst,
+                   rounds=SPEC_CHECK_EVERY, trials=10):
+    """Seconds of one spec-walk round without the likelihood: the A of
+    :func:`optimal_spec_depth` (:data:`ROUND_OVERHEAD_S`).
+
+    The round is the walk's (K4, the likelihood, K5 and the width sum,
+    :func:`spec_walk`), with the likelihood replaced by *Lconst*, a
+    (P*D,) float32 tensor that stays on the device: no likelihood kernel
+    runs. On a card a chunk of *rounds* rounds and the "finished" flag
+    is captured as the walk captures it (:class:`SpecGraphs`) and its
+    replays are timed on the device alone, the best of *trials*, each
+    from the state *st* as given; on the CPU the host clock times the
+    same rounds. *st* (a :func:`spec_walk` state: the keys of
+    :data:`kernels.SPEC_STATE` and ``widths``) is left as *rounds* real
+    rounds whose likelihood gave *Lconst* leave it.
+    """
+    max_rounds, P, D = xibank.shape
+    nsteps, _, d = dirbank.shape
+    dev = st['u'].device
+    first = {k: t.clone() for k, t in st.items()}
+
+    def evaluate(rows):
+        return Lconst, None
+    if dev.type != 'cuda':
+        best = math.inf
+        for _ in range(trials):
+            _copy_state(st, first)
+            t0 = time.perf_counter()
+            for _ in range(rounds):
+                _spec_round(xibank, evaluate, Lmin, dirbank, st)
+            best = min(best, time.perf_counter() - t0)
+        return best / rounds
+    entry = _SpecGraphEntry(P, D, d, nsteps, max_rounds, dev)
+    entry.xibank.copy_(xibank)
+    entry.dirbank.copy_(dirbank)
+    entry.Lmin.copy_(Lmin)
+    _copy_state(entry.state, first)
+
+    def body():
+        _spec_round(entry.xibank, evaluate, entry.Lmin, entry.dirbank,
+                    entry.state)
+
+    def flag():
+        entry.flag.copy_(entry.state['done'].sum() >= P)
+    graphs = SpecGraphs('a constant likelihood')
+    if graphs.capture(entry, [rounds], body, flag) is None:
+        raise RuntimeError('the round could not be captured: %s'
+                           % graphs.failed)
+    graph = entry.graphs[rounds][0]
+    best = math.inf
+    for _ in range(trials):
+        _copy_state(entry.state, first)
+        best = min(best, _replay_seconds(graph, dev, 1))
+    _copy_state(st, entry.state)
+    return best / rounds
+
+
+def measure_round_overhead(P, D, d, nsteps, device='cuda', seed=0,
+                           rounds=SPEC_CHECK_EVERY, trials=10):
+    """:func:`round_overhead` at one shape, on a seeded state: walkers
+    inside the cube on directions of scale 0.1 with their chords,
+    *nsteps* steps of directions, and a constant likelihood a quarter of
+    whose candidates beat the threshold (at D 8, nine walkers in ten
+    accept in a round). Re-derive :data:`ROUND_OVERHEAD_S` with it after
+    any change to the round body (``chip_smoke.py`` runs it at the spec
+    problems' shapes). Returns seconds per round.
+    """
+    dev = torch.device(device)
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def rand(*shape):
+        return torch.rand(shape, generator=g, device=dev)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+    st = _spec_state(P, d, dev)
+    st['u'].copy_(0.05 + 0.9 * rand(P, d))
+    st['v'].copy_(0.1 * randn(P, d))
+    tl, tr = _cube_intersection(st['u'], st['v'])
+    st['tl'].copy_(tl)
+    st['tr'].copy_(tr)
+    Lconst = randn(P * D)
+    Lmin = torch.quantile(Lconst, 0.75)
+    return round_overhead(st, rand(rounds, P, D), 0.1 * randn(nsteps, P, d),
+                          Lmin, Lconst, rounds=rounds, trials=trials)
 
 
 def _set_scalar(buf, x):
@@ -828,6 +994,8 @@ class FusedPopulationSliceSampler(GenericPopulationSampler):
         self.spec_depth = spec_depth
         self.spec_depth_auto = spec_depth_auto
         self._depth_resolved = False
+        # what the depth probe found, once it ran (_resolve_spec_depth)
+        self.spec_probe = None
         self._pending = None
         self._last_yield = 0
         self._buf = None
@@ -987,50 +1155,62 @@ class FusedPopulationSliceSampler(GenericPopulationSampler):
     # --- the likelihood-cost probe ---------------------------------------
 
     def _probe_likelihood_cost(self, x_dim):
-        """Warm device cost of the likelihood per (popsize, x_dim) batch.
+        """Device cost of the likelihood as the walk pays it: returns
+        ``dict(t_row_s, fixed_s, how)``.
 
-        Times one call of the transform and likelihood on the rows a
-        spec round evaluates at the configured depth (popsize x
-        spec_depth), the best of three after a warm-up call, and divides
-        by the depth: CUDA events on a card, the host clock on the CPU.
-        Returns seconds. The reference instead times ``reps`` popsize-row
-        batches in one jitted loop and subtracts a null dispatch's
-        latency; here a spec round's rows go in one call, so their
-        batch's cost is the one a round pays, and the events also hold
-        any wait of the card for the host's enqueue of the likelihood's
-        ops (ROADMAP §C).
+        The transform and likelihood are timed on the rows a spec round
+        evaluates at the configured depth D (popsize x D) and on one
+        popsize batch. Their difference over D - 1 is ``t_row_s``, the
+        cost of each further popsize batch (never below 0); what a call
+        costs beyond its batches, ``fixed_s``, is a cost of the round
+        whatever its depth (a likelihood of a few small ops costs its
+        launches, and these the same at 128 rows as at 1024). On a card
+        each call is captured in a CUDA graph and its replays are timed
+        on the device alone (:func:`graph_call_seconds`; *how*
+        ``'graph'``): that is what a round replayed from the walk's
+        graphs pays, with none of the host's enqueue of the likelihood's
+        ops; the reference gets the same by subtracting a null dispatch.
+        The capture is this sampler's (:meth:`_spec_graphs`): where a call
+        cannot be captured, its :attr:`SpecGraphs.failed` is set (one
+        warning), the walk runs its rounds from the host loop and pays
+        the eager call, so the eager calls are timed instead, with CUDA
+        events, the best of three after a warm-up (``'eager'``); so too
+        where the graphs failed already. On the CPU the host clock times
+        the eager calls (``'host'``).
         """
-        D = self.spec_depth
+        D, P = self.spec_depth, self._local_popsize
         ll, tr = self.torch_loglike, self._transform
-        u = torch.full((self._local_popsize * D, x_dim), 0.5,
-                       dtype=torch.float32, device=self.device)
         on_card = self.device.type == 'cuda'
-        best = math.inf
-        for i in range(4):
-            if on_card:
-                start = torch.cuda.Event(enable_timing=True)
-                end = torch.cuda.Event(enable_timing=True)
-                start.record()
-                ll(tr(u))
-                end.record()
-                end.synchronize()
-                t = start.elapsed_time(end) * 1e-3
-            else:
-                t0 = time.perf_counter()
-                ll(tr(u))
-                t = time.perf_counter() - t0
-            if i:               # the first call warms caches and allocator
-                best = min(best, t)
-        return best / D
+        calls = []
+        for rows in (P * D, P):
+            u = torch.full((rows, x_dim), 0.5, dtype=torch.float32,
+                           device=self.device)
+            calls.append(lambda u=u: ll(tr(u)))
+        cost = None
+        graphs = self._spec_graphs() if on_card else None
+        if on_card and graphs.failed is None:
+            cost = [graph_call_seconds(c, self.device, graphs=graphs)
+                    for c in calls]
+            if None in cost:
+                cost = None
+        how = 'graph' if cost else 'eager' if on_card else 'host'
+        if cost is None:
+            cost = [_eager_seconds(c, on_card) for c in calls]
+        t_row = max(0.0, (cost[0] - cost[1]) / (D - 1))
+        return dict(t_row_s=t_row, fixed_s=max(0.0, cost[1] - t_row),
+                    how=how)
 
     def _resolve_spec_depth(self, x_dim):
         """One-time auto-tune of ``spec_depth`` before the first dispatch.
 
-        Probes the likelihood's per-batch device cost and lowers the
-        speculation depth when the billed extra rows cost more than the
-        rounds they save (:func:`optimal_spec_depth`,
-        ``popfused.py:408-451``). The probe runs once per (likelihood,
-        transform, popsize, x_dim, device) in a process.
+        Probes the likelihood's device cost (:meth:`_probe_likelihood_cost`)
+        and lowers the speculation depth when the billed extra rows cost
+        more than the rounds they save (:func:`optimal_spec_depth`,
+        ``popfused.py:408-451``), with the round's fixed cost taken as
+        :data:`ROUND_OVERHEAD_S` (the round without the likelihood) plus
+        the likelihood's per-call cost beyond its rows. The probe runs
+        once per (likelihood, transform, popsize, x_dim, depth, device)
+        in a process; :attr:`spec_probe` keeps what it found.
         """
         if self._depth_resolved:
             return
@@ -1042,20 +1222,25 @@ class FusedPopulationSliceSampler(GenericPopulationSampler):
             return
         memo = (self.torch_loglike, self.torch_transform, self.popsize,
                 x_dim, self.spec_depth, self.device)
-        t_row = _PROBE_CACHE.get(memo)
-        if t_row is None:
+        probe = _PROBE_CACHE.get(memo)
+        if probe is None:
             try:
-                t_row = self._probe_likelihood_cost(x_dim)
+                probe = self._probe_likelihood_cost(x_dim)
             except Exception:
                 # an unprobeable likelihood keeps the configured depth
                 _LOG.warning('spec_depth probe failed; keeping depth %d',
                              self.spec_depth, exc_info=True)
                 return
-            _PROBE_CACHE[memo] = t_row
-        d = optimal_spec_depth(t_row, self.spec_depth)
+            _PROBE_CACHE[memo] = probe
+        t_row = probe['t_row_s']
+        overhead = ROUND_OVERHEAD_S + probe['fixed_s']
+        d = optimal_spec_depth(t_row, self.spec_depth, overhead)
+        self.spec_probe = dict(probe, round_overhead_s=ROUND_OVERHEAD_S,
+                               depth_from=self.spec_depth, depth=d)
         if d < self.spec_depth:
             _LOG.info('spec_depth auto-tuned %d -> %d (likelihood batch '
-                      'cost %.3f ms)', self.spec_depth, d, 1e3 * t_row)
+                      'cost %.3f ms, round %.3f ms)', self.spec_depth, d,
+                      1e3 * t_row, 1e3 * overhead)
             if self.logfile:
                 self.logfile.write('spec-depth\t%d\t%d\t%g\n'
                                    % (self.spec_depth, d, t_row))
