@@ -567,10 +567,8 @@ FIRST_FORM_DEVICE_MS = {(4096, 8, 50): (0.0174, 0.0056),
 def spec_instantiations(d, vec):
     """The template instantiations of K4 and K5 that a row of *d* floats
     takes, K4 with *vec* floats a thread (as ptxas_summary names them)."""
-    group = 8 if d <= 8 else 16 if d <= 16 else 32
     nk = 1 if d <= 32 else 2 if d <= 64 else 4
-    return ('spec_propose_kernel<%d>' % vec,
-            'spec_update_kernel<%d, %d>' % (group, nk))
+    return ('spec_propose_kernel<%d>' % vec, 'spec_update_kernel<%d>' % nk)
 
 
 def graph_ms(fn, calls=50):
@@ -583,15 +581,42 @@ def graph_ms(fn, calls=50):
     return 1e3 * t
 
 
+# rows of directions in a mid-dispatch state (mid_dispatch_update): more
+# than the K5 calls one timing makes (graph_ms's warm-up and up to 4 x 5
+# x 2 replays of 50 calls, queued_ms's 51)
+MID_DISPATCH_STEPS = 2304
+
+
+def mid_dispatch_update(kernels, st, Lp, tin, ts, tlc, trc, Lmin):
+    """K5's arguments on a state mid-dispatch, and its bound there: no
+    walker done and none near its last step (:data:`MID_DISPATCH_STEPS`
+    rows of directions), so that every call of a timing updates as a
+    round does before walkers finish, and each call does the same work
+    (the same walkers accept, the same renew), the first call's."""
+    import torch
+    mid = {k: x.clone() for k, x in st.items()}
+    mid['step'].zero_()
+    mid['done'].zero_()
+    P, d = st['u'].shape
+    g = torch.Generator(device='cuda').manual_seed(P + d)
+    dirs = 0.1 * torch.randn((MID_DISPATCH_STEPS, P, d), device='cuda',
+                             generator=g)
+    after = {k: x.clone() for k, x in mid.items()}
+    kernels.spec_update_plain(Lp, tin, ts, tlc, trc, Lmin, dirs, after)
+    bms = update_bound(P, ts.shape[1], d, tin, mid, after)[0]
+    return (Lp, tin, ts, tlc, trc, Lmin, dirs, mid), bms
+
+
 def check_spec_kernels(kernels, rng, P, D, d, registers=None):
     """K4 and K5 against their plain versions, bit for bit, at one shape,
     with and without the filter's rows; times each on the device alone
     (queued behind a spin kernel, and among 50 calls in a CUDA graph)
     and prints it beside its bound, its share of the bound, its first
     form's time and the registers of its instantiation (*registers*:
-    name -> registers, from ptxas). Returns the two kernels' (0.0,
-    kernel ms, plain ms, bound ms, what bounds it, device ms, graph
-    ms)."""
+    name -> registers, from ptxas); K5 as its first form was timed (on
+    a state each call moves on) and in a graph mid-dispatch
+    (:func:`mid_dispatch_update`). Returns the two kernels' (0.0, kernel
+    ms, plain ms, bound ms, what bounds it, device ms, graph ms)."""
     from ultranest_torch.evaluate.bench_membership import cuda_ms
     st, xibank, dirbank, Lp, tin, Lmin = spec_round_inputs(rng, P, D, d)
     prop = (st['u'], st['v'], st['tl'], st['tr'], xibank, st['it'])
@@ -621,6 +646,10 @@ def check_spec_kernels(kernels, rng, P, D, d, registers=None):
     u_dev = queued_ms([lambda: kernels.spec_update(*upd)] * 50)
     u_graph = graph_ms(lambda: kernels.spec_update(*upd))
     u_plain = cuda_ms(lambda: kernels.spec_update_plain(*upd), 5)
+    mid, mid_bms = mid_dispatch_update(kernels, st, Lp, tin, ts, tlc, trc,
+                                       Lmin)
+    mid_graph = graph_ms(lambda: kernels.spec_update(*mid))
+    del mid
     names = spec_instantiations(d, kernels.propose_vector_width(
         d, st['u'], st['v'], got[3]))
     regs = [(registers or {}).get(n) for n in names]
@@ -638,15 +667,23 @@ def check_spec_kernels(kernels, rng, P, D, d, registers=None):
                   'accepted' % int((mine['nw'] - st['nw']).item())
                   if k == 'K5' else '', ms, dev, gms, plain_ms, bms, by,
                   100 * bms / dev, old[i], names[i], regs[i]))
+    print('K5 spec_update P=%d D=%d d=%d mid-dispatch: in a graph %.4f ms, '
+          'bound %.6f ms, %.1f%% of the bound' % (
+              P, D, d, mid_graph, mid_bms, 100 * mid_bms / mid_graph))
     return ((0.0, p_ms, p_plain, p_bms, p_by, p_dev, p_graph),
             (0.0, u_ms, u_plain, u_bms, u_by, u_dev, u_graph))
 
 
-def check_launch_floor(kernels):
+def check_launch_floor():
     """An empty kernel's device ms among 50 in a CUDA graph, and queued:
-    the floor of any launch, which K5's time is set beside."""
-    g = graph_ms(kernels._launch_empty)
-    q = queued_ms([kernels._launch_empty] * 50)
+    the floor of any launch, which K5's time is set beside (torch's spin
+    kernel for 0 clocks, ``torch.cuda._sleep(0)``)."""
+    import torch
+
+    def empty():
+        torch.cuda._sleep(0)
+    g = graph_ms(empty)
+    q = queued_ms([empty] * 50)
     print('empty kernel: device %.4f ms, in a graph %.4f ms (the floor of a '
           'launch)' % (q, g))
     return q, g
@@ -658,17 +695,24 @@ class SpecWalks:
 
     def __enter__(self):
         from ultranest_torch import popfused
+        from ultranest_torch.ops import kernels
         self.mod, self.orig, self.walks = popfused, popfused.spec_walk, []
-        self.shapes = []
+        self.by_shape = collections.Counter()
 
         def record(*args, **kw):
             if kw.get('stats') is None:
                 kw['stats'] = {}
-            out = self.orig(*args, **kw)
-            self.walks.append(kw['stats'])
             # (P, D, d): the walkers, the depth and the dimension
-            self.shapes.append(tuple(args[0]['xibank'].shape[1:])
-                               + (args[1].shape[1],))
+            key = '%d,%d,%d' % (tuple(args[0]['xibank'].shape[1:])
+                                + (args[1].shape[1],))
+            seen = kernels.LAUNCHES['spec_update']
+            try:
+                out = self.orig(*args, **kw)
+            finally:
+                # every K5 launch of the walk, its warm-up round and a
+                # walk cut short by the watchdog's deadline included
+                self.by_shape[key] += kernels.LAUNCHES['spec_update'] - seen
+            self.walks.append(kw['stats'])
             return out
         popfused.spec_walk = record
         return self
@@ -679,21 +723,16 @@ class SpecWalks:
     def summary(self):
         """Walks, those run as graphs and from the host loop, rounds,
         replays, captures and capture seconds, and the K4 and K5
-        launches by shape ("P,D,d": rounds and, where the walk captured
-        its graphs, the warm-up round before)."""
+        launches by shape ("P,D,d": the count of K5's launches over each
+        walk)."""
         w = [s for s in self.walks if 'graph' in s]
-        by_shape = collections.Counter()
-        for st, shape in zip(self.walks, self.shapes):
-            if 'graph' in st:
-                by_shape['%d,%d,%d' % shape] += st['rounds'] + \
-                    (st['captures'] > 0)
         return dict(walks=len(w), graph=sum(bool(s['graph']) for s in w),
                     host_loop=sum(not s['graph'] for s in w),
                     rounds=sum(s['rounds'] for s in w),
                     replays=sum(s['replays'] for s in w),
                     captures=sum(s['captures'] for s in w),
                     capture_s=sum(s['capture_s'] for s in w),
-                    launches_by_shape=dict(by_shape))
+                    launches_by_shape=dict(self.by_shape))
 
 
 # each path's K4 and K5 launches by shape ("P,D,d"), booked by
@@ -712,8 +751,9 @@ def check_spec_path(name, walks, launched, required):
         for k in ('spec_propose', 'spec_update'):
             assert launched.get(k, 0) >= walks['rounds'] > 0, \
                 ('%s not launched on the spec path' % k, name, launched)
-    if walks['walks']:
+    if walks['launches_by_shape']:
         SPEC_LAUNCHES[name] = walks['launches_by_shape']
+    if walks['walks']:
         print('%s spec walks: %d dispatches as CUDA graphs, %d rounds, %d '
               'replays, %d captures in %.3f s' % (
                   name, walks['graph'], walks['rounds'], walks['replays'],
@@ -2687,10 +2727,11 @@ def spec_gaps(kernels, spec_launches):
     """K4's and K5's launches x (device ms - bound ms) over the paths:
     *spec_launches* maps a path to its launches by shape ("P,D,d",
     :meth:`SpecWalks.summary`); each shape is timed once on the device
-    alone (:func:`spec_round_inputs`, K5 on a state it moves on), queued
-    and among 50 calls in a CUDA graph, beside its bound. The paths run
-    K4 and K5 inside the spec walk's graphs only, so the graph time is
-    the one ranked. Prints each shape and returns {kernel: ms}."""
+    alone (:func:`spec_round_inputs`; K5 mid-dispatch,
+    :func:`mid_dispatch_update`), queued and among 50 calls in a CUDA
+    graph, beside its bound. The paths run K4 and K5 inside the spec
+    walk's graphs only, so the graph time is the one ranked. Prints each
+    shape and returns {kernel: ms}."""
     shapes = collections.Counter()
     for by_shape in spec_launches.values():
         shapes.update(by_shape)
@@ -2698,27 +2739,27 @@ def spec_gaps(kernels, spec_launches):
     rng = np.random.RandomState(7)
     for key, n in sorted(shapes.items()):
         P, D, d = (int(x) for x in key.split(','))
-        st, xibank, dirbank, Lp, tin, Lmin = spec_round_inputs(rng, P, D, d)
+        st, xibank, _, Lp, tin, Lmin = spec_round_inputs(rng, P, D, d)
         prop = (st['u'], st['v'], st['tl'], st['tr'], xibank, st['it'])
         ts, tlc, trc, _ = kernels.spec_propose(*prop)
-        after = {k: x.clone() for k, x in st.items()}
-        kernels.spec_update(Lp, tin, ts, tlc, trc, Lmin, dirbank, after)
-        upd = (Lp, tin, ts, tlc, trc, Lmin, dirbank,
-               {k: x.clone() for k, x in st.items()})
         p_dev = queued_ms([lambda: kernels.spec_propose(*prop)] * 50)
-        u_dev = queued_ms([lambda: kernels.spec_update(*upd)] * 50)
         p_graph = graph_ms(lambda: kernels.spec_propose(*prop))
+        p_b = propose_bound(P, D, d)[0]
+        upd, u_b = mid_dispatch_update(kernels, st, Lp, tin, ts, tlc, trc,
+                                       Lmin)
+        u_dev = queued_ms([lambda: kernels.spec_update(*upd)] * 50)
+        upd, _ = mid_dispatch_update(kernels, st, Lp, tin, ts, tlc, trc,
+                                     Lmin)
         u_graph = graph_ms(lambda: kernels.spec_update(*upd))
-        p_b, u_b = propose_bound(P, D, d)[0], \
-            update_bound(P, D, d, tin, st, after)[0]
+        del upd
         gap['spec_propose'] += n * (p_graph - p_b)
         gap['spec_update'] += n * (u_graph - u_b)
         print('K4/K5 at P=%d D=%d d=%d, %d launches on the paths (%s): K4 '
-              'device %.4f ms, in a graph %.4f ms (bound %.6f); K5 device '
-              '%.4f ms, in a graph %.4f ms (bound %.6f)' % (
-                  P, D, d, n, ', '.join(sorted(
-                      k for k, v in spec_launches.items() if key in v)),
-                  p_dev, p_graph, p_b, u_dev, u_graph, u_b))
+              'device %.4f ms, in a graph %.4f ms (bound %.6f); K5 '
+              'mid-dispatch device %.4f ms, in a graph %.4f ms (bound %.6f)'
+              % (P, D, d, n, ', '.join(sorted(
+                  k for k, v in spec_launches.items() if key in v)),
+                 p_dev, p_graph, p_b, u_dev, u_graph, u_b))
     return gap
 
 
@@ -2795,7 +2836,7 @@ def main(argv=()):
     errs['consume_scan'] = 0.0
     registers = {name: regs for name, regs, _ in
                  ptxas_summary(kernels.BUILD_LOG)}
-    check_launch_floor(kernels)
+    check_launch_floor()
     spec = [check_spec_kernels(kernels, rng, *shape, registers=registers)
             for shape in SPEC_SHAPES]
     for i, name in enumerate(kernels.POPULATION_KERNELS):
@@ -3078,9 +3119,12 @@ def main(argv=()):
     if save_traffic:
         torch.save(traffic_on_host(traffic), save_traffic)
     spec = spec_gaps(kernels, SPEC_LAUNCHES)
-    print('K4 and K5 launches on the paths: %d by shape, %d counted' % (
-        sum(sum(v.values()) for v in SPEC_LAUNCHES.values()),
-        launches['spec_propose']))
+    by_shape = sum(sum(v.values()) for v in SPEC_LAUNCHES.values())
+    print('K4 and K5 launches on the paths: %d by shape, %d and %d counted'
+          % (by_shape, launches['spec_propose'], launches['spec_update']))
+    assert by_shape == launches['spec_propose'] == launches['spec_update'], \
+        'the launches by shape miss some of K4 and K5'
+
     print_ranking(real, spec)
     print('spec depths chosen by the probe (path, popsize, d, depth): %s' % (
         json.dumps([(r['path'], r['popsize'], r['x_dim'], r['depth'])

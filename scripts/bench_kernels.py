@@ -423,8 +423,11 @@ def bench_propose(fns, traffic, results):
 def bench_update(fns, traffic, results):
     """K5 at ``chip_smoke.SPEC_SHAPES``, bit-equal to the plain version
     with and without the filter's rows, timed on one state that each
-    call moves on; first an empty kernel, the floor of a launch."""
-    floor = time_sources({'empty kernel': kernels._launch_empty}, [()])
+    call moves on and mid-dispatch (``chip_smoke.mid_dispatch_update``);
+    first an empty kernel (``torch.cuda._sleep(0)``), the floor of a
+    launch."""
+    floor = time_sources({'empty kernel': lambda: torch.cuda._sleep(0)},
+                         [()])
     report('empty kernel', 0.0, floor)
     results['empty_kernel'] = floor
     for P, D, d in chip_smoke.SPEC_SHAPES:
@@ -448,21 +451,12 @@ def bench_update(fns, traffic, results):
         times = time_sources(fns, [(Lp, tin, ts, tlc, trc, Lmin, dirbank,
                                     scratch)])
         report('K5 P=%d D=%d d=%d' % (P, D, d), bms, times)
-        # mid-dispatch: no walker done and none near its last step (2000
-        # steps of directions), so every call updates as a round does
-        # before walkers finish
-        mid = {k: x.clone() for k, x in st.items()}
-        mid['step'].zero_()
-        mid['done'].zero_()
-        dirs = 0.1 * torch.randn((2000, P, d), device='cuda')
-        after = {k: x.clone() for k, x in mid.items()}
-        kernels.spec_update_plain(Lp, tin, ts, tlc, trc, Lmin, dirs, after)
-        mid_bms, _ = chip_smoke.update_bound(P, D, d, tin, mid, after)
-        mid_times = time_sources(fns, [(Lp, tin, ts, tlc, trc, Lmin, dirs,
-                                        mid)])
+        mid, mid_bms = chip_smoke.mid_dispatch_update(kernels, st, Lp, tin,
+                                                      ts, tlc, trc, Lmin)
+        mid_times = time_sources(fns, [mid])
         report('K5 P=%d D=%d d=%d mid-dispatch' % (P, D, d), mid_bms,
                mid_times)
-        del dirs
+        del mid
         results['shapes'].append(dict(P=P, D=D, d=d, bound_ms=bms,
                                       times=times, mid_bound_ms=mid_bms,
                                       mid_times=mid_times))

@@ -7,6 +7,8 @@ torch is installed:
     python -m pytest -q --noconftest -p no:cacheprovider -m cuda \
         tests/test_torch_cuda.py
 """
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -953,9 +955,9 @@ def _edge_round_inputs(cuda, P, D, d, seed=11):
 
 
 # P not a multiple of K4's 256-vector tile nor of K5's walkers a block;
-# D 1 and 40 (five ballots of 8); d 1 and 3 (scalar rows, 8 lanes a
-# walker), 8 and 16 (4 and 2 walkers a warp), 17, 50 (8-byte rows), 100
-# (16-byte rows), 130 (K5's coordinates above 128, read after the ballot)
+# D 1 and 40 (two ballots of 32); d 1 and 3 (scalar rows), 8, 16, 17,
+# 50 (8-byte rows), 100 (16-byte rows; K5's coordinates 65 to 128, four
+# a lane), 130 (K5's coordinates above 128, read after the ballot)
 @pytest.mark.parametrize('P,D,d', [(4097, 8, 50), (2047, 8, 100),
                                    (37, 1, 1), (129, 1, 3), (255, 8, 8),
                                    (77, 8, 16), (300, 3, 17), (65, 5, 50),
@@ -1020,6 +1022,61 @@ def test_depth_probe_times_a_graph_and_decides_the_same_twice(cuda):
             depths.append(s.spec_depth)
         assert depths[0] == depths[1] == 8, (prob.name, depths)
     popfused._PROBE_CACHE.clear()
+
+
+def _walk_wall(popfused, ev, cuda, D, P=512, d=8, nsteps=12, trials=3):
+    """Best wall seconds of one spec walk at depth *D* run as graphs (its
+    graphs captured before)."""
+    _, banks, live_u, live_L, nlive, axes, Lmin, _ = _graph_walk_inputs(
+        cuda, P=P, D=D, d=d, nsteps=nsteps)
+    graphs = popfused.SpecGraphs('heavy')
+    args = (banks, live_u, live_L, nlive, axes, Lmin, 1.0, ev, nsteps)
+    best = float('inf')
+    for i in range(trials + 1):
+        stats = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        popfused.spec_walk(*args, stats=stats, graphs=graphs)
+        torch.cuda.synchronize()
+        assert stats['graph']
+        if i:
+            best = min(best, time.perf_counter() - t0)
+    return best
+
+
+def test_depth_probe_lowers_the_depth_of_a_costly_likelihood(cuda):
+    """A likelihood whose device time grows with its rows (a 4096-wide
+    layer a row, in float32): the graph-timed probe charges it to t_row,
+    lowers the depth below 8 on both of two calls, and the walk at that
+    depth takes no more wall time than at depth 8."""
+    from ultranest_torch import popfused
+    from ultranest_torch.models.problems import asymgauss
+    prob = asymgauss(8)
+    g = torch.Generator(device=cuda).manual_seed(3)
+    w1 = torch.randn((8, 4096), device=cuda, generator=g)
+    w2 = torch.randn((4096, 4096), device=cuda, generator=g) / 64
+
+    def costly(x):
+        h = torch.tanh(x @ w1) @ w2
+        return prob.torch_loglike(x) + 0.0 * torch.tanh(h[:, 0])
+    depths = []
+    for _ in range(2):
+        popfused._PROBE_CACHE.clear()
+        s = popfused.FusedPopulationSliceSampler(
+            popsize=512, nsteps=12, torch_loglike=costly, device=cuda)
+        s._resolve_spec_depth(8)
+        p = s.spec_probe
+        assert p['how'] == 'graph'
+        assert p['t_row_s'] > 0.22 * (p['round_overhead_s'] + p['fixed_s'])
+        depths.append(s.spec_depth)
+    popfused._PROBE_CACHE.clear()
+    assert depths[0] == depths[1] < 8, depths
+
+    def ev(rows):
+        return costly(rows).to(torch.float32), None
+    lowered = _walk_wall(popfused, ev, cuda, depths[0])
+    at8 = _walk_wall(popfused, ev, cuda, 8)
+    assert lowered <= at8, (depths[0], lowered, at8)
 
 
 def test_round_overhead_replays_the_host_loops_rounds(cuda):

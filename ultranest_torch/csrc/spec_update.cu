@@ -36,21 +36,19 @@
 // dirbank); it writes u, v and a few scalars: at P 4096, D 8, d 50
 // about 2.5 MB, under 1 us at 3.35 TB/s, which is less than an empty
 // kernel takes on the card. So what sets its time is the latency of
-// its chain of dependent reads, and the launch. Design: a group of G
-// lanes a walker (G 8 for d <= 8, 16 for d <= 16, else 32, so that a
-// warp packs 4, 2 or 1 walkers), its lanes over the chain (G
-// candidates at a time, a ballot finds the first hit) and over the d
-// coordinates. The reads that do not wait for the first hit are issued
-// before the ballot: the candidates' Lp, ts and tin, the walker's
-// flag, step, bracket and shrunk bracket, and, for a walker not done,
-// its u and v and the one row of dirbank a renewal can take (step +
-// 1's), up to NK coordinates a lane in registers (the rest, above d
-// 128, read after the ballot); the hit's t and L come from the lane
-// that read them by a shuffle. The chord's max and min fold across the
-// group's lanes with shuffles, in the warps where some walker renews.
-// The counts are summed in shared memory, one 64-bit atomic a counter
-// a block: atomics on the same three addresses from every walker
-// serialise in L2.
+// its chain of dependent reads, and the launch. Design: one warp a
+// walker, its lanes over the chain (32 candidates at a time, a ballot
+// finds the first hit) and over the d coordinates. The reads that do
+// not wait for the first hit are issued before the ballot: the
+// candidates' Lp, ts and tin, the walker's flag, step, bracket and
+// shrunk bracket, and, for a walker not done, its u and v and the one
+// row of dirbank a renewal can take (step + 1's), up to NK coordinates
+// a lane in registers (the rest, above d 128, read after the ballot);
+// the hit's t and L come from the lane that read them by a shuffle. The
+// chord's max and min fold across the warp with shuffles where the
+// walker renews. The counts are summed in shared memory, one 64-bit
+// atomic a counter a block: atomics on the same three addresses from
+// every walker serialise in L2.
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
@@ -86,7 +84,7 @@ __device__ __forceinline__ void chord(float uk, float vk, float& lo,
   hi = min_nan(hi, max_nan(a, b));
 }
 
-template <int G, int NK>
+template <int NK>
 __global__ void __launch_bounds__(kThreads)
 spec_update_kernel(const float* __restrict__ Lp,
                    const uint8_t* __restrict__ tin,
@@ -104,11 +102,8 @@ spec_update_kernel(const float* __restrict__ Lp,
   if (threadIdx.x < 3) counts[threadIdx.x] = 0;
   if (blockIdx.x == 0 && threadIdx.x == 0) *it += 1;
   const int lane = threadIdx.x & 31;
-  const int gl = lane & (G - 1);      // lane in the walker's group
-  const int gbase = lane - gl;
-  const unsigned gbits = G == 32 ? kFull : (1u << (G & 31)) - 1u;
-  const int p = static_cast<int>((blockIdx.x * kThreads + threadIdx.x) / G);
-  const bool live = p < P;   // the lanes past P only join the shuffles
+  const int p = static_cast<int>((blockIdx.x * kThreads + threadIdx.x) / 32);
+  const bool live = p < P;   // a warp past P only joins the barriers
 
   // every read that does not wait for the first hit
   const float Lmin = *Lmin_p;
@@ -118,7 +113,7 @@ spec_update_kernel(const float* __restrict__ Lp,
   if (live) {
     active = done[p] == 0;
     step0 = step[p];
-    if (gl == 0) {
+    if (lane == 0) {
       tl0 = tl[p];
       tr0 = tr[p];
       tlc0 = tlc[p];
@@ -135,7 +130,7 @@ spec_update_kernel(const float* __restrict__ Lp,
   float uk[NK], vk[NK], wk[NK];
 #pragma unroll
   for (int i = 0; i < NK; ++i) {
-    const int k = gl + i * G;
+    const int k = lane + i * 32;
     uk[i] = vk[i] = wk[i] = 0.0f;
     if (active && k < d) {
       uk[i] = u[off + k];
@@ -144,14 +139,14 @@ spec_update_kernel(const float* __restrict__ Lp,
     }
   }
 
-  // the first hit in chain order, G candidates at a time; billed rows,
+  // the first hit in chain order, 32 candidates at a time; billed rows,
   // and those a sequential sampler would have evaluated (j <= jstar, or
   // all while no candidate hit)
   int jstar = D;
   float tstar = 0.0f, Lstar = 0.0f;
   int nbilled = 0, nuseful = 0;
-  for (int j0 = 0; j0 < D; j0 += G) {
-    const int j = j0 + gl;
+  for (int j0 = 0; j0 < D; j0 += 32) {
+    const int j = j0 + lane;
     const bool in = live && j < D;
     float Lj = 0.0f, tj = 0.0f;
     bool bill = false;
@@ -160,19 +155,17 @@ spec_update_kernel(const float* __restrict__ Lp,
       tj = ts[row + j];
       bill = active && (tin == nullptr || tin[row + j] != 0);
     }
-    const unsigned hb = (__ballot_sync(kFull, in && Lj > Lmin) >> gbase)
-                        & gbits;
+    const unsigned hb = __ballot_sync(kFull, in && Lj > Lmin);
     const int first = hb ? __ffs(hb) - 1 : 0;
-    const float tf = __shfl_sync(kFull, tj, gbase + first);
-    const float Lf = __shfl_sync(kFull, Lj, gbase + first);
+    const float tf = __shfl_sync(kFull, tj, first);
+    const float Lf = __shfl_sync(kFull, Lj, first);
     if (hb && jstar == D) {
       jstar = j0 + first;
       tstar = tf;
       Lstar = Lf;
     }
-    nbilled += __popc((__ballot_sync(kFull, bill) >> gbase) & gbits);
-    nuseful += __popc((__ballot_sync(kFull, bill && j <= jstar) >> gbase)
-                      & gbits);
+    nbilled += __popc(__ballot_sync(kFull, bill));
+    nuseful += __popc(__ballot_sync(kFull, bill && j <= jstar));
   }
 
   const bool anyhit = jstar < D && active;
@@ -183,7 +176,7 @@ spec_update_kernel(const float* __restrict__ Lp,
   if (anyhit) {
 #pragma unroll
     for (int i = 0; i < NK; ++i) {
-      const int k = gl + i * G;
+      const int k = lane + i * 32;
       if (k < d) {
         const float un = __fadd_rn(uk[i], __fmul_rn(tstar, vk[i]));
         u[off + k] = un;
@@ -193,7 +186,7 @@ spec_update_kernel(const float* __restrict__ Lp,
         }
       }
     }
-    for (int k = gl + NK * G; k < d; k += G) {
+    for (int k = lane + NK * 32; k < d; k += 32) {
       const float un = __fadd_rn(u[off + k], __fmul_rn(tstar, v[off + k]));
       u[off + k] = un;
       if (renew) {
@@ -203,17 +196,16 @@ spec_update_kernel(const float* __restrict__ Lp,
       }
     }
   }
-  // every lane of a warp in which some walker renews takes part; a
-  // group that renews nothing folds +-inf
-  if (__any_sync(kFull, renew)) {
+  // renew is the same on every lane of the walker's warp
+  if (renew) {
 #pragma unroll
-    for (int o = G / 2; o > 0; o >>= 1) {
+    for (int o = 16; o > 0; o >>= 1) {
       lo = max_nan(lo, __shfl_xor_sync(kFull, lo, o));
       hi = min_nan(hi, __shfl_xor_sync(kFull, hi, o));
     }
   }
   __syncthreads();   // the block's counts are zeroed
-  if (live && gl == 0) {
+  if (live && lane == 0) {
     wbuf[p] = anyhit ? __fsub_rn(tr0, tl0) : 0.0f;
     if (anyhit) {
       L[p] = Lstar;
@@ -239,23 +231,21 @@ spec_update_kernel(const float* __restrict__ Lp,
   }
 }
 
-template <int G, int NK>
+template <int NK>
 int launch(const float* Lp, const uint8_t* tin, const float* ts,
            const float* tlc, const float* trc, const float* Lmin,
            const float* dirbank, int nsteps, int P, int D, int d, float* u,
            float* L, float* v, float* tl, float* tr, int64_t* step,
            uint8_t* done, float* wbuf, int64_t* ncr, int64_t* nur,
            int64_t* nw, int64_t* it, cudaStream_t stream) {
-  const int64_t threads = static_cast<int64_t>(P) * G;
+  const int64_t threads = static_cast<int64_t>(P) * 32;
   const int blocks = P > 0 ? static_cast<int>((threads + kThreads - 1)
                                               / kThreads) : 1;
-  spec_update_kernel<G, NK><<<blocks, kThreads, 0, stream>>>(
+  spec_update_kernel<NK><<<blocks, kThreads, 0, stream>>>(
       Lp, tin, ts, tlc, trc, Lmin, dirbank, nsteps, P, D, d, u, L, v, tl, tr,
       step, done, wbuf, ncr, nur, nw, it);
   return static_cast<int>(cudaGetLastError());
 }
-
-__global__ void empty_kernel() {}
 
 }  // namespace
 
@@ -269,21 +259,11 @@ extern "C" int un_spec_update(const float* Lp, const uint8_t* tin,
                               float* wbuf, int64_t* ncr, int64_t* nur,
                               int64_t* nw, int64_t* it, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define UN_SPEC_UPDATE(G, NK)                                              \
-  return launch<G, NK>(Lp, tin, ts, tlc, trc, Lmin, dirbank, nsteps, P, D, \
-                       d, u, L, v, tl, tr, step, done, wbuf, ncr, nur, nw,  \
-                       it, s)
-  if (d <= 8) UN_SPEC_UPDATE(8, 1);
-  if (d <= 16) UN_SPEC_UPDATE(16, 1);
-  if (d <= 32) UN_SPEC_UPDATE(32, 1);
-  if (d <= 64) UN_SPEC_UPDATE(32, 2);
-  UN_SPEC_UPDATE(32, 4);
+#define UN_SPEC_UPDATE(NK)                                                  \
+  return launch<NK>(Lp, tin, ts, tlc, trc, Lmin, dirbank, nsteps, P, D, d, \
+                    u, L, v, tl, tr, step, done, wbuf, ncr, nur, nw, it, s)
+  if (d <= 32) UN_SPEC_UPDATE(1);
+  if (d <= 64) UN_SPEC_UPDATE(2);
+  UN_SPEC_UPDATE(4);
 #undef UN_SPEC_UPDATE
-}
-
-// An empty kernel: the least time a launch takes on the card, the floor
-// that K5's time is set beside.
-extern "C" int un_empty_kernel(void* stream) {
-  empty_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>();
-  return static_cast<int>(cudaGetLastError());
 }

@@ -190,11 +190,9 @@ def _lib():
             lib.un_consume_scan.argtypes = [vp, ci, vp, vp, ci, vp, vp, vp]
             lib.un_spec_propose.argtypes = [vp] * 6 + [ci] * 5 + [vp] * 5
             lib.un_spec_update.argtypes = [vp] * 7 + [ci] * 4 + [vp] * 13
-            lib.un_empty_kernel.argtypes = [vp]
             for fn in (lib.un_radius_member, lib.un_radius_member_t,
                        lib.un_bootstrap_radius, lib.un_consume_scan,
-                       lib.un_spec_propose, lib.un_spec_update,
-                       lib.un_empty_kernel):
+                       lib.un_spec_propose, lib.un_spec_update):
                 fn.restype = ci
             _LIB = lib
     return _LIB
@@ -760,13 +758,3 @@ def spec_update(Lp, tin, ts, tlc, trc, Lmin, dirbank, state):
             tlc.data_ptr(), trc.data_ptr(), Lmin.data_ptr(),
             dirbank.data_ptr(), nsteps, P, D, d,
             *(st[k].data_ptr() for k in SPEC_STATE))
-
-
-def _launch_empty():
-    """Launch an empty kernel on the current stream: the floor of a
-    launch, which ``chip_smoke.py`` sets beside K5's time. Counted
-    nowhere."""
-    rc = _lib().un_empty_kernel(
-        ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
-    if rc != 0:
-        raise RuntimeError('empty kernel launch failed: cudaError_t %d' % rc)
