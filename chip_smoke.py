@@ -5,8 +5,8 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
 
 1. checks for a CUDA device (exit 1 without one) and prints the card's
    name and power limit as ``nvidia-smi`` reports them;
-2. builds the six CUDA kernels with nvcc (one compiler per source, all
-   started together) and prints the build time;
+2. builds the eight CUDA kernels with nvcc (one compiler per source,
+   all started together) and prints the build time;
 3. holds each kernel against its plain torch version on the card, at
    the shapes its paths give it (K1 also at d 40, its path for d > 32,
    and with 32768 live rows, in tiles; K2, bit for bit, also with 50
@@ -14,8 +14,13 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    npad 1024 to 32768, with no rows, and with signed zeros, NaN and
    infinities, bit for bit; K4 and K5, the two halves of a spec-walk
    round, bit for bit at every spec problem's shape and at D 1, with
-   walkers done, at their last step, on a face and with zero axes),
-   times both with CUDA events (the kernel also on the device alone,
+   walkers done, at their last step, on a face and with zero axes; K4 at
+   D 1 on the sync walk's bank rows and K6, its update and step
+   boundary, bit for bit inside a step, at its boundary, all walkers
+   accepting and after the last step, at the sync engine runs' shapes,
+   above one block and at an odd P; K7, the random walk's acceptance,
+   bit for bit with rows outside the cube, on its faces and NaN), times
+   them with CUDA events (the kernel also on the device alone,
    its calls queued behind a spin kernel; K4 and K5 also among 50 calls
    in a CUDA graph, beside an empty kernel's time there, the floor of a
    launch), and prints each shape's bound: the larger of its float32
@@ -51,7 +56,13 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    * the sync, async and random-walk engines in segment mode at the JAX
      package's engine tests' configurations (``tests/test_popfused.py:
      40-107``), gated as those tests gate, and one classic-mode async
-     run (segment path off) on the default MLFriends region;
+     run (segment path off) on the default MLFriends region; every
+     dispatch's walk as CUDA graphs (sync: K4 and K6; random walk: K7),
+     each run's wall, rounds, host reads, replays and ms a round
+     printed; one dispatch each of sync, sync8 and the random walk kept
+     and run again from the host loop (every K4, K6 and K7 call held
+     bit for bit against the plain versions) and as graphs (every
+     output the host loop's bits);
    * the classic ``NestedSampler`` (``tests/test_run.py:79-90``: 2-d
      gauss, 200 live points, seed 5) and ``ReactiveNestedSampler`` with a
      host ``SliceSampler`` (mixture directions, the settings of
@@ -122,9 +133,11 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
 5. replays every path's K1, K2 and K3 calls, kept during its run: each
    kernel on real traffic, held against the plain version (K1 and K2 on
    every call, K2 bit for bit) and timed per call beside the bound of
-   those inputs; times K4 and K5 at every (walkers, depth, dimension)
-   the paths' spec walks ran; then prints the kernels ranked by
-   launches x (device ms - bound ms) over the paths;
+   those inputs; times K4, K5, K6 and K7 in a CUDA graph at every shape
+   the paths' walks ran them (K6 inside a step and at a step boundary,
+   weighed by the paths' boundaries), checks that their launches booked
+   by shape add up to the launches counted; then prints the kernels
+   ranked by launches x (device ms - bound ms) over the paths;
 6. prints one JSON line describing the kernels (each at its first
    shape), then the result line ``{"ok": true, "device": {...}}`` last.
 
@@ -158,6 +171,12 @@ KERNEL_NOTES = {
                      'ultranest_tpu/popfused.py:575'),
     'spec_update': ('ultranest_torch/csrc/spec_update.cu',
                     'ultranest_tpu/popfused.py:587'),
+    # the sync engine's shrink update and step boundary, and the random
+    # walk's acceptance (XLA loops of the JAX package, ported by hand)
+    'sync_update': ('ultranest_torch/csrc/sync_update.cu',
+                    'ultranest_tpu/popfused.py:849'),
+    'rwalk_accept': ('ultranest_torch/csrc/rwalk_accept.cu',
+                     'ultranest_tpu/popfused.py:1610'),
 }
 # the paths beside the spec problems, the async engine and the mesh's
 # asymgauss50 whose spec walks must run (as CUDA graphs, K4 and K5
@@ -689,75 +708,340 @@ def check_launch_floor():
     return q, g
 
 
-class SpecWalks:
-    """Keeps the ``stats`` of every ``popfused.spec_walk`` call made
-    inside the block (the spec and async walks of every sampler)."""
+# --- K6 and K7: the sync and random walks' rounds ---------------------------
+
+# K6 shapes (P, d): the sync engine run (d 2, popsize 64), sync8 (d 8,
+# popsize 128), above one block (the boundary's block strides over the
+# walkers) at d 50, and an odd P
+SYNC_SHAPES = ((64, 2), (128, 8), (4096, 50), (65, 3))
+# K7 shapes (P, d): the random-walk engine run (d 8, popsize 128), above
+# one block at d 50, an odd P
+RWALK_SHAPES = ((128, 8), (4096, 50), (63, 3))
+# a 'mid' round's iteration cap: no timing call reaches it
+NEVER = 2**30
+
+
+def sync_round_inputs(rng, P, d, kind, nsteps=16):
+    """A sync-walk state on the card and one round's inputs: K4's bank
+    rows, the rows' likelihoods, the filter's rows and the threshold
+    (three walkers in ten above it), with walkers done, points on a face
+    and zero axes. *kind*: 'mid' a round inside a step whose rejecting
+    walkers keep rejecting (every call of a timing does the same work,
+    and none reaches the iteration cap); 'boundary' a round that ends its
+    step (``max_it`` 1, :data:`MID_DISPATCH_STEPS` steps: every call of
+    a timing ends a step); 'all_accept' every walker accepting; 'finished'
+    a round after the last step. Returns ``(state, tbank, dirbank, Lp,
+    tin, Lmin, max_it)``."""
+    import torch
+    from ultranest_torch import popfused
+    from ultranest_torch.ops import kernels
+    f32 = np.float32
+    max_it = {'mid': NEVER, 'boundary': 1}.get(kind, 8)
+    if kind == 'boundary':
+        nsteps = MID_DISPATCH_STEPS
+    st = popfused._sync_state(P, d, nsteps, 'cuda')
+    u = rng.uniform(0.05, 0.95, size=(P, d)).astype(f32)
+    u[::7, 0] = 0.0
+    v = (rng.normal(size=(P, d)) * 0.1).astype(f32)
+    v[::5, 0] = 0.0
+    st['u'].copy_(torch.as_tensor(u))
+    st['v'].copy_(torch.as_tensor(v))
+    tl, tr = kernels.cube_intersection(st['u'], st['v'])
+    st['tl'].copy_(tl)
+    st['tr'].copy_(tr)
+    st['un'].copy_(st['u'])
+    st['Ln'].copy_(torch.as_tensor(rng.normal(size=P).astype(f32)))
+    st['done'].copy_(torch.as_tensor(rng.uniform(size=P) < 0.2))
+    s = nsteps if kind == 'finished' else 0
+    it = 0 if kind == 'boundary' else 1
+    rows = 4 if kind == 'mid' else nsteps * max_it
+    st['s'].fill_(s)
+    st['it'].fill_(it)
+    st['row'].fill_(min(s * max_it + it, rows - 1))
+    st['flag'].fill_(kind == 'finished')
+    tbank = torch.as_tensor(rng.uniform(size=(rows, P, 1)).astype(f32),
+                            device='cuda')
+    dirbank = (rng.normal(size=(nsteps, P, d)) * 0.1).astype(f32)
+    dirbank[:, ::3, 0] = 0.0
+    dirbank = torch.as_tensor(dirbank, device='cuda')
+    Lp = rng.normal(size=P).astype(f32)
+    if kind == 'all_accept':
+        Lp[:] = 5.0
+    Lp = torch.as_tensor(Lp, device='cuda')
+    tin = torch.as_tensor(rng.uniform(size=P) < 0.9, device='cuda')
+    Lmin = torch.tensor(0.5244, dtype=torch.float32, device='cuda')
+    return st, tbank, dirbank, Lp, tin, Lmin, max_it
+
+
+def sync_update_bound(P, d, tin, st, Lp, Lmin, boundary):
+    """Bound of K6 on these inputs: every walker's likelihood, slice
+    position, shrunk bracket, flag (and filter row) read; an accepting
+    walker's point and direction read and its row, likelihood and flag
+    written (2 operations a coordinate), a rejecting one's bracket
+    written; at a step boundary every width read (1 operation), every
+    walker's row and next direction read, its point, direction, chord
+    (4 operations a coordinate) and flag written."""
+    active = ~st['done']
+    acc = int(((Lp > Lmin) & active).sum())
+    rej = int(active.sum()) - acc
+    nbytes = 17 * P + (P if tin is not None else 0) + 4 + 32 \
+        + acc * (12 * d + 5) + rej * 8
+    ops = 2 * acc * d
+    if boundary:
+        nbytes += 8 * P + 16 * P * d + 9 * P + 8
+        ops += P + 4 * P * d
+    return bound(ops, nbytes)
+
+
+def check_sync_kernels(kernels, rng, P, d, registers=None):
+    """K4 at D 1 on the sync walk's bank rows and K6 against their plain
+    versions, bit for bit, at one shape: inside a step, at its boundary,
+    every walker accepting and a finished round, with and without the
+    filter's rows; times K6 (host-paced, on the device alone and among
+    50 calls in a CUDA graph) inside a step and at a boundary, beside
+    the bounds, and prints the registers of its two kernels. Returns
+    (0.0, kernel ms, plain ms, bound ms, what bounds it, device ms,
+    graph ms, boundary graph ms, boundary bound ms), the first five
+    inside a step."""
+    from ultranest_torch.evaluate.bench_membership import cuda_ms
+    inputs = {}
+    for kind in ('mid', 'boundary', 'all_accept', 'finished'):
+        st, tbank, dirbank, Lp, tin, Lmin, max_it = inputs[kind] = \
+            sync_round_inputs(rng, P, d, kind)
+        prop = (st['u'], st['v'], st['tl'], st['tr'], tbank, st['row'])
+        got = kernels.spec_propose(*prop)
+        want = kernels.spec_propose_plain(*prop)
+        assert all(values_equal(a, b) for a, b in zip(got, want)), \
+            ('spec_propose disagrees on sync rows', P, d, kind)
+        ts, tlc, trc, _ = want
+        for t in (tin, None):
+            mine = {k: x.clone() for k, x in st.items()}
+            plain = {k: x.clone() for k, x in st.items()}
+            kernels.sync_update(Lp, t, ts, tlc, trc, Lmin, dirbank, max_it,
+                                mine)
+            kernels.sync_update_plain(Lp, t, ts, tlc, trc, Lmin, dirbank,
+                                      max_it, plain)
+            bad = [k for k in kernels.SYNC_STATE
+                   if not values_equal(mine[k], plain[k])]
+            assert not bad, ('sync_update disagrees', P, d, kind,
+                             t is None, bad)
+        inputs[kind] += (ts, tlc, trc)
+    out = {}
+    for kind in ('mid', 'boundary'):
+        st, tbank, dirbank, Lp, tin, Lmin, max_it, ts, tlc, trc = \
+            inputs[kind]
+        bms, by = sync_update_bound(P, d, tin, st, Lp, Lmin,
+                                    kind == 'boundary')
+
+        def args():
+            # a fresh copy of the state: every call moves it on
+            return (Lp, tin, ts, tlc, trc, Lmin, dirbank, max_it,
+                    {k: x.clone() for k, x in st.items()})
+        a = args()
+        ms = cuda_ms(lambda: kernels.sync_update(*a), 50)
+        a = args()
+        dev = queued_ms([lambda: kernels.sync_update(*a)] * 50)
+        a = args()
+        gms = graph_ms(lambda: kernels.sync_update(*a))
+        a = args()
+        plain_ms = cuda_ms(lambda: kernels.sync_update_plain(*a), 5)
+        out[kind] = (ms, dev, gms, plain_ms, bms, by)
+    regs = {n: (registers or {}).get(n)
+            for n in ('sync_walker_kernel', 'sync_step_kernel')}
+    for kind, (ms, dev, gms, plain_ms, bms, by) in out.items():
+        print('K6 sync_update P=%d d=%d %s: K4 at D 1 and K6 bit-equal to '
+              'plain (inside a step, at its boundary, all accepting, '
+              'finished; with and without the filter), kernel %.4f ms, '
+              'device %.4f ms, in a graph %.4f ms, plain %.4f ms, bound '
+              '%.6f ms (%s), %.1f%% of the bound in a graph; registers %s'
+              % (P, d, 'inside a step' if kind == 'mid' else
+                 'at a step boundary', ms, dev, gms, plain_ms, bms, by,
+                 100 * bms / gms, json.dumps(regs)))
+    ms, dev, gms, plain_ms, bms, by = out['mid']
+    return (0.0, ms, plain_ms, bms, by, dev, gms, out['boundary'][2],
+            out['boundary'][4])
+
+
+def rwalk_round_inputs(rng, P, d):
+    """One random-walk step's inputs on the card: proposals inside the
+    cube and outside it, on its faces, NaN coordinates, NaN and infinite
+    likelihoods, the filter's rows, the threshold and a state."""
+    import torch
+    f32 = np.float32
+    up = rng.uniform(-0.02, 1.02, size=(P, d)).astype(f32)
+    up[::3] = rng.uniform(0.2, 0.8, size=up[::3].shape)
+    up[1::11] = 0.0
+    up[2::13, 0] = np.nan
+    Lev = rng.normal(size=P).astype(f32)
+    Lev[::19] = np.nan
+    Lev[1::23] = np.inf
+    st = dict(u=torch.as_tensor(rng.uniform(size=(P, d)).astype(f32),
+                                device='cuda'),
+              L=torch.as_tensor(rng.normal(size=P).astype(f32),
+                                device='cuda'),
+              nacc=torch.zeros((), dtype=torch.int64, device='cuda'),
+              nc=torch.zeros((), dtype=torch.int64, device='cuda'))
+    tin = torch.as_tensor(rng.uniform(size=P) < 0.9, device='cuda')
+    Lmin = torch.tensor(-0.5, dtype=torch.float32, device='cuda')
+    return (torch.as_tensor(Lev, device='cuda'), tin,
+            torch.as_tensor(up, device='cuda'), Lmin, st)
+
+
+def rwalk_accept_bound(P, d, tin, Lev, up, Lmin):
+    """Bound of K7 on these inputs: every proposal, likelihood (and filter
+    row) read, 2 compares a coordinate; an accepted walker's row and
+    likelihood written."""
+    inside = ((up > 0) & (up < 1)).all(dim=1)
+    acc = int((inside & (Lev > Lmin)).sum())
+    nbytes = 4 * P * d + 4 * P + (P if tin is not None else 0) + 4 + 16 \
+        + acc * (4 * d + 4)
+    return bound(2 * P * d, nbytes)
+
+
+def check_rwalk_kernel(kernels, rng, P, d, registers=None):
+    """K7 against its plain version, bit for bit, at one shape, with and
+    without the filter's rows; times it (host-paced, on the device alone
+    and among 50 calls in a CUDA graph; every call does the same work)
+    beside its bound. Returns (0.0, kernel ms, plain ms, bound ms, what
+    bounds it, device ms, graph ms)."""
+    from ultranest_torch.evaluate.bench_membership import cuda_ms
+    Lev, tin, up, Lmin, st = rwalk_round_inputs(rng, P, d)
+    for t in (tin, None):
+        mine = {k: x.clone() for k, x in st.items()}
+        plain = {k: x.clone() for k, x in st.items()}
+        kernels.rwalk_accept(Lev, t, up, Lmin, mine)
+        kernels.rwalk_accept_plain(Lev, t, up, Lmin, plain)
+        bad = [k for k in kernels.RWALK_STATE
+               if not values_equal(mine[k], plain[k])]
+        assert not bad, ('rwalk_accept disagrees', P, d, t is None, bad)
+    a = (Lev, tin, up, Lmin, st)
+    ms = cuda_ms(lambda: kernels.rwalk_accept(*a), 50)
+    dev = queued_ms([lambda: kernels.rwalk_accept(*a)] * 50)
+    gms = graph_ms(lambda: kernels.rwalk_accept(*a))
+    plain_ms = cuda_ms(lambda: kernels.rwalk_accept_plain(*a), 5)
+    bms, by = rwalk_accept_bound(P, d, tin, Lev, up, Lmin)
+    print('K7 rwalk_accept P=%d d=%d: bit-equal to plain (with and without '
+          'the filter), kernel %.4f ms, device %.4f ms, in a graph %.4f ms, '
+          'plain %.4f ms, bound %.6f ms (%s), %.1f%% of the bound in a '
+          'graph; registers %s' % (
+              P, d, ms, dev, gms, plain_ms, bms, by, 100 * bms / gms,
+              (registers or {}).get('rwalk_accept_kernel')))
+    return (0.0, ms, plain_ms, bms, by, dev, gms)
+
+
+# the kernels each walk launches, by walk
+WALK_KERNELS = dict(spec=('spec_propose', 'spec_update'),
+                    sync=('spec_propose', 'sync_update'),
+                    rwalk=('rwalk_accept',))
+
+
+class Walks:
+    """Keeps the ``stats`` of every population walk made inside the block
+    (``popfused.spec_walk``: the spec and async walks; ``sync_walk``;
+    ``rwalk_walk``) and books each kernel's launches by shape: K4 and K5
+    of a spec walk under "P,D,d", K4 of a sync walk under "P,1,d", K6
+    and K7 under "P,d"; and the sync walks' step boundaries (``nsteps``
+    a walk) under K6's shape."""
 
     def __enter__(self):
         from ultranest_torch import popfused
         from ultranest_torch.ops import kernels
-        self.mod, self.orig, self.walks = popfused, popfused.spec_walk, []
-        self.by_shape = collections.Counter()
+        self.mod, self.walks = popfused, collections.defaultdict(list)
+        self.orig = {kind: getattr(popfused, kind + '_walk')
+                     for kind in WALK_KERNELS}
+        self.by_shape = collections.defaultdict(collections.Counter)
+        self.boundaries = collections.Counter()
 
-        def record(*args, **kw):
-            if kw.get('stats') is None:
-                kw['stats'] = {}
-            # (P, D, d): the walkers, the depth and the dimension
-            key = '%d,%d,%d' % (tuple(args[0]['xibank'].shape[1:])
-                                + (args[1].shape[1],))
-            seen = kernels.LAUNCHES['spec_update']
-            try:
-                out = self.orig(*args, **kw)
-            finally:
-                # every K5 launch of the walk, its warm-up round and a
-                # walk cut short by the watchdog's deadline included
-                self.by_shape[key] += kernels.LAUNCHES['spec_update'] - seen
-            self.walks.append(kw['stats'])
-            return out
-        popfused.spec_walk = record
+        def recorder(kind, orig):
+            def record(*args, **kw):
+                if kw.get('stats') is None:
+                    kw['stats'] = {}
+                banks, d = args[0], args[1].shape[1]
+                if kind == 'spec':
+                    P, D = banks['xibank'].shape[1:]
+                elif kind == 'sync':
+                    P, D = banks['tbank'].shape[2], 1
+                    self.boundaries['%d,%d' % (P, d)] += \
+                        banks['tbank'].shape[0]
+                else:
+                    P, D = banks['eps'].shape[1], None
+                seen = {k: kernels.LAUNCHES[k] for k in WALK_KERNELS[kind]}
+                try:
+                    out = orig(*args, **kw)
+                finally:
+                    # every launch of the walk, its warm-up round and a
+                    # walk cut short by the watchdog's deadline included
+                    for k in WALK_KERNELS[kind]:
+                        key = '%d,%d,%d' % (P, D, d) \
+                            if k in ('spec_propose', 'spec_update') \
+                            else '%d,%d' % (P, d)
+                        self.by_shape[k][key] += kernels.LAUNCHES[k] - seen[k]
+                self.walks[kind].append(kw['stats'])
+                return out
+            return record
+        for kind, orig in self.orig.items():
+            setattr(popfused, kind + '_walk', recorder(kind, orig))
         return self
 
     def __exit__(self, *exc):
-        self.mod.spec_walk = self.orig
+        for kind, orig in self.orig.items():
+            setattr(self.mod, kind + '_walk', orig)
 
     def summary(self):
-        """Walks, those run as graphs and from the host loop, rounds,
-        replays, captures and capture seconds, and the K4 and K5
-        launches by shape ("P,D,d": the count of K5's launches over each
-        walk)."""
-        w = [s for s in self.walks if 'graph' in s]
-        return dict(walks=len(w), graph=sum(bool(s['graph']) for s in w),
-                    host_loop=sum(not s['graph'] for s in w),
-                    rounds=sum(s['rounds'] for s in w),
-                    replays=sum(s['replays'] for s in w),
-                    captures=sum(s['captures'] for s in w),
-                    capture_s=sum(s['capture_s'] for s in w),
-                    launches_by_shape=dict(self.by_shape))
+        """Per walk kind: walks, those run as graphs and from the host
+        loop, rounds, replays, captures and capture seconds; each
+        kernel's launches by shape (its launches over each walk), and
+        the sync walks' step boundaries by shape."""
+        kinds = {}
+        for kind, ws in self.walks.items():
+            w = [s for s in ws if 'graph' in s]
+            kinds[kind] = dict(
+                walks=len(w), graph=sum(bool(s['graph']) for s in w),
+                host_loop=sum(not s['graph'] for s in w),
+                rounds=sum(s['rounds'] for s in w),
+                replays=sum(s['replays'] for s in w),
+                captures=sum(s['captures'] for s in w),
+                capture_s=sum(s['capture_s'] for s in w))
+        return dict(kinds=kinds,
+                    launches_by_shape={k: dict(v) for k, v in
+                                       self.by_shape.items() if v},
+                    boundaries=dict(self.boundaries))
 
 
-# each path's K4 and K5 launches by shape ("P,D,d"), booked by
-# check_spec_path, for the ranking (spec_gaps)
-SPEC_LAUNCHES = {}
+# each path's kernel launches by shape and the sync walks' step
+# boundaries by shape, booked by check_walk_path, for the ranking
+# (walk_gaps)
+WALK_LAUNCHES = {}
+SYNC_BOUNDARIES = {}
 
 
-def check_spec_path(name, walks, launched, required):
-    """A path's spec walks all ran as CUDA graphs; a *required* spec path
-    ran some, and launched K4 and K5. Books the path's launches by shape
-    in :data:`SPEC_LAUNCHES`."""
-    assert walks['host_loop'] == 0, \
-        ('a spec walk fell back to the host loop', name, walks)
-    if required:
-        assert walks['graph'] > 0, ('no spec walk ran as graphs', name)
-        for k in ('spec_propose', 'spec_update'):
-            assert launched.get(k, 0) >= walks['rounds'] > 0, \
-                ('%s not launched on the spec path' % k, name, launched)
+def check_walk_path(name, walks, launched, required=()):
+    """A path's population walks all ran as CUDA graphs; each walk kind
+    of *required* ('spec', 'sync', 'rwalk') ran some, and launched its
+    kernels in each round. Books the path's launches by shape in
+    :data:`WALK_LAUNCHES` and its step boundaries in
+    :data:`SYNC_BOUNDARIES`."""
+    kinds = walks['kinds']
+    for kind, w in kinds.items():
+        assert w['host_loop'] == 0, \
+            ('a %s walk fell back to the host loop' % kind, name, w)
+    for kind in required:
+        w = kinds.get(kind, dict(graph=0, rounds=0))
+        assert w['graph'] > 0, ('no %s walk ran as graphs' % kind, name)
+        for k in WALK_KERNELS[kind]:
+            assert launched.get(k, 0) >= w['rounds'] > 0, \
+                ('%s not launched on the %s walks' % (k, kind), name,
+                 launched)
     if walks['launches_by_shape']:
-        SPEC_LAUNCHES[name] = walks['launches_by_shape']
-    if walks['walks']:
-        print('%s spec walks: %d dispatches as CUDA graphs, %d rounds, %d '
-              'replays, %d captures in %.3f s' % (
-                  name, walks['graph'], walks['rounds'], walks['replays'],
-                  walks['captures'], walks['capture_s']))
+        WALK_LAUNCHES[name] = walks['launches_by_shape']
+    if walks['boundaries']:
+        SYNC_BOUNDARIES[name] = walks['boundaries']
+    for kind, w in sorted(kinds.items()):
+        if w['walks']:
+            print('%s %s walks: %d dispatches as CUDA graphs, %d rounds, %d '
+                  'replays, %d captures in %.3f s' % (
+                      name, kind, w['graph'], w['rounds'], w['replays'],
+                      w['captures'], w['capture_s']))
 
 
 class DepthProbes:
@@ -821,16 +1105,19 @@ def measure_round_overheads(names):
 
 
 class DispatchKeeper:
-    """Keeps the inputs of the *index*-th walk of a spec sampler made
-    inside the block (``FusedPopulationSliceSampler._walk``)."""
+    """Keeps the inputs of the *index*-th walk of a population sampler
+    made inside the block (``FusedPopulationSliceSampler._walk``, or
+    ``FusedPopulationRandomWalkSampler._walk`` with *rwalk*)."""
 
-    def __init__(self, index):
+    def __init__(self, index, rwalk=False):
         self.index, self.count, self.kept = index, 0, None
+        self.rwalk = rwalk
 
     def __enter__(self):
-        from ultranest_torch.popfused import FusedPopulationSliceSampler
-        self.cls, self.orig = FusedPopulationSliceSampler, \
-            FusedPopulationSliceSampler._walk
+        from ultranest_torch import popfused
+        self.cls = popfused.FusedPopulationRandomWalkSampler if self.rwalk \
+            else popfused.FusedPopulationSliceSampler
+        self.orig = self.cls.__dict__['_walk']
         keeper = self
 
         def keep(sampler, banks, live_u, live_L, nlive, axes, Lmin, scale,
@@ -846,7 +1133,7 @@ class DispatchKeeper:
             keeper.count += 1
             return keeper.orig(sampler, banks, live_u, live_L, nlive, axes,
                                Lmin, scale, treg)
-        FusedPopulationSliceSampler._walk = keep
+        self.cls._walk = keep
         return self
 
     def __exit__(self, *exc):
@@ -932,6 +1219,96 @@ def check_walk_traffic(kernels, name, kept):
               kept['nsteps'], host['rounds'], calls['spec_propose'],
               1e3 * host_s / host['rounds'], 1e3 * rep_wall / rep['rounds'],
               rep['replays'], cap_wall, cap['captures'], cap['capture_s']))
+    return dict(rounds=host['rounds'], host_ms_per_round=1e3 * host_s
+                / host['rounds'], graph_ms_per_round=1e3 * rep_wall
+                / rep['rounds'])
+
+
+def check_engine_traffic(kernels, name, kept):
+    """One real dispatch of a sync or random-walk engine run, kept by
+    :class:`DispatchKeeper`: run from the host loop with K4 and K6 (or
+    K7), each call held against the plain versions bit for bit; then as
+    CUDA graphs (a first run captures, a second replays), whose outputs
+    must be the host loop's bits. Prints rounds and wall per round of
+    both; returns them."""
+    import torch
+    from ultranest_torch import popfused
+    from ultranest_torch.fused import _f32
+    s = kept['sampler']
+    saved, s._treg_key = s._treg_key, kept['treg_key']
+    ev = s._treg_eval()
+    s._treg_key = saved
+    banks, treg = kept['banks'], kept['treg']
+    kind = 'sync' if 'tbank' in banks else 'rwalk'
+    walk = getattr(popfused, kind + '_walk')
+    args = (banks, kept['live_u'], kept['live_L'], kept['axes'],
+            kept['Lmin'], _f32(kept['scale']))
+    calls = collections.Counter()
+    orig = {k: getattr(kernels, k)
+            for k in ('spec_propose', 'sync_update', 'rwalk_accept')}
+
+    def propose(*a):
+        got = orig['spec_propose'](*a)
+        want = kernels.spec_propose_plain(*a)
+        assert all(values_equal(x, y) for x, y in zip(got, want)), \
+            ('spec_propose disagrees on real traffic', name,
+             calls['spec_propose'])
+        calls['spec_propose'] += 1
+        return got
+
+    def checked(k, state_keys, plain_fn):
+        def call(*a):
+            st = a[-1]
+            plain = {key: x.clone() for key, x in st.items()}
+            orig[k](*a)
+            plain_fn(*a[:-1], plain)
+            bad = [key for key in state_keys
+                   if not values_equal(st[key], plain[key])]
+            assert not bad, ('%s disagrees on real traffic' % k, name,
+                             calls[k], bad)
+            calls[k] += 1
+        return call
+    kernels.spec_propose = propose
+    kernels.sync_update = checked('sync_update', kernels.SYNC_STATE,
+                                  kernels.sync_update_plain)
+    kernels.rwalk_accept = checked('rwalk_accept', kernels.RWALK_STATE,
+                                   kernels.rwalk_accept_plain)
+    host = {}
+    try:
+        want = walk(*args, lambda r: ev(r, treg), stats=host)
+        torch.cuda.synchronize()
+    finally:
+        for k, f in orig.items():
+            setattr(kernels, k, f)
+    for k in WALK_KERNELS[kind]:
+        assert calls[k] == host['rounds'], (k, dict(calls), host)
+    t0 = time.perf_counter()
+    walk(*args, lambda r: ev(r, treg))
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
+    graphs = popfused.SpecGraphs(name)
+    treg_s = graphs.static('treg', treg)
+    runs = []
+    for _ in range(2):
+        st = {}
+        t0 = time.perf_counter()
+        got = walk(*args, lambda r: ev(r, treg_s), stats=st, graphs=graphs)
+        torch.cuda.synchronize()
+        runs.append((time.perf_counter() - t0, st))
+        for i, (a, b) in enumerate(zip(got, want)):
+            assert values_equal(a, b), \
+                ('the graph dispatch differs from the host loop', name, i)
+        assert st['graph'] and st['rounds'] == host['rounds']
+    (cap_wall, cap), (rep_wall, rep) = runs
+    P, d = banks['idx0'].shape[0], kept['live_u'].shape[1]
+    print('%s real dispatch (P %d, d %d, %d rounds): every %s call bit-equal '
+          'to plain (%d each); host loop %.4f ms a round; as CUDA graphs '
+          'every output bit-equal to the host loop, %.4f ms a round replayed '
+          '(%d replays), first run %.3f s with %d captures in %.3f s' % (
+              name, P, d, host['rounds'], ' and '.join(WALK_KERNELS[kind]),
+              calls[WALK_KERNELS[kind][-1]], 1e3 * host_s / host['rounds'],
+              1e3 * rep_wall / rep['rounds'], rep['replays'], cap_wall,
+              cap['captures'], cap['capture_s']))
     return dict(rounds=host['rounds'], host_ms_per_round=1e3 * host_s
                 / host['rounds'], graph_ms_per_round=1e3 * rep_wall
                 / rep['rounds'])
@@ -1432,6 +1809,9 @@ ENGINE_RUNS = {
                       dict(engine='async', popsize=128, nsteps=16,
                            harvest_frac=1.0), 200, 4, False),
 }
+# the walk each engine run drives, as CUDA graphs on every dispatch
+ENGINE_WALKS = {'sync': ('sync',), 'async': ('spec',), 'sync8': ('sync',),
+                'rwalk': ('rwalk',), 'async_classic': ('spec',)}
 
 
 def run_engine(name):
@@ -1440,9 +1820,12 @@ def run_engine(name):
     Every kernel count is set to 0 just before the run and read just
     after it. ``async_classic`` turns the segment path off, so its walk
     runs in classic mode and its harvest is consumed on the host; every
-    other run must engage the segment path and launch K3. Gated as the
-    reference's tests gate: sync |logZ| < 1, the others |logZ| <
-    3 max(logzerr, 0.5). Returns the run's summary.
+    other run must engage the segment path and launch K3. Every dispatch
+    must run its walk as CUDA graphs. Gated as the reference's tests
+    gate: sync |logZ| < 1, the others |logZ| < 3 max(logzerr, 0.5).
+    Returns the run's summary (wall, ncall, niter, logZ, dispatches,
+    rounds, host reads, replays, captures, ms a round: wall over
+    rounds).
     """
     import torch
     from ultranest_torch import ReactiveNestedSampler
@@ -1480,6 +1863,8 @@ def run_engine(name):
                dispatches=len(ss.walk_log),
                rounds=sum(w['rounds'] for w in ss.walk_log),
                reads=sum(w['reads'] for w in ss.walk_log),
+               replays=sum(w['replays'] for w in ss.walk_log),
+               captures=sum(w['captures'] for w in ss.walk_log),
                scale=ss.scale,
                segment_exits=dict(getattr(sampler, '_segment_exits', {})),
                launches=dict(kernels.LAUNCHES))
@@ -1491,6 +1876,9 @@ def run_engine(name):
                                            res['logzerr'])
     assert np.isfinite(res['samples']).all(), 'bad posterior samples'
     assert ss.walk_log, 'the walk never ran'
+    assert all(w['graph'] for w in ss.walk_log), \
+        ('a dispatch of %s ran from the host loop' % name)
+    out['ms_per_round'] = 1e3 * wall / out['rounds']
     if classic:
         assert not out['segment_exits'] and \
             out['launches'].get('consume_scan', 0) == 0
@@ -2290,11 +2678,11 @@ def mesh_child(rank, port, out_dir):
                                                                   mesh)
         out['radius_wall_s'] = time.perf_counter() - t0
         traffic = {}
-        with KernelCapture(kernels) as cap, SpecWalks() as walks:
+        with KernelCapture(kernels) as cap, Walks() as walks:
             out['eggbox'] = run_eggbox(mesh=mesh)
         traffic['eggbox'] = cap.calls
         out['eggbox']['spec_walks'] = walks.summary()
-        with KernelCapture(kernels) as cap, SpecWalks() as walks:
+        with KernelCapture(kernels) as cap, Walks() as walks:
             out['asymgauss50'] = run_population_problem('asymgauss50',
                                                         mesh=mesh)
         traffic['asymgauss50'] = cap.calls
@@ -2723,43 +3111,83 @@ def run_profile(problem):
     return dict(out, launches=launched)
 
 
-def spec_gaps(kernels, spec_launches):
-    """K4's and K5's launches x (device ms - bound ms) over the paths:
-    *spec_launches* maps a path to its launches by shape ("P,D,d",
-    :meth:`SpecWalks.summary`); each shape is timed once on the device
-    alone (:func:`spec_round_inputs`; K5 mid-dispatch,
-    :func:`mid_dispatch_update`), queued and among 50 calls in a CUDA
-    graph, beside its bound. The paths run K4 and K5 inside the spec
-    walk's graphs only, so the graph time is the one ranked. Prints each
-    shape and returns {kernel: ms}."""
-    shapes = collections.Counter()
-    for by_shape in spec_launches.values():
-        shapes.update(by_shape)
-    gap = dict(spec_propose=0.0, spec_update=0.0)
+def walk_gaps(kernels, walk_launches, boundaries):
+    """K4's, K5's, K6's and K7's launches x (device ms - bound ms) over
+    the paths: *walk_launches* maps a path to each kernel's launches by
+    shape (:meth:`Walks.summary`), *boundaries* to its sync walks' step
+    boundaries by shape. Each shape is timed once among 50 calls in a
+    CUDA graph, as the paths' graphs run the kernels, beside its bound:
+    K4 on :func:`spec_round_inputs` at its depth (1 for the sync walk),
+    K5 mid-dispatch (:func:`mid_dispatch_update`), K6 inside a step and
+    at a boundary (:func:`sync_round_inputs`; the boundary launches
+    weighed apart), K7 on :func:`rwalk_round_inputs`. Prints each shape
+    and returns {kernel: ms}."""
+    shapes = collections.defaultdict(collections.Counter)
+    for by_kernel in walk_launches.values():
+        for k, by_shape in by_kernel.items():
+            shapes[k].update(by_shape)
+    nbound = collections.Counter()
+    for by_shape in boundaries.values():
+        nbound.update(by_shape)
+
+    def paths_of(k, key):
+        return ', '.join(sorted(p for p, v in walk_launches.items()
+                                if key in v.get(k, {})))
+    gap = {k: 0.0 for k in kernels.POPULATION_KERNELS}
     rng = np.random.RandomState(7)
-    for key, n in sorted(shapes.items()):
+    for key, n in sorted(shapes['spec_propose'].items()):
+        P, D, d = (int(x) for x in key.split(','))
+        st, xibank = spec_round_inputs(rng, P, D, d)[:2]
+        prop = (st['u'], st['v'], st['tl'], st['tr'], xibank, st['it'])
+        g = graph_ms(lambda: kernels.spec_propose(*prop))
+        b = propose_bound(P, D, d)[0]
+        gap['spec_propose'] += n * (g - b)
+        print('K4 at P=%d D=%d d=%d, %d launches on the paths (%s): in a '
+              'graph %.4f ms (bound %.6f)' % (P, D, d, n,
+                                              paths_of('spec_propose', key),
+                                              g, b))
+    for key, n in sorted(shapes['spec_update'].items()):
         P, D, d = (int(x) for x in key.split(','))
         st, xibank, _, Lp, tin, Lmin = spec_round_inputs(rng, P, D, d)
         prop = (st['u'], st['v'], st['tl'], st['tr'], xibank, st['it'])
         ts, tlc, trc, _ = kernels.spec_propose(*prop)
-        p_dev = queued_ms([lambda: kernels.spec_propose(*prop)] * 50)
-        p_graph = graph_ms(lambda: kernels.spec_propose(*prop))
-        p_b = propose_bound(P, D, d)[0]
-        upd, u_b = mid_dispatch_update(kernels, st, Lp, tin, ts, tlc, trc,
-                                       Lmin)
-        u_dev = queued_ms([lambda: kernels.spec_update(*upd)] * 50)
-        upd, _ = mid_dispatch_update(kernels, st, Lp, tin, ts, tlc, trc,
+        upd, b = mid_dispatch_update(kernels, st, Lp, tin, ts, tlc, trc,
                                      Lmin)
-        u_graph = graph_ms(lambda: kernels.spec_update(*upd))
+        g = graph_ms(lambda: kernels.spec_update(*upd))
         del upd
-        gap['spec_propose'] += n * (p_graph - p_b)
-        gap['spec_update'] += n * (u_graph - u_b)
-        print('K4/K5 at P=%d D=%d d=%d, %d launches on the paths (%s): K4 '
-              'device %.4f ms, in a graph %.4f ms (bound %.6f); K5 '
-              'mid-dispatch device %.4f ms, in a graph %.4f ms (bound %.6f)'
-              % (P, D, d, n, ', '.join(sorted(
-                  k for k, v in spec_launches.items() if key in v)),
-                 p_dev, p_graph, p_b, u_dev, u_graph, u_b))
+        gap['spec_update'] += n * (g - b)
+        print('K5 at P=%d D=%d d=%d, %d launches on the paths (%s): '
+              'mid-dispatch in a graph %.4f ms (bound %.6f)' % (
+                  P, D, d, n, paths_of('spec_update', key), g, b))
+    for key, n in sorted(shapes['sync_update'].items()):
+        P, d = (int(x) for x in key.split(','))
+        times = {}
+        for kind in ('mid', 'boundary'):
+            st, tbank, dirbank, Lp, tin, Lmin, max_it = \
+                sync_round_inputs(rng, P, d, kind)
+            ts, tlc, trc, _ = kernels.spec_propose(
+                st['u'], st['v'], st['tl'], st['tr'], tbank, st['row'])
+            b = sync_update_bound(P, d, tin, st, Lp, Lmin,
+                                  kind == 'boundary')[0]
+            a = (Lp, tin, ts, tlc, trc, Lmin, dirbank, max_it, st)
+            times[kind] = (graph_ms(lambda: kernels.sync_update(*a)), b)
+            del a, st, dirbank
+        nb = min(nbound[key], n)
+        (gm, bm), (gb, bb) = times['mid'], times['boundary']
+        gap['sync_update'] += (n - nb) * (gm - bm) + nb * (gb - bb)
+        print('K6 at P=%d d=%d, %d launches on the paths (%s), %d of them '
+              'step boundaries: in a graph %.4f ms inside a step (bound '
+              '%.6f), %.4f ms at a boundary (bound %.6f)' % (
+                  P, d, n, paths_of('sync_update', key), nb, gm, bm, gb, bb))
+    for key, n in sorted(shapes['rwalk_accept'].items()):
+        P, d = (int(x) for x in key.split(','))
+        Lev, tin, up, Lmin, st = rwalk_round_inputs(rng, P, d)
+        g = graph_ms(lambda: kernels.rwalk_accept(Lev, tin, up, Lmin, st))
+        b = rwalk_accept_bound(P, d, tin, Lev, up, Lmin)[0]
+        gap['rwalk_accept'] += n * (g - b)
+        print('K7 at P=%d d=%d, %d launches on the paths (%s): in a graph '
+              '%.4f ms (bound %.6f)' % (P, d, n,
+                                         paths_of('rwalk_accept', key), g, b))
     return gap
 
 
@@ -2767,8 +3195,8 @@ def print_ranking(real, spec=None):
     """Prints each kernel's launches x (device ms - bound ms) summed over
     the sampler paths of this run, largest first, every term from the
     path's own replayed calls (*real*: kernel -> path -> its numbers)
-    and, for K4 and K5, from their launches by shape (*spec*:
-    :func:`spec_gaps`)."""
+    and, for K4 to K7, from their launches by shape (*spec*:
+    :func:`walk_gaps`)."""
     gap = {k: sum(r['calls'] * (r['device_ms'] - r['bound_ms'])
                   for r in paths.values()) for k, paths in real.items()}
     gap.update(spec or {})
@@ -2839,8 +3267,15 @@ def main(argv=()):
     check_launch_floor()
     spec = [check_spec_kernels(kernels, rng, *shape, registers=registers)
             for shape in SPEC_SHAPES]
-    for i, name in enumerate(kernels.POPULATION_KERNELS):
+    for i, name in enumerate(WALK_KERNELS['spec']):
         shapes[name] = [res[i] for res in spec]
+    shapes['sync_update'] = [check_sync_kernels(kernels, rng, *shape,
+                                                registers=registers)
+                             for shape in SYNC_SHAPES]
+    shapes['rwalk_accept'] = [check_rwalk_kernel(kernels, rng, *shape,
+                                                 registers=registers)
+                              for shape in RWALK_SHAPES]
+    for name in kernels.POPULATION_KERNELS:
         errs[name] = 0.0
         launches[name] = 0
     torch.cuda.synchronize()
@@ -2886,19 +3321,19 @@ def main(argv=()):
         # a dispatch of asymgauss50 and of gauss100 is kept, to be run
         # again from the host loop and as graphs (check_walk_traffic)
         probes.path = name
-        with KernelCapture(kernels) as cap, SpecWalks() as walks, \
+        with KernelCapture(kernels) as cap, Walks() as walks, \
                 DispatchKeeper(5) as keeper:
             run = run_population_problem(name)
         traffic[name] = cap.calls
         path_launches[name] = run['launches']
         print_population_run(run)
-        check_spec_path(name, walks.summary(), run['launches'], True)
+        check_walk_path(name, walks.summary(), run['launches'], ('spec',))
         if name in ('asymgauss50', 'gauss100'):
             spec_kept[name] = keeper.kept
         launch_s += run['phases_s']['launch']
         rounds += run['rounds']
         for k in kernels.POPULATION_KERNELS:
-            launches[k] += run['launches'][k]
+            launches[k] += run['launches'].get(k, 0)
         if name == 'rosenbrock8':
             print('rosenbrock8: the JAX package on a TPU gave logZ -42.915 '
                   '+- 0.483 (BENCH_r05.json), an algorithmic yardstick')
@@ -2926,29 +3361,37 @@ def main(argv=()):
     del spec_kept
     # the slowest bench problem, at the bench's configuration
     probes.path = 'gauss100_hard'
-    with KernelCapture(kernels) as cap, SpecWalks() as walks:
+    with KernelCapture(kernels) as cap, Walks() as walks:
         run = run_population_problem('gauss100_hard')
     traffic['gauss100_hard'] = cap.calls
     path_launches['gauss100_hard'] = run['launches']
     print_population_run(run)
-    check_spec_path('gauss100_hard', walks.summary(), run['launches'], True)
+    check_walk_path('gauss100_hard', walks.summary(), run['launches'],
+                    ('spec',))
     for k in kernels.REGION_KERNELS + kernels.POPULATION_KERNELS:
         launches[k] += run['launches'].get(k, 0)
 
-    engines = {}
+    engines, engine_kept = {}, {}
     for name in ('sync', 'async', 'sync8', 'rwalk', 'async_classic'):
-        with KernelCapture(kernels) as cap, SpecWalks() as walks:
+        # a dispatch of each sync and random-walk run is kept, to be run
+        # again from the host loop and as graphs (check_engine_traffic)
+        with KernelCapture(kernels) as cap, Walks() as walks, \
+                DispatchKeeper(5, rwalk=name == 'rwalk') as keeper:
             run = engines[name] = run_engine(name)
+        if ENGINE_WALKS[name] != ('spec',):
+            engine_kept[name] = keeper.kept
         traffic[name] = cap.calls
         path_launches[name] = run['launches']
-        check_spec_path('engine ' + name, walks.summary(), run['launches'],
-                        name.startswith('async'))
+        check_walk_path('engine ' + name, walks.summary(), run['launches'],
+                        ENGINE_WALKS[name])
         print('engine %s: logZ %.4f +- %.4f, wall %.3f s, ncall %d, niter '
               '%d, ncall/niter %.3f, %d dispatches, %d rounds, %d host '
-              'reads, scale %.4g' % (
+              'reads, %d replays, %d captures, %.4f ms a round (wall over '
+              'rounds), scale %.4g' % (
                   name, run['logz'], run['logzerr'], run['wall_s'],
                   run['ncall'], run['niter'], run['ncall_per_iter'],
                   run['dispatches'], run['rounds'], run['reads'],
+                  run['replays'], run['captures'], run['ms_per_round'],
                   run['scale']))
         print('engine %s segment exits:' % name,
               json.dumps(run['segment_exits']))
@@ -2964,6 +3407,10 @@ def main(argv=()):
               engines['async']['ncall_per_iter'],
               engines['sync8']['ncall_per_iter'], ratio))
     assert ratio < 0.7, ('async not cheaper than sync', ratio)
+    for name, kept in engine_kept.items():
+        assert kept is not None, ('no dispatch kept', name)
+        check_engine_traffic(kernels, 'engine ' + name, kept)
+    del engine_kept
 
     # the host tier on the card: the classic sampler and a host step
     # sampler, their regions built (K2) on the device
@@ -3003,14 +3450,14 @@ def main(argv=()):
         spec walks must run as CUDA graphs (and some must, on the paths
         of :data:`SPEC_PATHS`)."""
         probes.path = name
-        with KernelCapture(kernels) as cap, SpecWalks() as walks:
+        with KernelCapture(kernels) as cap, Walks() as walks:
             out = run_fn(*args)
         traffic[name] = cap.calls
         path_launches[name] = out['launches']
         for k in kernels.REGION_KERNELS + kernels.POPULATION_KERNELS:
             launches[k] += out['launches'].get(k, 0)
-        check_spec_path(name, walks.summary(), out['launches'],
-                        name in SPEC_PATHS)
+        check_walk_path(name, walks.summary(), out['launches'],
+                        ('spec',) if name in SPEC_PATHS else ())
         return out
 
     for kind in ('rejection', 'population'):
@@ -3054,8 +3501,8 @@ def main(argv=()):
             path_launches[name] = m['launches']
             for k in kernels.REGION_KERNELS + kernels.POPULATION_KERNELS:
                 launches[k] += m['launches'].get(k, 0)
-            check_spec_path(name, m['spec_walks'], m['launches'],
-                            run == 'asymgauss50')
+            check_walk_path(name, m['spec_walks'], m['launches'],
+                            ('spec',) if run == 'asymgauss50' else ())
     print('mesh phase: %d ranks on one card, identical logZ, ncall and niter '
           'on every rank, %.1f s' % (len(ranks), mesh_wall))
 
@@ -3118,12 +3565,14 @@ def main(argv=()):
                 counts.get(k, 0), ('calls kept and launched differ', k, name)
     if save_traffic:
         torch.save(traffic_on_host(traffic), save_traffic)
-    spec = spec_gaps(kernels, SPEC_LAUNCHES)
-    by_shape = sum(sum(v.values()) for v in SPEC_LAUNCHES.values())
-    print('K4 and K5 launches on the paths: %d by shape, %d and %d counted'
-          % (by_shape, launches['spec_propose'], launches['spec_update']))
-    assert by_shape == launches['spec_propose'] == launches['spec_update'], \
-        'the launches by shape miss some of K4 and K5'
+    spec = walk_gaps(kernels, WALK_LAUNCHES, SYNC_BOUNDARIES)
+    for k in kernels.POPULATION_KERNELS:
+        by_shape = sum(sum(v.get(k, {}).values())
+                       for v in WALK_LAUNCHES.values())
+        print('%s launches on the paths: %d by shape, %d counted'
+              % (k, by_shape, launches[k]))
+        assert by_shape == launches[k], \
+            ('the launches by shape miss some of %s' % k)
 
     print_ranking(real, spec)
     print('spec depths chosen by the probe (path, popsize, d, depth): %s' % (
@@ -3131,7 +3580,7 @@ def main(argv=()):
                     for r in probes.rows])))
     print('chip_smoke: every phase passed in %.1f s' % (time.time() - t_start))
 
-    # no single PyTorch call computes any of the six functions, so none
+    # no single PyTorch call computes any of the eight functions, so none
     # has a library yardstick (library_ms null)
     print(json.dumps({'kernels': [
         dict(name=name, route='cuda', source=KERNEL_NOTES[name][0],

@@ -571,14 +571,16 @@ def test_asymgauss_spec_run_on_card(cuda):
 @pytest.mark.parametrize('engine', ['sync', 'async', 'rwalk'])
 def test_engine_dispatch_reads_the_host_as_stated(cuda, engine):
     """Each engine's segment dispatch waits for the card only in the
-    flag reads of :func:`ultranest_torch.popfused._drive`.
+    flag reads of :func:`ultranest_torch.popfused._drive_rounds`, and
+    runs as CUDA graphs.
 
     Under ``set_sync_debug_mode('error')`` any implicit synchronisation
     raises. The async walk is the spec walk at depth 1: ``reads ==
-    rounds // SPEC_CHECK_EVERY - 1``. The sync walk drives one shrink
-    loop per step, each read with no lag: ``reads == rounds //
-    SYNC_CHECK_EVERY``. The random walk has a fixed trip count and reads
-    nothing.
+    rounds // SPEC_CHECK_EVERY - 1``. The sync walk's rounds run on
+    across step boundaries, a graph of ``SYNC_CHECK_EVERY`` rounds a
+    replay, its flag read one chunk behind: ``reads == rounds //
+    SYNC_CHECK_EVERY - 1``. The random walk has a fixed trip count, is
+    one graph replayed once and reads nothing.
     """
     from ultranest_torch.popfused import (FusedPopulationRandomWalkSampler,
                                           SPEC_CHECK_EVERY,
@@ -605,12 +607,15 @@ def test_engine_dispatch_reads_the_host_as_stated(cuda, engine):
     assert kernels.LAUNCHES['consume_scan'] == 3
     for st in stats:
         assert st['nsteps'] == s.nsteps
+        assert st['graph'] and st['captures'] == 0, st
         if engine == 'rwalk':
             assert st['reads'] == 0 and st['rounds'] == s.nsteps, st
+            assert st['replays'] == 1, st
         elif engine == 'sync':
-            assert s.max_it % SYNC_CHECK_EVERY == 0
+            assert st['rounds'] < s.nsteps * s.max_it, st
             assert st['rounds'] % SYNC_CHECK_EVERY == 0, st
-            assert st['reads'] == st['rounds'] // SYNC_CHECK_EVERY, st
+            assert st['reads'] == st['rounds'] // SYNC_CHECK_EVERY - 1, st
+            assert st['replays'] == st['rounds'] // SYNC_CHECK_EVERY, st
         else:
             assert st['reads'] == st['rounds'] // SPEC_CHECK_EVERY - 1, st
     for _ in range(4):
@@ -1126,3 +1131,280 @@ def test_depth_probe_of_an_uncapturable_likelihood_times_the_eager_call(
     assert s.spec_probe['how'] == 'eager' and s._spec_graphs().failed
     assert s.spec_probe['t_row_s'] + s.spec_probe['fixed_s'] > 0
     popfused._PROBE_CACHE.clear()
+
+
+# --- K6 and K7: the sync and random walks' rounds ---------------------------
+
+def _sync_round_inputs(cuda, P, d, kind, nsteps=5, max_it=6, seed=0):
+    """A sync-walk state on the card and one round's inputs: K4's bank
+    rows and the likelihoods of its rows, with walkers done already,
+    zero axes (both signs) in the directions, points on a face and, by
+    *kind*: 'mid' a round inside a step; 'last_it' the step's last
+    iteration (its boundary); 'all_accept' every walker accepting (its
+    boundary); 'all_rejected' none; 'last_step' the last step's
+    boundary; 'finished' every step ran (a no-op round)."""
+    from ultranest_torch import popfused
+    rng = np.random.RandomState(seed + P + d)
+    f32 = np.float32
+    st = popfused._sync_state(P, d, nsteps, cuda)
+    u = rng.uniform(0.05, 0.95, size=(P, d)).astype(f32)
+    u[::7, 0] = 0.0
+    u[3::7, -1] = 1.0
+    v = (rng.normal(size=(P, d)) * 0.1).astype(f32)
+    v[::5, 0] = 0.0
+    v[1::5, 0] = -0.0
+    st['u'].copy_(torch.as_tensor(u))
+    st['v'].copy_(torch.as_tensor(v))
+    tl, tr = kernels.cube_intersection(st['u'], st['v'])
+    st['tl'].copy_(tl)
+    st['tr'].copy_(tr)
+    st['un'].copy_(st['u'] + 0.01)
+    st['Ln'].copy_(torch.as_tensor(rng.normal(size=P).astype(f32)))
+    st['done'].copy_(torch.as_tensor(rng.uniform(size=P) < 0.3))
+    st['nc'].fill_(12345)
+    s = {'last_step': nsteps - 1, 'finished': nsteps}.get(kind, 2)
+    it = max_it - 1 if kind in ('last_it', 'last_step') else 2
+    st['s'].fill_(s)
+    st['it'].fill_(it)
+    st['row'].fill_(min(s * max_it + it, nsteps * max_it - 1))
+    st['flag'].fill_(kind == 'finished')
+    st['accs'][:s].copy_(torch.as_tensor(rng.uniform(size=s).astype(f32)))
+    st['widths'][:s].copy_(torch.as_tensor(rng.uniform(size=s).astype(f32)))
+    tbank = torch.as_tensor(rng.uniform(size=(nsteps * max_it, P, 1))
+                            .astype(f32), device=cuda)
+    dirbank = (rng.normal(size=(nsteps, P, d)) * 0.1).astype(f32)
+    dirbank[:, ::3, 1 % d] = 0.0
+    dirbank[:, 1::3, 0] = -0.0
+    dirbank = torch.as_tensor(dirbank, device=cuda)
+    Lp = rng.normal(size=P).astype(f32)
+    if kind == 'all_accept':
+        Lp[:] = 5.0
+    if kind == 'all_rejected':
+        Lp[:] = -5.0
+    Lp = torch.as_tensor(Lp, device=cuda)
+    tin = torch.as_tensor(rng.uniform(size=P) < 0.8, device=cuda)
+    Lmin = torch.tensor(0.3, dtype=torch.float32, device=cuda)
+    return st, tbank, dirbank, Lp, tin, Lmin, max_it
+
+
+SYNC_KINDS = ('mid', 'last_it', 'all_accept', 'all_rejected', 'last_step',
+              'finished')
+
+
+@pytest.mark.parametrize('P', [64, 128, 1000, 2048, 4096])
+@pytest.mark.parametrize('d', [2, 8, 50])
+def test_sync_kernels_equal_plain(cuda, P, d):
+    """K4 at D = 1 on the sync walk's bank rows and K6 bit for bit against
+    their plain versions: inside a step, at its boundary (P above one
+    block: the boundary's block strides over the walkers), every walker
+    accepting or none, the last step and a finished dispatch; with the
+    filter's rows and without."""
+    for kind in SYNC_KINDS:
+        st, tbank, dirbank, Lp, tin, Lmin, max_it = _sync_round_inputs(
+            cuda, P, d, kind)
+        prop = (st['u'], st['v'], st['tl'], st['tr'], tbank, st['row'])
+        kernels.reset_counts()
+        got = kernels.spec_propose(*prop)
+        want = kernels.spec_propose_plain(*prop)
+        for a, b in zip(got, want):
+            assert _same_bits(a, b), kind
+        ts, tlc, trc, _ = want
+        for t in (tin, None):
+            mine = {k: x.clone() for k, x in st.items()}
+            plain = {k: x.clone() for k, x in st.items()}
+            kernels.sync_update(Lp, t, ts, tlc, trc, Lmin, dirbank, max_it,
+                                mine)
+            kernels.sync_update_plain(Lp, t, ts, tlc, trc, Lmin, dirbank,
+                                      max_it, plain)
+            torch.cuda.synchronize()
+            bad = [k for k in kernels.SYNC_STATE
+                   if not _same_bits(mine[k], plain[k])]
+            assert not bad, (kind, t is None, bad)
+            if kind == 'finished':
+                assert all(_same_bits(mine[k], st[k])
+                           for k in kernels.SYNC_STATE)
+            if kind in ('last_it', 'all_accept'):
+                assert int(mine['s']) == 3 and int(mine['it']) == 0
+                assert int(mine['row']) == 3 * max_it
+            if kind == 'last_step':
+                assert bool(mine['flag'])
+                assert int(mine['row']) == int(st['row'])
+        assert kernels.LAUNCHES['spec_propose'] == 1
+        assert kernels.LAUNCHES['sync_update'] == 2
+        assert sum(kernels.PLAIN_CALLS.values()) == 0
+
+
+def test_sync_median_selects_the_order_statistics(cuda):
+    """K6's median at a step boundary on brackets with repeated widths,
+    infinite ones (zero directions) and odd and even P, against torch's
+    sorted values."""
+    for P in (1, 2, 3, 64, 257, 1000, 1001):
+        st, tbank, dirbank, Lp, tin, Lmin, max_it = _sync_round_inputs(
+            cuda, P, 3, 'all_accept')
+        # widths from a few values, some repeated at the median rank
+        w = torch.as_tensor(np.random.RandomState(P).choice(
+            [0.25, 0.5, 0.5, 1.0, np.inf], size=P).astype(np.float32),
+            device=cuda)
+        st['tl'].zero_()
+        st['tr'].copy_(w)
+        mine = {k: x.clone() for k, x in st.items()}
+        plain = {k: x.clone() for k, x in st.items()}
+        ts = torch.zeros((P, 1), device=cuda)
+        kernels.sync_update(Lp, None, ts, st['tl'], st['tr'], Lmin, dirbank,
+                            max_it, mine)
+        kernels.sync_update_plain(Lp, None, ts, st['tl'], st['tr'], Lmin,
+                                  dirbank, max_it, plain)
+        assert _same_bits(mine['widths'], plain['widths']), P
+        assert _same_bits(mine['accs'], plain['accs']), P
+
+
+@pytest.mark.parametrize('P', [64, 128, 1000, 2048, 4096])
+@pytest.mark.parametrize('d', [2, 8, 50])
+def test_rwalk_accept_equals_plain(cuda, P, d):
+    """K7 bit for bit against its plain version: rows outside the cube,
+    on its faces and corners, NaN coordinates, NaN and infinite
+    likelihoods; with the filter's rows and without."""
+    rng = np.random.RandomState(P + d)
+    f32 = np.float32
+    up = rng.uniform(-0.05, 1.05, size=(P, d)).astype(f32)
+    up[::9] = rng.uniform(0.2, 0.8, size=up[::9].shape)
+    up[1::11] = 0.0
+    up[2::13] = 1.0
+    up[3::17, 0] = np.nan
+    Lev = rng.normal(size=P).astype(f32)
+    Lev[::19] = np.nan
+    Lev[1::23] = np.inf
+    Lev[2::29] = -np.inf
+    st = dict(u=torch.as_tensor(rng.uniform(size=(P, d)).astype(f32),
+                                device=cuda),
+              L=torch.as_tensor(rng.normal(size=P).astype(f32), device=cuda),
+              nacc=torch.full((), 5, dtype=torch.int64, device=cuda),
+              nc=torch.full((), 9, dtype=torch.int64, device=cuda))
+    up, Lev = (torch.as_tensor(x, device=cuda) for x in (up, Lev))
+    tin = torch.as_tensor(rng.uniform(size=P) < 0.8, device=cuda)
+    Lmin = torch.tensor(-0.5, dtype=torch.float32, device=cuda)
+    for t in (tin, None):
+        kernels.reset_counts()
+        mine = {k: x.clone() for k, x in st.items()}
+        plain = {k: x.clone() for k, x in st.items()}
+        kernels.rwalk_accept(Lev, t, up, Lmin, mine)
+        kernels.rwalk_accept_plain(Lev, t, up, Lmin, plain)
+        torch.cuda.synchronize()
+        for k in kernels.RWALK_STATE:
+            assert _same_bits(mine[k], plain[k]), (k, t is None)
+        assert kernels.LAUNCHES['rwalk_accept'] == 1
+        assert sum(kernels.PLAIN_CALLS.values()) == 0
+        assert int(mine['nacc']) > 5
+
+
+def _engine_walk_inputs(cuda, engine, P=128, d=8, nsteps=16, max_it=64,
+                        seed=5):
+    """A live set of asymgauss in d around its peak and one dispatch's
+    banks of *engine*, on the card."""
+    from ultranest_torch import popfused
+    from ultranest_torch.models.problems import asymgauss
+    prob = asymgauss(d)
+    rng = np.random.RandomState(seed)
+    nlive = 200
+    u = np.clip(0.5 + 0.05 * rng.normal(size=(nlive, d)), 0.01, 0.99)
+    L = prob.loglike(u).astype(np.float32)
+    live_u = torch.as_tensor(u, dtype=torch.float32, device=cuda)
+    live_L = torch.as_tensor(L, device=cuda)
+    axes = torch.diag(live_u.std(dim=0))
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    if engine == 'sync':
+        banks = popfused.draw_sync_banks(g, P, nsteps, max_it, nlive, d)
+    else:
+        banks = popfused.draw_rwalk_banks(g, P, nsteps, nlive, d)
+
+    def ev(rows):
+        return prob.torch_loglike(rows).to(torch.float32), None
+    return (banks, live_u, live_L, axes, live_L.min()), ev
+
+
+@pytest.mark.parametrize('engine', ['sync', 'rwalk'])
+def test_engine_graph_walk_equals_host_loop(cuda, engine):
+    """The sync and random walks as CUDA graphs give the host loop's bits
+    (K4 and K6, or K7, launched eagerly) and the bits of the loops of
+    torch operators they replace (P 128: the accepting fraction is the
+    same division whether torch multiplies by 1/P or not); each replay
+    adds its graph's launches, a capture's warm-up launches once."""
+    from test_torch_sync_round import _old_rwalk_walk, _old_sync_walk
+    from ultranest_torch import popfused
+    args, ev = _engine_walk_inputs(cuda, engine)
+    walk = popfused.sync_walk if engine == 'sync' else popfused.rwalk_walk
+    scale = 0.8 if engine == 'sync' else 0.3
+    host = {}
+    kernels.reset_counts()
+    want = walk(*args, scale, ev, stats=host)
+    torch.cuda.synchronize()
+    names = ('spec_propose', 'sync_update') if engine == 'sync' \
+        else ('rwalk_accept',)
+    for k in names:
+        assert kernels.LAUNCHES[k] == host['rounds']
+    assert sum(kernels.PLAIN_CALLS.values()) == 0
+    if engine == 'sync':
+        old = _old_sync_walk(*args, scale, ev)
+        pairs = zip((0, 1, 3, 4, 6, 7), (0, 1, 2, 3, 4, 5))
+    else:
+        old = _old_rwalk_walk(*args, scale, ev)
+        pairs = zip((0, 1, 3, 4, 6), (0, 1, 2, 3, 4))
+    for i, j in pairs:
+        assert _same_bits(want[i], old[j]), (engine, i)
+    graphs = popfused.SpecGraphs('asymgauss')
+    for n in range(2):
+        stats = {}
+        kernels.reset_counts()
+        got = walk(*args, scale, ev, stats=stats, graphs=graphs)
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
+            assert _same_bits(a, b), engine
+        assert stats['graph'] and stats['captures'] == (n == 0)
+        if engine == 'sync':
+            every = popfused.SYNC_CHECK_EVERY
+            # both read one chunk behind on the card
+            assert stats['rounds'] == host['rounds']
+            assert stats['reads'] == host['reads'] == \
+                stats['rounds'] // every - 1
+            assert stats['replays'] == stats['rounds'] // every
+            warm = 1
+        else:
+            assert stats['replays'] == 1 and stats['reads'] == 0
+            warm = stats['rounds']
+        for k in names:
+            assert kernels.LAUNCHES[k] == stats['rounds'] + (n == 0) * warm
+    assert sum(kernels.PLAIN_CALLS.values()) == 0
+
+
+@pytest.mark.parametrize('engine', ['sync', 'rwalk'])
+def test_uncapturable_likelihood_runs_the_engine_kernels(cuda, engine):
+    """A likelihood that reads a value to the host cannot be captured: one
+    warning names it, the walk logs ``graph`` False and runs K4 and K6,
+    or K7, from the host loop, never their plain versions, with the
+    capturable likelihood's bits."""
+    from ultranest_torch import popfused
+    args, ev = _engine_walk_inputs(cuda, engine, P=64, seed=7)
+    walk = popfused.sync_walk if engine == 'sync' else popfused.rwalk_walk
+
+    def reads_the_host(rows):
+        if float(rows[0, 0].item()) > 2.0:      # never: a host read
+            rows = rows * 1.0
+        return ev(rows)
+    want = walk(*args, 0.5, ev)
+    graphs = popfused.SpecGraphs('reads_the_host')
+    stats = {}
+    kernels.reset_counts()
+    with pytest.warns(RuntimeWarning, match='reads_the_host'):
+        got = walk(*args, 0.5, reads_the_host, stats=stats, graphs=graphs)
+    torch.cuda.synchronize()
+    assert graphs.failed and not stats['graph']
+    names = ('spec_propose', 'sync_update') if engine == 'sync' \
+        else ('rwalk_accept',)
+    for k in names:
+        assert kernels.LAUNCHES[k] >= stats['rounds'] > 0
+    assert sum(kernels.PLAIN_CALLS.values()) == 0
+    for a, b in zip(got, want):
+        assert _same_bits(a, b)
+    again = {}
+    walk(*args, 0.5, reads_the_host, stats=again, graphs=graphs)
+    assert not again['graph'] and again['captures'] == 0

@@ -1,0 +1,466 @@
+"""The sync and random walks as kernels and graphs (K4 at depth 1 with K6
+``sync_update``, K7 ``rwalk_accept``), on the CPU.
+
+* ``spec_propose_plain`` at D = 1 and ``sync_update_plain`` reproduce
+  the sync walk's host loop of torch operators (kept here as it was,
+  ``_old_sync_walk``) bit for bit: P 63 to 128, d 2, 5 and 8, the p-space
+  filter on and off, steps that end at ``max_it`` with walkers that
+  never accept, steps where every walker accepts in its first
+  iteration, odd P for the median; the walk's rounds are the loop's
+  shrink iterations, rounded up to a whole chunk of
+  ``SYNC_CHECK_EVERY``;
+* rounds run after the flag change nothing, and the bank row stays in
+  range;
+* ``rwalk_accept_plain`` reproduces the random walk's scan body (kept
+  here as it was, ``_old_rwalk_walk``), with rows outside the cube, on
+  its faces and NaN likelihoods;
+* the graph drivers of both walks, with the CUDA graph replaced by a
+  stand-in that runs the round body: their reads, rounds, replays and
+  launches as stated, their outputs bit-equal to the host loop's.
+
+The walks here are the port's alone: ``tests/test_torch_engines.py``
+holds them to the JAX package's draws.
+"""
+import collections
+import math
+
+import numpy as np
+import pytest
+import torch
+
+from ultranest_torch import popfused
+from ultranest_torch.ops import kernels
+from ultranest_torch.ops.pairwise import pad_rows, round_up
+
+NSTEPS = 6
+CENTER = np.array([0.5, 0.45, 0.55, 0.6, 0.4, 0.5, 0.52, 0.47])
+
+
+def _loglike(x):
+    c = torch.as_tensor(CENTER[:x.shape[1]], dtype=x.dtype)
+    return -torch.abs(x - c).amax(dim=1)
+
+
+def _evaluator(filtered):
+    """The likelihood, behind a p-space filter (a slab on the first axis)
+    where *filtered*."""
+    if not filtered:
+        return lambda rows: (_loglike(rows), None)
+
+    def ev(rows):
+        tin = rows[:, 0] < 0.62
+        return torch.where(tin, _loglike(rows), -math.inf), tin
+    return ev
+
+
+def _bits(t):
+    t = t.detach().cpu() if torch.is_tensor(t) else torch.as_tensor(t)
+    return t.contiguous().view(torch.int32) if t.dtype == torch.float32 \
+        else t
+
+
+def _assert_bits(a, b):
+    assert torch.equal(_bits(a), _bits(b))
+
+
+def _inputs(P, d, seed, nlive=80, max_it=16):
+    """Live points around CENTER, a region's diagonal axes and one
+    dispatch's sync banks."""
+    rng = np.random.RandomState(seed)
+    u = np.clip(CENTER[:d] + 0.12 * rng.normal(size=(nlive, d)), 0.01, 0.99)
+    u = u.astype(np.float32)
+    L = _loglike(torch.as_tensor(u)).numpy()
+    npad = round_up(nlive)
+    live_u = torch.as_tensor(pad_rows(u, npad))
+    live_L = torch.as_tensor(pad_rows(L, npad, fill=np.inf))
+    axes = torch.as_tensor(np.diag(u.std(axis=0)).astype(np.float32))
+    g = torch.Generator().manual_seed(seed)
+    banks = popfused.draw_sync_banks(g, P, NSTEPS, max_it, nlive, d)
+    return banks, live_u, live_L, axes, L
+
+
+# --------------------------------------------------------------------------
+# the sync walk as it was: a host loop of torch operators, one shrink loop
+# a step, its flag read every `every` iterations (the no-op iterations
+# after every walker accepted bill nothing and change nothing)
+
+
+def _old_cube_intersection(u, v):
+    nz = v != 0
+    a = torch.where(nz, (0.0 - u) / v, -np.inf)
+    b = torch.where(nz, (1.0 - u) / v, np.inf)
+    return torch.minimum(a, b).amax(dim=1), torch.maximum(a, b).amin(dim=1)
+
+
+def _old_median(x):
+    s = torch.sort(x).values
+    n = s.shape[0]
+    return (s[(n - 1) // 2] + s[n // 2]) * 0.5
+
+
+def _old_sync_walk(banks, live_u, live_L, axes, Lmin, scale, evaluate,
+                   every=2):
+    tbank = banks['tbank']
+    nsteps, max_it, P = tbank.shape
+    dirbank = popfused._direction_bank(banks, live_u, axes, scale)
+    idx0 = banks['idx0']
+    u = live_u[idx0]
+    L = live_L[idx0]
+    dev = u.device
+    nc = torch.zeros((), dtype=torch.int64, device=dev)
+    acc_rates, widths = [], []
+    iterations = 0
+    for s in range(nsteps):
+        v = dirbank[s]
+        tl, tr = _old_cube_intersection(u, v)
+        state = (tl, tr, u, L, torch.zeros(P, dtype=torch.bool, device=dev),
+                 nc)
+        it = 0
+        while it < max_it:
+            tlc, trc, unew, Lnew, done, nc = state
+            running = ~done.all()
+            iterations += int(running)
+            t = tlc + tbank[s][it] * (trc - tlc)
+            up = u + t[:, None] * v
+            Lp, tin = evaluate(up)
+            billed = P if tin is None else tin.sum()
+            nc = nc + running * billed
+            acc = (Lp > Lmin) & ~done
+            unew = torch.where(acc[:, None], up, unew)
+            Lnew = torch.where(acc, Lp, Lnew)
+            done = done | acc
+            rej = ~done
+            tlc = torch.where(rej & (t < 0), t, tlc)
+            trc = torch.where(rej & (t >= 0), t, trc)
+            state = (tlc, trc, unew, Lnew, done, nc)
+            it += 1
+            if it % every == 0 and bool(done.all()):
+                break
+        tlf, trf, u, L, done, nc = state
+        acc_rates.append(done.to(torch.float32).mean())
+        widths.append(_old_median(trf - tlf))
+    return (u, L, idx0, nc, torch.stack(widths).mean(),
+            torch.stack(acc_rates).mean(), iterations)
+
+
+# (P, d, filter on, threshold kind, max_it): 'mixed' a quantile of the
+# live values; 'stuck' near the peak, so that steps end at max_it with
+# walkers that never accept; 'first' -inf, every walker accepting in its
+# first iteration
+SYNC_CASES = [
+    (64, 2, False, 'mixed', 16), (64, 5, True, 'mixed', 16),
+    (100, 2, True, 'mixed', 16), (100, 8, False, 'mixed', 16),
+    (128, 8, True, 'mixed', 16), (128, 5, False, 'mixed', 16),
+    (64, 8, False, 'stuck', 4), (100, 5, True, 'stuck', 4),
+    (128, 2, False, 'first', 16), (100, 8, False, 'first', 16),
+    (63, 2, False, 'mixed', 16), (101, 5, True, 'mixed', 16),
+    (127, 8, False, 'stuck', 3)]
+
+
+def _threshold(kind, L):
+    if kind == 'first':
+        return -math.inf
+    if kind == 'stuck':
+        return float(np.float32(-0.004))
+    return float(np.sort(L)[len(L) // 3])
+
+
+@pytest.mark.parametrize('P,d,filtered,kind,max_it', SYNC_CASES)
+def test_sync_walk_equals_the_old_host_loop(P, d, filtered, kind, max_it):
+    banks, live_u, live_L, axes, L = _inputs(P, d, P + 10 * d, max_it=max_it)
+    Lmin = _threshold(kind, L)
+    ev = _evaluator(filtered)
+    want = _old_sync_walk(banks, live_u, live_L, axes, Lmin, 0.8, ev)
+    kernels.reset_counts()
+    stats = {}
+    got = popfused.sync_walk(banks, live_u, live_L, axes, Lmin, 0.8, ev,
+                             stats=stats)
+    uf, Lf, done, idx0, nc, nu, width, acc_rate = got
+    for a, b in zip((uf, Lf, idx0, nc, width, acc_rate),
+                    want[:2] + want[2:6]):
+        _assert_bits(a, b)
+    assert done.all() and nu is nc
+    iterations = want[-1]
+    every = popfused.SYNC_CHECK_EVERY
+    # the rounds are the loop's shrink iterations, up to a whole chunk,
+    # read with no lag on the CPU
+    assert stats['rounds'] == min(-(-iterations // every) * every,
+                                  NSTEPS * max_it)
+    assert stats['reads'] == -(-stats['rounds'] // every)
+    assert stats['graph'] is False and stats['replays'] == 0
+    assert kernels.PLAIN_CALLS['spec_propose'] == \
+        kernels.PLAIN_CALLS['sync_update'] == stats['rounds']
+    if kind == 'first':
+        assert iterations == NSTEPS and float(acc_rate) == 1.0
+    if kind == 'stuck':
+        # some step ran out of iterations with walkers still rejecting
+        assert float(acc_rate) < 1.0
+        assert (Lf == live_L[idx0]).any()
+
+
+def _sync_state_after(P, d, max_it, rounds, seed=3):
+    banks, live_u, live_L, axes, L = _inputs(P, d, seed, max_it=max_it)
+    dirbank = popfused._direction_bank(banks, live_u, axes, 0.8)
+    tbank = banks['tbank'].reshape(NSTEPS * max_it, P, 1)
+    st = popfused._sync_state(P, d, NSTEPS, 'cpu')
+    popfused._sync_init(st, banks, live_u, live_L, dirbank)
+    Lmin = torch.tensor(float(np.sort(L)[len(L) // 3]))
+    ev = _evaluator(True)
+    for _ in range(rounds):
+        popfused._sync_round(tbank, ev, Lmin, dirbank, max_it, st)
+    return st, (tbank, ev, Lmin, dirbank, max_it)
+
+
+def test_rounds_after_the_flag_change_nothing():
+    P, d, max_it = 64, 5, 4
+    st, args = _sync_state_after(P, d, max_it, NSTEPS * max_it)
+    # every step ran within the cap: the flag is up, the bank row is the
+    # last one
+    assert bool(st['flag']) and int(st['s']) == NSTEPS
+    assert int(st['row']) == NSTEPS * max_it - 1
+    before = {k: t.clone() for k, t in st.items()}
+    for _ in range(5):
+        popfused._sync_round(*args, st)
+    for k in kernels.SYNC_STATE:
+        _assert_bits(st[k], before[k])
+
+
+def test_step_boundary_renews_every_walker():
+    """After a step's last iteration: u is the step's accepted point, v
+    the next direction, the bracket its full chord, nobody done, the
+    step's fraction and median written, the bank row at the next step."""
+    P, d, max_it = 65, 2, 16
+    st, (tbank, ev, Lmin, dirbank, _) = _sync_state_after(P, d, max_it, 0)
+    n = 0
+    while int(st['s']) == 0:
+        un_before = st['un'].clone()
+        done_before = st['done'].clone()
+        popfused._sync_round(tbank, ev, Lmin, dirbank, max_it, st)
+        n += 1
+    assert int(st['row']) == max_it and int(st['it']) == 0
+    assert not st['done'].any() and not bool(st['flag'])
+    _assert_bits(st['v'], dirbank[1])
+    tl, tr = kernels.cube_intersection(st['u'], st['v'])
+    _assert_bits(st['tl'], tl)
+    _assert_bits(st['tr'], tr)
+    _assert_bits(st['u'], st['un'])
+    assert float(st['accs'][0]) > 0 and float(st['widths'][0]) > 0
+    assert float(st['accs'][1]) == float(st['widths'][1]) == 0.0
+    # walkers done before the last iteration kept their point
+    _assert_bits(st['un'][done_before], un_before[done_before])
+    assert n <= max_it
+
+
+# --------------------------------------------------------------------------
+# the random walk as it was: nsteps steps of torch operators
+
+
+def _old_rwalk_walk(banks, live_u, live_L, axes, Lmin, scale, evaluate):
+    eps = banks['eps']
+    nsteps, P, _ = eps.shape
+    idx0 = banks['idx0']
+    u = live_u[idx0]
+    L = live_L[idx0]
+    nacc = torch.zeros((), dtype=torch.int64, device=u.device)
+    nc = torch.zeros((), dtype=torch.int64, device=u.device)
+    axes_t = axes.T
+    for s in range(nsteps):
+        up = u + scale * (eps[s] @ axes_t)
+        inside = ((up > 0) & (up < 1)).all(dim=1)
+        Lev, tin = evaluate(up)
+        Lp = torch.where(inside, Lev, -math.inf)
+        acc = inside & (Lp > Lmin)
+        u = torch.where(acc[:, None], up, u)
+        L = torch.where(acc, Lp, L)
+        nacc = nacc + acc.sum()
+        nc = nc + (inside if tin is None else inside & tin).sum()
+    acc_rate = nacc.to(torch.float32) / float(P * nsteps)
+    return u, L, idx0, nc, acc_rate
+
+
+def _rwalk_inputs(P, d, seed, nsteps=12):
+    banks, live_u, live_L, axes, L = _inputs(P, d, seed)
+    g = torch.Generator().manual_seed(seed + 1)
+    banks = popfused.draw_rwalk_banks(g, P, nsteps, len(L), d)
+    return banks, live_u, live_L, axes, L
+
+
+@pytest.mark.parametrize('P,d,filtered,scale', [
+    (64, 2, False, 0.5), (128, 8, True, 0.3), (100, 5, False, 4.0),
+    (63, 8, True, 1.0)])
+def test_rwalk_walk_equals_the_old_scan(P, d, filtered, scale):
+    """Scale 4 sends most proposals out of the cube."""
+    banks, live_u, live_L, axes, L = _rwalk_inputs(P, d, P + d)
+    Lmin = float(np.sort(L)[len(L) // 3])
+    ev = _evaluator(filtered)
+    want = _old_rwalk_walk(banks, live_u, live_L, axes, Lmin, scale, ev)
+    kernels.reset_counts()
+    stats = {}
+    got = popfused.rwalk_walk(banks, live_u, live_L, axes, Lmin, scale, ev,
+                              stats=stats)
+    uf, Lf, done, idx0, nc, nu, acc_rate = got
+    for a, b in zip((uf, Lf, idx0, nc, acc_rate), want):
+        _assert_bits(a, b)
+    assert done.all() and nu is nc and 0 < float(acc_rate) < 1
+    assert stats == dict(reads=0, rounds=banks['eps'].shape[0],
+                         graph=False, replays=0, captures=0, capture_s=0.0)
+    assert kernels.PLAIN_CALLS['rwalk_accept'] == banks['eps'].shape[0]
+
+
+def test_rwalk_accept_plain_at_the_edges():
+    """Rows on a face (0 or 1 is outside), NaN coordinates and NaN or
+    infinite likelihoods, the filter's rows, against a numpy model."""
+    rng = np.random.RandomState(5)
+    P, d = 40, 3
+    up = rng.uniform(-0.2, 1.2, size=(P, d)).astype(np.float32)
+    up[0] = [0.0, 0.5, 0.5]
+    up[1] = [0.5, 1.0, 0.5]
+    up[2] = [0.5, np.nan, 0.5]
+    up[3:8] = rng.uniform(0.1, 0.9, size=(5, d))
+    Lev = rng.normal(size=P).astype(np.float32)
+    Lev[3] = np.nan
+    Lev[4] = np.inf
+    Lev[5] = -np.inf
+    tin = rng.uniform(size=P) < 0.7
+    u0 = rng.uniform(size=(P, d)).astype(np.float32)
+    L0 = rng.normal(size=P).astype(np.float32)
+    Lmin = np.float32(-0.3)
+    for t in (tin, None):
+        st = dict(u=torch.as_tensor(u0.copy()), L=torch.as_tensor(L0.copy()),
+                  nacc=torch.zeros((), dtype=torch.int64),
+                  nc=torch.full((), 7, dtype=torch.int64))
+        kernels.rwalk_accept(torch.as_tensor(Lev),
+                             None if t is None else torch.as_tensor(t),
+                             torch.as_tensor(up), torch.tensor(Lmin), st)
+        with np.errstate(invalid='ignore'):
+            inside = ((up > 0) & (up < 1)).all(axis=1)
+            acc = inside & (np.where(inside, Lev, -np.inf) > Lmin)
+        assert not inside[:3].any() and acc.sum() > 3
+        np.testing.assert_array_equal(
+            st['u'].numpy(), np.where(acc[:, None], up, u0))
+        np.testing.assert_array_equal(st['L'].numpy(),
+                                      np.where(acc, Lev, L0))
+        assert int(st['nacc']) == acc.sum()
+        billed = inside if t is None else inside & t
+        assert int(st['nc']) == 7 + billed.sum()
+
+
+# --------------------------------------------------------------------------
+# the graph drivers, the CUDA graph replaced by a stand-in
+
+
+class _StandIn:
+    def __init__(self, body, flag, n):
+        self.body, self.flag, self.n = body, flag, n
+
+    def replay(self):
+        for _ in range(self.n):
+            self.body()
+        self.flag()
+
+
+class _StandInGraphs(popfused.SpecGraphs):
+    """SpecGraphs whose "graphs" run the round body on the host; each
+    replay books the kernels the body ran on the CPU, as launches."""
+
+    def capture(self, entry, sizes, body, flag):
+        body()          # the warm-up round
+        flag()
+        for n in sizes:
+            before = collections.Counter(kernels.PLAIN_CALLS)
+            body()
+            launched = collections.Counter(kernels.PLAIN_CALLS)
+            launched.subtract(before)
+            # a stand-in capture runs one round: n rounds launch n times
+            entry.graphs[n] = (_StandIn(body, flag, n), collections.Counter(
+                {k: n * c for k, c in launched.items() if c}))
+        self.captured = list(sizes)
+        return 0.0
+
+
+@pytest.mark.parametrize('finishing', [False, True])
+def test_sync_graph_loop_reads_and_rounds(finishing):
+    P, d, max_it = 64, 2, 13
+    every = popfused.SYNC_CHECK_EVERY
+    R = NSTEPS * max_it
+    assert R % every
+    banks, live_u, live_L, axes, L = _inputs(P, d, 11, max_it=max_it)
+    # 1e30: no walker ever accepts, every step runs max_it iterations and
+    # the flag rises at the cap
+    # below every start: each step ends once every walker accepted
+    Lmin = float(L.min()) - 0.01 if finishing else 1e30
+    # (a walker that starts outside the filter's slab never accepts)
+    ev = _evaluator(not finishing)
+    host, graph = {}, {}
+    want = popfused.sync_walk(banks, live_u, live_L, axes, Lmin, 0.8, ev,
+                              stats=host)
+    graphs = _StandInGraphs('stand-in')
+    kernels.reset_counts()
+    got = popfused.sync_walk(banks, live_u, live_L, axes, Lmin, 0.8, ev,
+                             stats=graph, graphs=graphs)
+    for a, b in zip(got, want):
+        _assert_bits(a, b)
+    assert graph['graph'] and graph['captures'] == len(graphs.captured)
+    assert graphs.captured == [every, 1]
+    assert kernels.LAUNCHES['spec_propose'] == \
+        kernels.LAUNCHES['sync_update'] == graph['rounds']
+    if finishing:
+        # read one chunk behind: the flag's chunk and one more ran
+        assert graph['rounds'] < R and graph['rounds'] % every == 0
+        assert graph['reads'] == graph['rounds'] // every - 1
+        assert graph['replays'] == graph['rounds'] // every
+        assert graph['rounds'] - host['rounds'] == every
+    else:
+        assert graph['rounds'] == host['rounds'] == R
+        assert graph['reads'] == -(-R // every) - 1
+        assert graph['replays'] == R // every + R % every
+        assert float(got[-1]) == 0.0
+    again = {}
+    popfused.sync_walk(banks, live_u, live_L, axes, Lmin, 0.8, ev,
+                       stats=again, graphs=graphs)
+    assert again['captures'] == 0 and again['graph']
+    assert again['rounds'] == graph['rounds']
+
+
+def test_rwalk_graph_is_the_whole_walk():
+    P, d = 64, 8
+    banks, live_u, live_L, axes, L = _rwalk_inputs(P, d, 4)
+    nsteps = banks['eps'].shape[0]
+    Lmin = float(np.sort(L)[len(L) // 3])
+    ev = _evaluator(True)
+    want = popfused.rwalk_walk(banks, live_u, live_L, axes, Lmin, 0.3, ev)
+    graphs = _StandInGraphs('stand-in')
+    kernels.reset_counts()
+    stats = {}
+    got = popfused.rwalk_walk(banks, live_u, live_L, axes, Lmin, 0.3, ev,
+                              stats=stats, graphs=graphs)
+    for a, b in zip(got, want):
+        _assert_bits(a, b)
+    assert graphs.captured == [1]
+    assert stats['graph'] and stats['replays'] == 1 and \
+        stats['captures'] == 1
+    assert stats['reads'] == 0 and stats['rounds'] == nsteps
+    # one replay launches every step's K7
+    assert kernels.LAUNCHES['rwalk_accept'] == nsteps
+    again = {}
+    popfused.rwalk_walk(banks, live_u, live_L, axes, Lmin, 0.3, ev,
+                        stats=again, graphs=graphs)
+    assert again['captures'] == 0 and again['replays'] == 1
+
+
+def test_sync_and_rwalk_samplers_log_their_walks_on_the_cpu():
+    """The walk log of both samplers carries the graph keys; on the CPU
+    no graph runs and none is made."""
+    banks, live_u, live_L, axes, L = _inputs(48, 3, 2, max_it=8)
+    for s in (popfused.FusedPopulationSliceSampler(
+            popsize=48, nsteps=NSTEPS, torch_loglike=_loglike, engine='sync',
+            max_it=8, device='cpu'),
+            popfused.FusedPopulationRandomWalkSampler(
+            popsize=48, nsteps=NSTEPS, torch_loglike=_loglike, device='cpu')):
+        b = s._draw_banks(len(L), 3)
+        s._walk(b, live_u, live_L, len(L), axes, float(np.sort(L)[20]), 0.5,
+                torch.zeros(1))
+        st = s.walk_log[-1]
+        assert st['graph'] is False and st['captures'] == 0 and \
+            st['replays'] == 0 and st['capture_s'] == 0.0
+        assert getattr(s, '_graphs', None) is None

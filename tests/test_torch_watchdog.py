@@ -67,8 +67,8 @@ def test_blocking_reads_raise_past_the_deadline(monkeypatch, reader):
         if reader == 'fetch':
             launch.fetch_with_deadline(torch.zeros(3))
         elif reader == 'flag':
-            popfused._drive(lambda it, x: (x + 1,), (torch.zeros(()),), 100,
-                            lambda s: s[0] > 50, every=8)
+            popfused._drive_rounds(lambda n: torch.zeros((), dtype=bool),
+                                   100, 8, 0)
         else:
             cluster.label_propagation_components(
                 np.random.RandomState(0).uniform(size=(20, 2)), 0.1,

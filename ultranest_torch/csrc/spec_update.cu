@@ -21,15 +21,8 @@
 // counts are int64 sums (exact in any order); the float sum of wbuf is
 // left to the caller, so that its order stays torch's.
 //
-// The chord, as the plain version's _cube_intersection: per axis with
-// v != 0, a = (0 - u) / v and b = (1 - u) / v, each operation rounded
-// on its own (so a zero u gives the signed zero of 0 / v); an axis with
-// v == 0 (either zero) gives a = -inf, b = +inf; tl = max over axes of
-// min(a, b), tr = min over axes of max(a, b), NaN propagating as
-// torch.minimum, torch.maximum, amax and amin propagate it. The one
-// thing left to order: where the extreme is a zero reached with both
-// signs on two axes (a walker exactly on a cube corner), the two folds
-// may keep either sign, as torch's reductions may.
+// The chord is chord.cuh's (shared with K6), as the plain version's
+// _cube_intersection.
 //
 // Bound on an H100: bytes, but far below a launch. A walker reads its
 // D likelihoods, ts and tin, and its u, v (and, renewed, a row of
@@ -53,36 +46,15 @@
 #include <math_constants.h>
 #include <stdint.h>
 
+#include "chord.cuh"
+
 namespace {
+
+using chord_core::chord;
+using chord_core::chord_warp_fold;
 
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kThreads = 256;
-
-// torch.maximum / torch.minimum: a NaN operand wins; a tie keeps a
-__device__ __forceinline__ float max_nan(float a, float b) {
-  if (a != a) return a;
-  if (b != b) return b;
-  return b > a ? b : a;
-}
-
-__device__ __forceinline__ float min_nan(float a, float b) {
-  if (a != a) return a;
-  if (b != b) return b;
-  return b < a ? b : a;
-}
-
-// fold one axis of the chord of u + t v through the unit cube into
-// (lo, hi)
-__device__ __forceinline__ void chord(float uk, float vk, float& lo,
-                                      float& hi) {
-  float a = -CUDART_INF_F, b = CUDART_INF_F;
-  if (vk != 0.0f) {
-    a = __fdiv_rn(__fsub_rn(0.0f, uk), vk);
-    b = __fdiv_rn(__fsub_rn(1.0f, uk), vk);
-  }
-  lo = max_nan(lo, min_nan(a, b));
-  hi = min_nan(hi, max_nan(a, b));
-}
 
 template <int NK>
 __global__ void __launch_bounds__(kThreads)
@@ -197,13 +169,7 @@ spec_update_kernel(const float* __restrict__ Lp,
     }
   }
   // renew is the same on every lane of the walker's warp
-  if (renew) {
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) {
-      lo = max_nan(lo, __shfl_xor_sync(kFull, lo, o));
-      hi = min_nan(hi, __shfl_xor_sync(kFull, hi, o));
-    }
-  }
+  if (renew) chord_warp_fold(lo, hi);
   __syncthreads();   // the block's counts are zeroed
   if (live && lane == 0) {
     wbuf[p] = anyhit ? __fsub_rn(tr0, tl0) : 0.0f;

@@ -3,7 +3,7 @@
 Hand-written CUDA kernels of the region-rejection path
 ------------------------------------------------------
 
-Six kernels, sources in ``ultranest_torch/csrc/``:
+Eight kernels, sources in ``ultranest_torch/csrc/``:
 
 * K1 :func:`radius_member` (``csrc/radius_member.cu``) replaces the
   Pallas ``_member_kernel`` (``ultranest_tpu/ops/pallas_kernels.py``);
@@ -18,13 +18,20 @@ Six kernels, sources in ``ultranest_torch/csrc/``:
   :func:`spec_update` (``csrc/spec_update.cu``) are the two halves of a
   round of the spec walk around the user's likelihood: the body of the
   JAX package's ``lax.while_loop`` (``ultranest_tpu/popfused.py:575-585``
-  and ``:587-640``).
+  and ``:587-640``); K4 at D = 1 is also the propose half of a shrink
+  iteration of the sync walk;
+* K6 :func:`sync_update` (``csrc/sync_update.cu``) is the update half
+  of that iteration and the step boundary around it: the body and step
+  of the JAX package's sync engine (``ultranest_tpu/popfused.py:849-870``);
+* K7 :func:`rwalk_accept` (``csrc/rwalk_accept.cu``) is the acceptance
+  half of a random-walk step, after the likelihood (``:1613-1621``).
 
 Each source file says what bounds its kernel on an H100 and what its
 design does about it. K1, K1t and K2 share ``csrc/member_core.cuh``: the
 point in registers, the separately rounded distance, the compacted
 axis-major tile of live points and the group vote. K1 and K1t are one
-kernel body, ``csrc/member_kernel.cuh``, instantiated per layout.
+kernel body, ``csrc/member_kernel.cuh``, instantiated per layout. K5
+and K6 share the cube chord, ``csrc/chord.cuh``.
 
 Build: on first use, one ``nvcc -gencode arch=compute_90a,code=sm_90a``
 per source compiles the sources in parallel, and one more links the
@@ -43,7 +50,8 @@ nothing else; ``PLAIN_CALLS`` counts wrapper calls the plain version
 served on the CPU. A launch made while the current stream is being
 captured into a CUDA graph runs nothing yet: it counts in ``CAPTURED``,
 and each replay of the graph adds the graph's launches to ``LAUNCHES``
-(:class:`ultranest_torch.popfused.SpecGraphs`).
+(:class:`ultranest_torch.popfused.SpecGraphs`, which holds the spec,
+async, sync and random walks' graphs).
 """
 
 import collections
@@ -61,25 +69,32 @@ import torch
 from ..native import build_dir
 
 __all__ = ['radius_member', 'radius_member_t', 'bootstrap_radius',
-           'consume_scan', 'spec_propose', 'spec_update',
-           'radius_member_plain', 'radius_member_t_plain',
+           'consume_scan', 'spec_propose', 'spec_update', 'sync_update',
+           'rwalk_accept', 'radius_member_plain', 'radius_member_t_plain',
            'bootstrap_radius_plain', 'consume_scan_plain',
-           'spec_propose_plain', 'spec_update_plain', 'cube_intersection',
-           'SPEC_STATE', 'build', 'LAUNCHES', 'PLAIN_CALLS', 'CAPTURED',
+           'spec_propose_plain', 'spec_update_plain', 'sync_update_plain',
+           'rwalk_accept_plain', 'cube_intersection', 'SPEC_STATE',
+           'SYNC_STATE', 'RWALK_STATE', 'build', 'LAUNCHES', 'PLAIN_CALLS',
+           'CAPTURED',
            'reset_counts', 'KERNELS', 'REGION_KERNELS', 'POPULATION_KERNELS',
            'member_group_size', 'build_dir']
 
 KERNELS = ('radius_member', 'radius_member_t', 'bootstrap_radius',
-           'consume_scan', 'spec_propose', 'spec_update')
+           'consume_scan', 'spec_propose', 'spec_update', 'sync_update',
+           'rwalk_accept')
 # the kernels the region-rejection path launches (K1t runs only in the
 # membership shootout, ultranest_torch.evaluate.bench_membership)
 REGION_KERNELS = ('radius_member', 'bootstrap_radius', 'consume_scan')
-# the round of the spec and async walks (popfused.spec_walk)
-POPULATION_KERNELS = ('spec_propose', 'spec_update')
+# the rounds of the population walks: K4 and K5 of the spec and async
+# walks (popfused.spec_walk), K4 and K6 of the sync walk
+# (popfused.sync_walk), K7 of the random walk (popfused.rwalk_walk)
+POPULATION_KERNELS = ('spec_propose', 'spec_update', 'sync_update',
+                      'rwalk_accept')
 SOURCES = ('radius_member.cu', 'radius_member_t.cu', 'bootstrap_radius.cu',
-           'consume_scan.cu', 'spec_propose.cu', 'spec_update.cu')
+           'consume_scan.cu', 'spec_propose.cu', 'spec_update.cu',
+           'sync_update.cu', 'rwalk_accept.cu')
 # headers the sources include: hashed with them, so that an edit rebuilds
-HEADERS = ('member_core.cuh', 'member_kernel.cuh')
+HEADERS = ('member_core.cuh', 'member_kernel.cuh', 'chord.cuh')
 NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-Xcompiler', '-fPIC', '-Xptxas', '-v']
 # largest live set K3 takes: one 1024-thread CTA keeps live sets above
@@ -190,9 +205,12 @@ def _lib():
             lib.un_consume_scan.argtypes = [vp, ci, vp, vp, ci, vp, vp, vp]
             lib.un_spec_propose.argtypes = [vp] * 6 + [ci] * 5 + [vp] * 5
             lib.un_spec_update.argtypes = [vp] * 7 + [ci] * 4 + [vp] * 13
+            lib.un_sync_update.argtypes = [vp] * 7 + [ci] * 4 + [vp] * 15
+            lib.un_rwalk_accept.argtypes = [vp] * 4 + [ci] * 2 + [vp] * 5
             for fn in (lib.un_radius_member, lib.un_radius_member_t,
                        lib.un_bootstrap_radius, lib.un_consume_scan,
-                       lib.un_spec_propose, lib.un_spec_update):
+                       lib.un_spec_propose, lib.un_spec_update,
+                       lib.un_sync_update, lib.un_rwalk_accept):
                 fn.restype = ci
             _LIB = lib
     return _LIB
@@ -758,3 +776,194 @@ def spec_update(Lp, tin, ts, tlc, trc, Lmin, dirbank, state):
             tlc.data_ptr(), trc.data_ptr(), Lmin.data_ptr(),
             dirbank.data_ptr(), nsteps, P, D, d,
             *(st[k].data_ptr() for k in SPEC_STATE))
+
+
+# ---------------------------------------------------------------- K6 -----
+
+# the state of the sync walk that K6 updates in place: each walker's step
+# start u and direction v (P, d), its bracket tl, tr (P,) float32, its
+# point un (P, d) and likelihood Ln (P,) float32 so far, done (P,) bool;
+# the counters (0-d int64: billed rows, the step, the iteration in it,
+# the bank row K4 reads), the flag "every step ran" (0-d bool) and each
+# step's accepting fraction and median final bracket (nsteps,) float32
+SYNC_STATE = ('u', 'v', 'tl', 'tr', 'un', 'Ln', 'done', 'nc', 's', 'it',
+              'row', 'flag', 'accs', 'widths')
+
+
+def _median(x):
+    """``jnp.median`` of a 1-d tensor: the midpoint of the middle pair of
+    its sorted values (NaN last)."""
+    s = torch.sort(x).values
+    n = s.shape[0]
+    return (s[(n - 1) // 2] + s[n // 2]) * 0.5
+
+
+def sync_update_plain(Lp, tin, ts, tlc, trc, Lmin, dirbank, max_it, state):
+    """Plain torch K6: one shrink iteration's update of the sync walk's
+    *state* (:data:`SYNC_STATE`) after its likelihoods *Lp*, and the step
+    boundary where the step ends (``csrc/sync_update.cu`` states both).
+    Reads the step and iteration to the host. Returns None."""
+    st = state
+    nsteps, P, _ = dirbank.shape
+    s = int(st['s'])
+    if s >= nsteps:
+        return
+    done = st['done']
+    acc = (Lp > Lmin) & ~done
+    up = st['u'] + ts.reshape(P)[:, None] * st['v']
+    st['un'].copy_(torch.where(acc[:, None], up, st['un']))
+    st['Ln'].copy_(torch.where(acc, Lp, st['Ln']))
+    done |= acc
+    rej = ~done
+    st['tl'].copy_(torch.where(rej, tlc, st['tl']))
+    st['tr'].copy_(torch.where(rej, trc, st['tr']))
+    st['nc'].add_(P if tin is None else tin.sum())
+    it = int(st['it']) + 1
+    if it < max_it and not bool(done.all()):
+        st['it'].fill_(it)
+        st['row'].fill_(s * max_it + it)
+        return
+    # a true division on either device: torch multiplies a CUDA tensor by
+    # the reciprocal of a Python number it is divided by
+    st['accs'][s] = done.sum().to(torch.float32) / torch.full(
+        (), P, dtype=torch.float32, device=done.device)
+    st['widths'][s] = _median(st['tr'] - st['tl'])
+    s += 1
+    if s < nsteps:
+        st['u'].copy_(st['un'])
+        st['v'].copy_(dirbank[s])
+        tl, tr = cube_intersection(st['u'], st['v'])
+        st['tl'].copy_(tl)
+        st['tr'].copy_(tr)
+        done.zero_()
+    st['s'].fill_(s)
+    st['it'].zero_()
+    st['row'].fill_(s * max_it if s < nsteps else nsteps * max_it - 1)
+    st['flag'].fill_(s >= nsteps)
+
+
+def sync_update(Lp, tin, ts, tlc, trc, Lmin, dirbank, max_it, state):
+    """K6: update the sync walk's *state* in place after one shrink
+    iteration of every walker, and end the step where every walker is
+    done or *max_it* iterations ran (:func:`sync_update_plain`).
+
+    Parameters
+    ----------
+    Lp: (P,) float32
+        likelihoods of the rows :func:`spec_propose` gave at D = 1
+    tin: (P,) bool or None
+        rows the p-space filter let through (None: every row billed)
+    ts, tlc, trc: (P, 1), (P,), (P,) float32
+        K4's slice position and shrunk bracket
+    Lmin: 0-d float32
+        the likelihood threshold
+    dirbank: (nsteps, P, d) float32
+        each walker's direction of each step
+    max_it: int
+        shrink iterations a step may run
+    state: dict
+        :data:`SYNC_STATE`'s tensors, updated in place; once every step
+        ran, a call changes nothing
+
+    On the card one launch: two kernels, a warp a walker, then one block
+    for the counters and the step boundary.
+    """
+    st = state
+    if _on_cpu(Lp, ts, tlc, trc, Lmin, dirbank,
+               *(st[k] for k in SYNC_STATE)):
+        PLAIN_CALLS['sync_update'] += 1
+        return sync_update_plain(Lp, tin, ts, tlc, trc, Lmin, dirbank,
+                                 max_it, st)
+    nsteps, P, d = dirbank.shape
+    if min(nsteps, P, d, max_it) < 1 or P >= 2**24:
+        raise ValueError('sync_update needs 1 <= P < 2**24 walkers, a step, '
+                         'a coordinate and an iteration, got dirbank %s, '
+                         'max_it %d' % (tuple(dirbank.shape), max_it))
+    _check_shape(Lp, 'Lp', torch.float32, (P,))
+    if tin is not None:
+        _on_cpu(Lp, tin)
+        _check_shape(tin, 'tin', torch.bool, (P,))
+    _check_shape(ts, 'ts', torch.float32, (P, 1))
+    for t, name in ((tlc, 'tlc'), (trc, 'trc')):
+        _check_shape(t, name, torch.float32, (P,))
+    _check_shape(Lmin, 'Lmin', torch.float32, ())
+    _check_shape(dirbank, 'dirbank', torch.float32, (nsteps, P, d))
+    want = dict(u=(torch.float32, (P, d)), v=(torch.float32, (P, d)),
+                un=(torch.float32, (P, d)), tl=(torch.float32, (P,)),
+                tr=(torch.float32, (P,)), Ln=(torch.float32, (P,)),
+                done=(torch.bool, (P,)), flag=(torch.bool, ()),
+                accs=(torch.float32, (nsteps,)),
+                widths=(torch.float32, (nsteps,)))
+    for name in SYNC_STATE:
+        dtype, shape = want.get(name, (torch.int64, ()))
+        _check_shape(st[name], name, dtype, shape)
+    _launch('sync_update', _lib().un_sync_update, Lp.data_ptr(),
+            None if tin is None else tin.data_ptr(), ts.data_ptr(),
+            tlc.data_ptr(), trc.data_ptr(), Lmin.data_ptr(),
+            dirbank.data_ptr(), nsteps, max_it, P, d,
+            *(st[k].data_ptr() for k in SYNC_STATE))
+
+
+# ---------------------------------------------------------------- K7 -----
+
+# the state of the random walk that K7 updates in place: each walker's
+# point u (P, d) and likelihood L (P,) float32; the accepted and billed
+# counts (0-d int64)
+RWALK_STATE = ('u', 'L', 'nacc', 'nc')
+
+
+def rwalk_accept_plain(Lev, tin, up, Lmin, state):
+    """Plain torch K7: accept each walker's proposal *up* that lies inside
+    the unit cube above *Lmin* (``csrc/rwalk_accept.cu`` states the
+    update). Returns None."""
+    st = state
+    inside = ((up > 0) & (up < 1)).all(dim=1)
+    Lp = torch.where(inside, Lev, -math.inf)
+    acc = inside & (Lp > Lmin)
+    st['u'].copy_(torch.where(acc[:, None], up, st['u']))
+    st['L'].copy_(torch.where(acc, Lp, st['L']))
+    st['nacc'].add_(acc.sum())
+    st['nc'].add_((inside if tin is None else inside & tin).sum())
+
+
+def rwalk_accept(Lev, tin, up, Lmin, state):
+    """K7: one random-walk step's acceptance, in place
+    (:func:`rwalk_accept_plain`).
+
+    Parameters
+    ----------
+    Lev: (P,) float32
+        likelihoods of the proposed rows
+    tin: (P,) bool or None
+        rows the p-space filter let through (None: every inside row
+        billed)
+    up: (P, d) float32
+        the proposed rows
+    Lmin: 0-d float32
+        the likelihood threshold
+    state: dict
+        :data:`RWALK_STATE`'s tensors, updated in place
+
+    On the card one launch; the int64 counts are summed in it.
+    """
+    st = state
+    if _on_cpu(Lev, up, Lmin, *(st[k] for k in RWALK_STATE)):
+        PLAIN_CALLS['rwalk_accept'] += 1
+        return rwalk_accept_plain(Lev, tin, up, Lmin, st)
+    P, d = up.shape
+    if d < 1 or P * d >= 2**31:
+        raise ValueError('rwalk_accept takes 1 <= d and fewer than 2**31 '
+                         'row values, got up %s' % (tuple(up.shape),))
+    _check_shape(Lev, 'Lev', torch.float32, (P,))
+    if tin is not None:
+        _on_cpu(Lev, tin)
+        _check_shape(tin, 'tin', torch.bool, (P,))
+    _check_shape(up, 'up', torch.float32, (P, d))
+    _check_shape(Lmin, 'Lmin', torch.float32, ())
+    _check_shape(st['u'], 'u', torch.float32, (P, d))
+    _check_shape(st['L'], 'L', torch.float32, (P,))
+    for name in ('nacc', 'nc'):
+        _check_shape(st[name], name, torch.int64, ())
+    _launch('rwalk_accept', _lib().un_rwalk_accept, Lev.data_ptr(),
+            None if tin is None else tin.data_ptr(), up.data_ptr(),
+            Lmin.data_ptr(), P, d, *(st[k].data_ptr() for k in RWALK_STATE))

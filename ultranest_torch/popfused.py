@@ -17,23 +17,31 @@ dispatch yields ``popsize`` independent samples. Four walks:
 * :class:`FusedPopulationRandomWalkSampler` (:func:`rwalk_walk`):
   Gaussian Metropolis steps in region-axes space.
 
-The reference runs its shrink loops as ``lax.while_loop`` with the
-condition on the device. Eager torch has no device-side loop. On a card
-the spec and async walks run their rounds as CUDA graphs
-(:class:`SpecGraphs`): a round is two hand kernels around the user's
-likelihood (K4 ``kernels.spec_propose``, K5 ``kernels.spec_update``),
-and a chunk of :data:`SPEC_CHECK_EVERY` rounds is one captured graph,
-replayed. On the CPU, and for a likelihood that cannot be captured, the
-same round runs from a host loop (:func:`_drive_rounds`). The sync and
-random walks are host loops of torch ops (:func:`_drive`). The spec and
-async walks read the loop's "done" flag once every
-:data:`SPEC_CHECK_EVERY` rounds, through a pinned copy and a CUDA event,
-one check behind the rounds already queued (the card never waits for
-that read); a sync step reads its flag once every
-:data:`SYNC_CHECK_EVERY` shrink iterations with no lag. Extra rounds
-after the flag turned true are exact no-ops: every state update and
-every billed count is masked by it. So the results are the reference's, bit
-for bit in the integer outputs, and no round past the cap ever runs.
+The reference runs its walks as device loops (``lax.while_loop`` and
+``lax.scan``). Eager torch has no device-side loop. On a card every walk
+runs as CUDA graphs (:class:`SpecGraphs`), its rounds hand kernels
+around the user's likelihood:
+
+* spec and async: a round is K4 ``kernels.spec_propose``, the
+  likelihood and K5 ``kernels.spec_update``; a chunk of
+  :data:`SPEC_CHECK_EVERY` rounds is one captured graph, replayed;
+* sync: a round is one shrink iteration of every walker, K4 at depth 1,
+  the likelihood and K6 ``kernels.sync_update``, which also ends a step
+  where every walker accepted or ``max_it`` iterations ran; a chunk of
+  :data:`SYNC_CHECK_EVERY` rounds, across step boundaries, is one graph;
+* random walk: a step is ``torch.matmul`` of the noise and the region
+  axes, the likelihood and K7 ``kernels.rwalk_accept``; the whole walk
+  is one graph, replayed once.
+
+On the CPU, and for a likelihood that cannot be captured, the same
+rounds run from a host loop (:func:`_drive_rounds`). The spec, async and
+sync walks read the loop's "finished" flag once a chunk, through a
+pinned copy and a CUDA event, one check behind the rounds already
+queued (the card never waits for that read); the random walk has a
+fixed trip count and reads nothing. Extra rounds after the flag turned
+true are exact no-ops: every state update and every billed count is
+masked by it. So the results are the reference's, bit for bit in the
+integer outputs, and no round past the cap ever runs.
 
 All randomness of a dispatch is drawn up front (``draw_*_banks``) from a
 ``torch.Generator`` on the sampler's device, seeded per dispatch from
@@ -59,10 +67,10 @@ have no counterpart: eager torch does not compile per shape.
 """
 
 import collections
+import functools
 import logging
 import math
 import time
-import types
 import warnings
 
 import numpy as np
@@ -92,12 +100,15 @@ __all__ = ['FusedPopulationSliceSampler', 'FusedPopulationRandomWalkSampler',
 
 # rounds between two host reads of a walk's "done" flag
 SPEC_CHECK_EVERY = 8
-# shrink iterations between two host reads of a sync step's flag, read
-# with no lag: each step ends in a read anyway. On an NVIDIA H100 80GB
-# HBM3 at a 700 W power limit, sync at d 8 (popsize 128, nsteps 16, 200
-# live points) took 2.09-2.20 s at 2, 2.00-2.52 s at 4, 2.31-2.33 s at
-# 1 and 3.70-4.15 s read every 8 one check behind, with equal results.
-SYNC_CHECK_EVERY = 2
+# rounds (shrink iterations of every walker, across step boundaries) in
+# one graph of the sync walk, and between two host reads of its flag,
+# read one chunk behind. On an NVIDIA H100 80GB HBM3 at a 700 W power
+# limit (scripts/compare_walls.py --warm, two runs each), sync at d 8
+# (popsize 128, nsteps 16, 200 live points) took 0.465/0.478 s at 2,
+# 0.387/0.487 s at 4, 0.405/0.424 s at 8 and 0.430/0.413 s at 16; sync
+# at d 2 (popsize 64, nsteps 8, 100 live) 0.132/0.140, 0.135/0.139,
+# 0.114/0.132 and 0.131/0.149 s; equal results at every value.
+SYNC_CHECK_EVERY = 8
 # Fixed cost of one spec-walk round on the card without the likelihood,
 # the A of optimal_spec_depth: K4, K5, the width sum and an eighth of the
 # "finished" flag, replayed from a CUDA graph with the likelihood
@@ -240,20 +251,16 @@ def _finish_flag(handle):
     return bool(finish_fetch(handle))
 
 
-def _median(x):
-    """``jnp.median`` of a 1-d tensor: the midpoint of the middle pair."""
-    s = torch.sort(x).values
-    n = s.shape[0]
-    return (s[(n - 1) // 2] + s[n // 2]) * 0.5
-
-
 def _drive_rounds(run, max_rounds, every, lag):
-    """The loop of :func:`_drive`: ``run(n)`` runs the next *n* rounds and
-    returns the loop's 0-d bool "finished" flag.
+    """Host loop standing in for the reference's ``lax.while_loop``:
+    ``run(n)`` runs the next *n* rounds and returns the loop's 0-d bool
+    "finished" flag.
 
     Runs *every* rounds (fewer at the cap) between two reads of the
     flag, *lag* reads behind, until a read gives True or *max_rounds*
-    rounds ran. Returns ``(reads, rounds)``.
+    rounds ran. Unless *every* is 1 and *lag* 0, rounds run past the
+    flag and must be exact no-ops. Returns ``(reads, rounds)``: the
+    blocking host reads made and the rounds run, no-op rounds included.
     """
     flags = []
     reads = 0
@@ -269,31 +276,6 @@ def _drive_rounds(run, max_rounds, every, lag):
             if _finish_flag(flags.pop(0)):
                 break
     return reads, it
-
-
-def _drive(body, state, max_rounds, finished, every=1, lagged=False):
-    """Host loop standing in for the reference's ``lax.while_loop``.
-
-    Runs ``state = body(it, *state)`` for ``it = 0, 1, ...`` until the
-    0-d bool tensor ``finished(state)`` reads True, or *max_rounds*
-    rounds ran. The flag is read once every *every* rounds; with
-    *lagged*, on a card, one check behind the rounds already queued, so
-    the card never waits for the read. Unless *every* is 1 and *lagged*
-    is false, rounds run past the flag and must be exact no-ops.
-
-    Returns ``(state, reads, rounds)``: the blocking host reads made and
-    the rounds run, no-op rounds included.
-    """
-    lag = 1 if lagged and state[0].device.type == 'cuda' else 0
-    box = [state, 0]
-
-    def run(n):
-        for _ in range(n):
-            box[0] = body(box[1], *box[0])
-            box[1] += 1
-        return finished(box[0])
-    reads, rounds = _drive_rounds(run, max_rounds, every, lag)
-    return box[0], reads, rounds
 
 
 def _spec_state(P, d, dev):
@@ -337,29 +319,35 @@ def _spec_round(xibank, evaluate, Lmin, dirbank, st):
 
 
 class SpecGraphs:
-    """The spec walk's rounds as CUDA graphs, captured once per shape.
+    """The population walks' rounds as CUDA graphs, captured once per
+    shape: the spec and async walks' (:func:`spec_walk`), the sync
+    walk's (:func:`sync_walk`) and the random walk's (:func:`rwalk_walk`).
 
-    The reference runs a dispatch's rounds as one ``lax.while_loop`` on
-    the device. Here a chunk of :data:`SPEC_CHECK_EVERY` rounds (K4, the
-    likelihood, K5 and the width sum, then the "finished" flag) is one
-    captured graph, replayed between the host's flag reads; a one-round
-    graph serves the rounds below the cap that a chunk would pass and
-    the exact walk that reads every round. A graph reads and writes only
-    buffers that stay put (the banks, the threshold, the state and the
-    flag: :class:`_SpecGraphEntry`), so a dispatch copies its inputs in
-    and replays. The caller's likelihood must read only tensors that
-    stay put too: :meth:`static` keeps such copies.
+    The reference runs a dispatch's rounds as one device loop. Here a
+    chunk of rounds (spec: K4, the likelihood, K5 and the width sum,
+    then the "finished" flag; sync: K4, the likelihood and K6, which
+    writes the flag) is one captured graph, replayed between the host's
+    flag reads; a one-round graph serves the rounds below the cap that a
+    chunk would pass and the exact walk that reads every round. The
+    random walk's whole dispatch is one graph. A graph reads and writes
+    only buffers that stay put (the banks, the threshold, the state and
+    the flag: :class:`_SpecGraphEntry`, :class:`_SyncGraphEntry`,
+    :class:`_RwalkGraphEntry`), so a dispatch copies its inputs in and
+    replays. The caller's likelihood must read only tensors that stay
+    put too: :meth:`static` keeps such copies.
 
-    Entries are keyed by P, D, d, nsteps, the round cap, the finishing
-    target, the device and :attr:`tag` (the caller's: the sampler puts
-    its p-space filter's key and its likelihood there); the most recent
-    :attr:`MAX_ENTRIES` are kept. A capture follows a warm-up round on a
-    side stream, so that the likelihood's first-call work (cached
-    constants) is done before it. A likelihood that cannot be captured
-    (one that reads a value to the host or copies from host memory per
-    call) makes the capture fail: :attr:`failed` keeps why, one warning
-    names the likelihood, and the walks of this cache run their rounds
-    from the host loop, with the same kernels.
+    Entries are keyed by the walk and its shapes (spec: P, D, d, nsteps,
+    the round cap and the finishing target; sync: P, d, nsteps and
+    ``max_it``; random walk: P, d and nsteps), the device and
+    :attr:`tag` (the caller's: the sampler puts its p-space filter's key
+    and its likelihood there); the most recent :attr:`MAX_ENTRIES` are
+    kept. A capture follows a warm-up round on a side stream, so that
+    the likelihood's first-call work (cached constants) is done before
+    it. A likelihood that cannot be captured (one that reads a value to
+    the host or copies from host memory per call) makes the capture
+    fail: :attr:`failed` keeps why, one warning names the likelihood,
+    and the walks of this cache run their rounds from the host loop,
+    with the same kernels.
     """
 
     MAX_ENTRIES = 4
@@ -441,28 +429,97 @@ class SpecGraphs:
                                       str(exc).strip().splitlines()[0]
                                       if str(exc).strip() else '')
             msg = ('the likelihood %s cannot be captured in a CUDA graph '
-                   '(%s); its spec walks run their rounds from the host '
-                   'loop, with the same kernels' % (self.name, self.failed))
+                   '(%s); its walks run their rounds from the host loop, '
+                   'with the same kernels' % (self.name, self.failed))
             _LOG.warning(msg)
             warnings.warn(msg, RuntimeWarning, stacklevel=3)
             return None
         return time.perf_counter() - t0
 
 
-class _SpecGraphEntry:
-    """The buffers a captured spec walk reads and writes, and its graphs
-    (rounds -> (graph, kernel launches of one replay))."""
+class _GraphEntry:
+    """A captured walk's graphs (rounds -> (graph, kernel launches of one
+    replay)), its memory pool and its 0-d bool "finished" *flag*; the
+    subclasses add the buffers the walk reads and writes."""
 
-    def __init__(self, P, D, d, nsteps, max_rounds, dev):
-        self.xibank = torch.empty((max_rounds, P, D), dtype=torch.float32,
-                                  device=dev)
-        self.dirbank = torch.empty((nsteps, P, d), dtype=torch.float32,
-                                   device=dev)
-        self.Lmin = torch.zeros((), dtype=torch.float32, device=dev)
-        self.state = _spec_state(P, d, dev)
-        self.flag = torch.zeros((), dtype=torch.bool, device=dev)
+    def __init__(self, flag):
+        self.flag = flag
         self.graphs = {}
         self.pool = None
+
+
+def _f32_buffer(dev, *shape):
+    return torch.zeros(shape, dtype=torch.float32, device=dev)
+
+
+class _SpecGraphEntry(_GraphEntry):
+    """The buffers a captured spec walk reads and writes."""
+
+    def __init__(self, P, D, d, nsteps, max_rounds, dev):
+        super().__init__(torch.zeros((), dtype=torch.bool, device=dev))
+        self.xibank = _f32_buffer(dev, max_rounds, P, D)
+        self.dirbank = _f32_buffer(dev, nsteps, P, d)
+        self.Lmin = _f32_buffer(dev)
+        self.state = _spec_state(P, d, dev)
+
+
+class _SyncGraphEntry(_GraphEntry):
+    """The buffers a captured sync walk reads and writes: the slice
+    positions as bank rows (``nsteps * max_it``, P, 1), the directions,
+    the threshold and the state, whose flag K6 writes."""
+
+    def __init__(self, P, d, nsteps, max_it, dev):
+        state = _sync_state(P, d, nsteps, dev)
+        super().__init__(state['flag'])
+        self.tbank = _f32_buffer(dev, nsteps * max_it, P, 1)
+        self.dirbank = _f32_buffer(dev, nsteps, P, d)
+        self.Lmin = _f32_buffer(dev)
+        self.state = state
+
+
+class _RwalkGraphEntry(_GraphEntry):
+    """The buffers a captured random walk reads and writes: the noise,
+    the region axes, the scale, the threshold and the state."""
+
+    def __init__(self, P, d, nsteps, dev):
+        super().__init__(torch.zeros((), dtype=torch.bool, device=dev))
+        self.eps = _f32_buffer(dev, nsteps, P, d)
+        self.axes = _f32_buffer(dev, d, d)
+        self.scale = _f32_buffer(dev)
+        self.Lmin = _f32_buffer(dev)
+        self.state = _rwalk_state(P, d, dev)
+
+
+def _graphs_ready(graphs, key, entry, sizes, body, flag, init, info):
+    """Capture the graphs of *sizes* rounds that *entry* lacks (the state
+    set by *init* first), then *init* the dispatch. Returns False where a
+    capture failed: the entry is dropped and the walk runs its host
+    loop. Books the captures in *info*."""
+    missing = [n for n in sizes if n not in entry.graphs]
+    if missing:
+        init()
+        took = graphs.capture(entry, missing, body, flag)
+        if took is None:
+            graphs.drop(key)
+            return False
+        info.update(captures=len(missing), capture_s=took)
+    init()
+    return True
+
+
+def _replay_rounds(entry, every, info):
+    """``run(n)`` of :func:`_drive_rounds` over *entry*'s graphs: a chunk
+    of *every* rounds as one replay, or the rounds below the cap one at
+    a time; each replay adds its graph's launches to
+    ``kernels.LAUNCHES``."""
+    def run(n):
+        g, launched = entry.graphs[n if n == every else 1]
+        for _ in range(1 if n == every else n):
+            g.replay()
+            kernels.LAUNCHES.update(launched)
+            info['replays'] += 1
+        return entry.flag
+    return run
 
 
 # spin cycles (torch.cuda._sleep) that keep the card busy while the host
@@ -527,8 +584,7 @@ def graph_call_seconds(fn, device, calls=4, reps=8, trials=5, graphs=None):
     """
     dev = torch.device(device)
     graphs = graphs or SpecGraphs(getattr(fn, '__qualname__', repr(fn)))
-    entry = types.SimpleNamespace(flag=torch.zeros((), device=dev),
-                                  pool=None, graphs={})
+    entry = _GraphEntry(torch.zeros((), device=dev))
     if graphs.capture(entry, [calls], fn, lambda: None) is None:
         return None
     graph = entry.graphs[calls][0]
@@ -709,43 +765,29 @@ def spec_walk(banks, live_u, live_L, nlive, axes, Lmin, scale, evaluate,
     info = dict(graph=False, replays=0, captures=0, capture_s=0.0)
     entry = None
     if graphs is not None and graphs.failed is None:
-        key = (P, D, d, nsteps, max_rounds, target_done, str(dev),
+        key = ('spec', P, D, d, nsteps, max_rounds, target_done, str(dev),
                graphs.tag)
         entry = graphs.entry(key, lambda: _SpecGraphEntry(
             P, D, d, nsteps, max_rounds, dev))
         entry.xibank.copy_(xibank)
         dirbank = _direction_bank(banks, live_u, axes, scale,
                                   out=entry.dirbank)
-        Lmin_t = _set_scalar(entry.Lmin, Lmin)
+        _set_scalar(entry.Lmin, Lmin)
         st = entry.state
+
+        def body(e=entry):
+            _spec_round(e.xibank, evaluate, e.Lmin, e.dirbank, e.state)
+
+        def flag(e=entry):
+            e.flag.copy_(e.state['done'].sum() >= target_done)
         sizes = [every] + ([1] if max_rounds % every and every > 1 else [])
-        missing = [n for n in sizes if n not in entry.graphs]
-        if missing:
-            def body(e=entry):
-                _spec_round(e.xibank, evaluate, e.Lmin, e.dirbank, e.state)
-
-            def flag(e=entry):
-                e.flag.copy_(e.state['done'].sum() >= target_done)
-            _spec_init(st, banks, live_u, live_L, dirbank)
-            took = graphs.capture(entry, missing, body, flag)
-            if took is None:
-                graphs.drop(key)
-                entry = None
-            else:
-                info.update(captures=len(missing), capture_s=took)
+        if not _graphs_ready(graphs, key, entry, sizes, body, flag,
+                             lambda: _spec_init(st, banks, live_u, live_L,
+                                                dirbank), info):
+            entry = None
     if entry is not None:
-        _spec_init(st, banks, live_u, live_L, dirbank)
-
-        def run(n):
-            # a chunk, or the rounds below the cap one at a time
-            g, launched = entry.graphs[n if n == every else 1]
-            for _ in range(1 if n == every else n):
-                g.replay()
-                kernels.LAUNCHES.update(launched)
-                info['replays'] += 1
-            return entry.flag
-        reads, rounds = _drive_rounds(run, max_rounds, every,
-                                      0 if exact else 1)
+        reads, rounds = _drive_rounds(_replay_rounds(entry, every, info),
+                                      max_rounds, every, 0 if exact else 1)
         info['graph'] = True
         # the next dispatch rewrites the entry's buffers
         st = {k: t.clone() for k, t in entry.state.items()}
@@ -772,8 +814,49 @@ def spec_walk(banks, live_u, live_L, nlive, axes, Lmin, scale, evaluate,
             st['nur'], width)
 
 
+def _sync_state(P, d, nsteps, dev):
+    """Zeroed buffers of the sync walk's state (:data:`kernels.SYNC_STATE`)."""
+    def i64():
+        return torch.zeros((), dtype=torch.int64, device=dev)
+    f32 = functools.partial(_f32_buffer, dev)
+    return dict(u=f32(P, d), v=f32(P, d), tl=f32(P), tr=f32(P),
+                un=f32(P, d), Ln=f32(P),
+                done=torch.zeros(P, dtype=torch.bool, device=dev), nc=i64(),
+                s=i64(), it=i64(), row=i64(),
+                flag=torch.zeros((), dtype=torch.bool, device=dev),
+                accs=f32(nsteps), widths=f32(nsteps))
+
+
+def _sync_init(st, banks, live_u, live_L, dirbank):
+    """Start a dispatch: each walker at its live point ``idx0``, on its
+    first direction and full chord, nothing done; counters, step,
+    iteration and bank row at 0."""
+    idx0 = banks['idx0']
+    st['u'].copy_(live_u[idx0])
+    st['un'].copy_(st['u'])
+    st['Ln'].copy_(live_L[idx0])
+    st['v'].copy_(dirbank[0])
+    tl, tr = _cube_intersection(st['u'], st['v'])
+    st['tl'].copy_(tl)
+    st['tr'].copy_(tr)
+    for k in ('done', 'nc', 's', 'it', 'row', 'flag', 'accs', 'widths'):
+        st[k].zero_()
+
+
+def _sync_round(tbank, evaluate, Lmin, dirbank, max_it, st):
+    """One shrink iteration of every walker: K4 at depth 1 proposes each
+    walker's slice position from bank row ``st['row']`` of *tbank*
+    ((nsteps * max_it, P, 1)), the likelihood evaluates the rows, K6
+    updates the state and ends the step where it is over."""
+    ts, tlc, trc, up = kernels.spec_propose(st['u'], st['v'], st['tl'],
+                                            st['tr'], tbank, st['row'])
+    Lp, tin = evaluate(up)
+    kernels.sync_update(Lp.reshape(-1).contiguous(), tin, ts, tlc, trc, Lmin,
+                        dirbank, max_it, st)
+
+
 def sync_walk(banks, live_u, live_L, axes, Lmin, scale, evaluate,
-              stats=None):
+              stats=None, graphs=None):
     """Lockstep population walk (``popfused.py:814-877``).
 
     Every walker takes its step s before any takes step s + 1: per step,
@@ -782,13 +865,24 @@ def sync_walk(banks, live_u, live_L, axes, Lmin, scale, evaluate,
     accepted or ``max_it`` iterations ran. Walkers that never accept
     keep their point. Every iteration bills all P rows the p-space
     filter lets through, finished walkers included, as the reference
-    does. The host reads a step's flag once every
-    :data:`SYNC_CHECK_EVERY` iterations, waiting for them: ``reads ==
-    rounds // SYNC_CHECK_EVERY`` while that divides ``max_it``.
+    does.
 
-    *banks* are the draws of :func:`draw_sync_banks`; the other
-    arguments are as for :func:`spec_walk`. Returns ``uf, Lf, done,
-    idx0, nc, nuseful, width, acc_rate``: ``done`` all True,
+    A round is one shrink iteration of every walker: K4 at depth 1
+    (:func:`kernels.spec_propose`), the likelihood and K6
+    (:func:`kernels.sync_update`), which also ends the step, so rounds
+    run on across step boundaries with no host decision between steps;
+    the round cap is ``nsteps * max_it``. The host reads K6's flag ("every
+    step ran") once every :data:`SYNC_CHECK_EVERY` rounds, on a card one
+    check behind the rounds queued: there ``reads == rounds //
+    SYNC_CHECK_EVERY - 1`` below the cap, on the CPU ``rounds //
+    SYNC_CHECK_EVERY``. With *graphs* on a card, each chunk of rounds is
+    one replayed CUDA graph (:class:`SpecGraphs`); otherwise the rounds
+    run from a host loop (the plain versions of K4 and K6 on the CPU).
+    Both give the same bits.
+
+    *banks* are the draws of :func:`draw_sync_banks` (``max_it`` >= 1);
+    the other arguments are as for :func:`spec_walk`. Returns ``uf, Lf,
+    done, idx0, nc, nuseful, width, acc_rate``: ``done`` all True,
     ``nuseful == nc`` (0-d int64; lockstep rounds evaluate no
     speculative rows), ``width`` the mean over steps of each step's
     median final bracket and ``acc_rate`` the mean over steps of the
@@ -796,90 +890,150 @@ def sync_walk(banks, live_u, live_L, axes, Lmin, scale, evaluate,
     """
     tbank = banks['tbank']
     nsteps, max_it, P = tbank.shape
+    if max_it < 1:
+        raise ValueError('sync_walk needs max_it >= 1, got %d' % max_it)
+    d = live_u.shape[1]
     dev = live_u.device
-    dirbank = _direction_bank(banks, live_u, axes, scale)
-    idx0 = banks['idx0']
-    u = live_u[idx0]
-    L = live_L[idx0]
-    nc = torch.zeros((), dtype=torch.int64, device=dev)
-    acc_rates, widths = [], []
-    reads = rounds = 0
-    for s in range(nsteps):
-        v = dirbank[s]
-        tl, tr = _cube_intersection(u, v)
+    max_rounds = nsteps * max_it
+    every = SYNC_CHECK_EVERY
+    info = dict(graph=False, replays=0, captures=0, capture_s=0.0)
+    entry = None
+    if graphs is not None and graphs.failed is None:
+        key = ('sync', P, d, nsteps, max_it, str(dev), graphs.tag)
+        entry = graphs.entry(key, lambda: _SyncGraphEntry(P, d, nsteps,
+                                                          max_it, dev))
+        entry.tbank.copy_(tbank.reshape(max_rounds, P, 1))
+        dirbank = _direction_bank(banks, live_u, axes, scale,
+                                  out=entry.dirbank)
+        _set_scalar(entry.Lmin, Lmin)
+        st = entry.state
 
-        def shrink(it, tlc, trc, unew, Lnew, done, nc, t0=tbank[s], u=u,
-                   v=v):
-            # the reference's loop ends once every walker accepted; the
-            # rounds past that point bill nothing and change nothing
-            running = ~done.all()
-            t = tlc + t0[it] * (trc - tlc)
-            up = u + t[:, None] * v
-            Lp, tin = evaluate(up)
-            billed = P if tin is None else tin.sum()
-            nc = nc + running * billed
-            acc = (Lp > Lmin) & ~done
-            unew = torch.where(acc[:, None], up, unew)
-            Lnew = torch.where(acc, Lp, Lnew)
-            done = done | acc
-            rej = ~done
-            tlc = torch.where(rej & (t < 0), t, tlc)
-            trc = torch.where(rej & (t >= 0), t, trc)
-            return tlc, trc, unew, Lnew, done, nc
+        def body(e=entry):
+            _sync_round(e.tbank, evaluate, e.Lmin, e.dirbank, max_it,
+                        e.state)
+        sizes = [every] + ([1] if max_rounds % every and every > 1 else [])
+        if not _graphs_ready(graphs, key, entry, sizes, body, lambda: None,
+                             lambda: _sync_init(st, banks, live_u, live_L,
+                                                dirbank), info):
+            entry = None
+    if entry is not None:
+        reads, rounds = _drive_rounds(_replay_rounds(entry, every, info),
+                                      max_rounds, every, 1)
+        info['graph'] = True
+        # the next dispatch rewrites the entry's buffers
+        st = {k: entry.state[k].clone() for k in ('un', 'Ln', 'nc')} | \
+            {k: entry.state[k].mean() for k in ('accs', 'widths')}
+    else:
+        dirbank = _direction_bank(banks, live_u, axes, scale)
+        Lmin_t = _set_scalar(torch.empty((), dtype=torch.float32,
+                                         device=dev), Lmin)
+        rows = tbank.reshape(max_rounds, P, 1).contiguous()
+        st = _sync_state(P, d, nsteps, dev)
+        _sync_init(st, banks, live_u, live_L, dirbank)
 
-        done = torch.zeros(P, dtype=torch.bool, device=dev)
-        (tlf, trf, u, L, done, nc), r, n = _drive(
-            shrink, (tl, tr, u, L, done, nc), max_it,
-            lambda st: st[4].all(), every=SYNC_CHECK_EVERY)
-        reads += r
-        rounds += n
-        acc_rates.append(done.to(torch.float32).mean())
-        widths.append(_median(trf - tlf))
+        def run(n):
+            for _ in range(n):
+                _sync_round(rows, evaluate, Lmin_t, dirbank, max_it, st)
+            return st['flag']
+        reads, rounds = _drive_rounds(run, max_rounds, every,
+                                      1 if dev.type == 'cuda' else 0)
+        st.update(accs=st['accs'].mean(), widths=st['widths'].mean())
     if stats is not None:
-        stats.update(reads=reads, rounds=rounds)
+        stats.update(reads=reads, rounds=rounds, **info)
     done = torch.ones(P, dtype=torch.bool, device=dev)
-    return (u, L, done, idx0, nc, nc, torch.stack(widths).mean(),
-            torch.stack(acc_rates).mean())
+    return (st['un'], st['Ln'], done, banks['idx0'], st['nc'], st['nc'],
+            st['widths'], st['accs'])
+
+
+def _rwalk_state(P, d, dev):
+    """Zeroed buffers of the random walk's state
+    (:data:`kernels.RWALK_STATE`)."""
+    return dict(u=_f32_buffer(dev, P, d), L=_f32_buffer(dev, P),
+                nacc=torch.zeros((), dtype=torch.int64, device=dev),
+                nc=torch.zeros((), dtype=torch.int64, device=dev))
+
+
+def _rwalk_init(st, banks, live_u, live_L):
+    """Start a dispatch: each walker at its live point ``idx0``, the
+    counts at 0."""
+    idx0 = banks['idx0']
+    st['u'].copy_(live_u[idx0])
+    st['L'].copy_(live_L[idx0])
+    st['nacc'].zero_()
+    st['nc'].zero_()
+
+
+def _rwalk_steps(eps, axes, scale, evaluate, Lmin, st):
+    """Every step of a random-walk dispatch: the proposal ``u + scale *
+    eps[s] @ axes.T`` (torch ops; the matmul in full float32, TF32 off),
+    the likelihood and K7 (:func:`kernels.rwalk_accept`). *scale* is a
+    float or a 0-d float32 tensor of the same value: the products round
+    alike."""
+    axes_t = axes.T
+    for s in range(eps.shape[0]):
+        up = st['u'] + scale * (eps[s] @ axes_t)
+        Lev, tin = evaluate(up)
+        kernels.rwalk_accept(Lev.reshape(-1).contiguous(), tin, up, Lmin, st)
 
 
 def rwalk_walk(banks, live_u, live_L, axes, Lmin, scale, evaluate,
-               stats=None):
+               stats=None, graphs=None):
     """Population Metropolis random walk (``popfused.py:1602-1631``).
 
     Each of the ``nsteps`` steps proposes ``u + scale * eps @ axes.T``
     for every walker (``eps`` from :func:`draw_rwalk_banks`) and accepts
-    proposals inside the unit cube above *Lmin*. The loop has a fixed
-    trip count, so the host reads nothing. The matmul runs in full
-    float32 (TF32 stays off).
+    proposals inside the unit cube above *Lmin* (K7,
+    :func:`kernels.rwalk_accept`). The loop has a fixed trip count, so
+    the host reads nothing. The matmul runs in full float32 (TF32 stays
+    off). With *graphs* on a card the whole walk is one CUDA graph
+    (:class:`SpecGraphs`), replayed once; otherwise the steps run from
+    the host (the plain version of K7 on the CPU). Both give the same
+    bits.
 
     Returns ``uf, Lf, done, idx0, nc, nuseful, acc_rate``: ``done`` all
     True, ``nuseful == nc`` (0-d int64; proposals outside the cube are
     not billed) and the acceptance rate (0-d float32).
     """
     eps = banks['eps']
-    nsteps, P, _ = eps.shape
+    nsteps, P, d = eps.shape
     dev = live_u.device
-    idx0 = banks['idx0']
-    u = live_u[idx0]
-    L = live_L[idx0]
-    nacc = torch.zeros((), dtype=torch.int64, device=dev)
-    nc = torch.zeros((), dtype=torch.int64, device=dev)
-    axes_t = axes.T
-    for s in range(nsteps):
-        up = u + scale * (eps[s] @ axes_t)
-        inside = ((up > 0) & (up < 1)).all(dim=1)
-        Lev, tin = evaluate(up)
-        Lp = torch.where(inside, Lev, -math.inf)
-        acc = inside & (Lp > Lmin)
-        u = torch.where(acc[:, None], up, u)
-        L = torch.where(acc, Lp, L)
-        nacc = nacc + acc.sum()
-        nc = nc + (inside if tin is None else inside & tin).sum()
+    info = dict(graph=False, replays=0, captures=0, capture_s=0.0)
+    entry = None
+    if graphs is not None and graphs.failed is None:
+        key = ('rwalk', P, d, nsteps, str(dev), graphs.tag)
+        entry = graphs.entry(key, lambda: _RwalkGraphEntry(P, d, nsteps,
+                                                           dev))
+        entry.eps.copy_(eps)
+        entry.axes.copy_(axes)
+        _set_scalar(entry.scale, scale)
+        _set_scalar(entry.Lmin, Lmin)
+        st = entry.state
+
+        def body(e=entry):
+            _rwalk_steps(e.eps, e.axes, e.scale, evaluate, e.Lmin, e.state)
+        if not _graphs_ready(graphs, key, entry, [1], body, lambda: None,
+                             lambda: _rwalk_init(st, banks, live_u, live_L),
+                             info):
+            entry = None
+    if entry is not None:
+        g, launched = entry.graphs[1]
+        g.replay()
+        kernels.LAUNCHES.update(launched)
+        info.update(graph=True, replays=1)
+        # the next dispatch rewrites the entry's buffers
+        st = {k: t.clone() for k, t in entry.state.items()}
+    else:
+        st = _rwalk_state(P, d, dev)
+        _rwalk_init(st, banks, live_u, live_L)
+        _rwalk_steps(eps, axes, scale, evaluate,
+                     _set_scalar(torch.empty((), dtype=torch.float32,
+                                             device=dev), Lmin), st)
     if stats is not None:
-        stats.update(reads=0, rounds=nsteps)
-    acc_rate = nacc.to(torch.float32) / float(P * nsteps)
+        stats.update(reads=0, rounds=nsteps, **info)
+    acc_rate = st['nacc'].to(torch.float32) / float(P * nsteps)
     done = torch.ones(P, dtype=torch.bool, device=dev)
-    return u, L, done, idx0, nc, nc, acc_rate
+    return st['u'], st['L'], done, banks['idx0'], st['nc'], st['nc'], \
+        acc_rate
 
 
 class FusedPopulationSliceSampler(GenericPopulationSampler):
@@ -1033,7 +1187,8 @@ class FusedPopulationSliceSampler(GenericPopulationSampler):
         # (has_tregion, num_params): whether the walk fuses the p-space
         # wrapping-ellipsoid filter
         self._treg_key = (False, 0)
-        # nsteps, host reads and rounds of every walk, in dispatch order
+        # nsteps, host reads, rounds and the graphs (graph, replays,
+        # captures, capture_s) of every walk, in dispatch order
         self.walk_log = []
 
     def __str__(self):
@@ -1272,21 +1427,10 @@ class FusedPopulationSliceSampler(GenericPopulationSampler):
         (``popfused.py:1187-1201``) and the classic harvest's efficiency
         slot (the done fraction; sync: the mean accepting fraction).
         """
-        ev = self._treg_eval()
-        stats = dict(nsteps=self.nsteps)
-        self.walk_log.append(stats)
-        graphs = None
-        if self.engine != 'sync' and self.device.type == 'cuda':
-            graphs = self._spec_graphs()
-            # the graphs read the filter's pack from a buffer that stays
-            # put between dispatches
-            treg = graphs.static('treg', treg)
-
-        def evaluate(rows):
-            return ev(rows, treg)
+        stats, graphs, evaluate = self._walk_setup(treg)
         if self.engine == 'sync':
             return sync_walk(banks, live_u, live_L, axes, Lmin, _f32(scale),
-                             evaluate, stats=stats)
+                             evaluate, stats=stats, graphs=graphs)
         target = max(1, int(np.ceil(self.harvest_frac
                                     * self._local_popsize)))
         out = spec_walk(banks, live_u, live_L, nlive, axes, Lmin,
@@ -1294,9 +1438,29 @@ class FusedPopulationSliceSampler(GenericPopulationSampler):
                         target_done=target, stats=stats, graphs=graphs)
         return out + (out[2].to(torch.float32).mean(),)
 
+    def _walk_setup(self, treg):
+        """What a walk of this sampler takes besides its inputs: its stats
+        dict (appended to :attr:`walk_log`), on a card the sampler's
+        graph cache (:meth:`_spec_graphs`; else None) and the evaluator
+        of rows, ``evaluate(rows) -> (L, billed)``, with the p-space
+        filter's pack *treg* (on a card read from a buffer that stays put
+        between dispatches, as the graphs need)."""
+        ev = self._treg_eval()
+        stats = dict(nsteps=self.nsteps)
+        self.walk_log.append(stats)
+        graphs = None
+        if self.device.type == 'cuda':
+            graphs = self._spec_graphs()
+            treg = graphs.static('treg', treg)
+
+        def evaluate(rows):
+            return ev(rows, treg)
+        return stats, graphs, evaluate
+
     def _spec_graphs(self):
-        """This sampler's :class:`SpecGraphs`, tagged with what its walks'
-        likelihood calls depend on besides the shapes."""
+        """This sampler's :class:`SpecGraphs` (its walks' graphs, whatever
+        the engine), tagged with what its walks' likelihood calls depend
+        on besides the shapes."""
         if getattr(self, '_graphs', None) is None:
             ll = self.torch_loglike
             self._graphs = SpecGraphs(getattr(ll, '__qualname__', repr(ll)))
@@ -1576,7 +1740,7 @@ class FusedPopulationSliceSampler(GenericPopulationSampler):
         """Run one chained walk+consume segment; its result streams home.
 
         Reads from the host only what the walk's flag reads need
-        (:func:`_drive`; none for the random walk).
+        (:func:`_drive_rounds`; none for the random walk).
         """
         self._sync_treg_key(tregion)
         axes, treg, tpack = self._upload(
@@ -1745,11 +1909,9 @@ class FusedPopulationRandomWalkSampler(FusedPopulationSliceSampler):
                                 nlive, x_dim)
 
     def _walk(self, banks, live_u, live_L, nlive, axes, Lmin, scale, treg):
-        ev = self._treg_eval()
-        stats = dict(nsteps=self.nsteps)
-        self.walk_log.append(stats)
+        stats, graphs, evaluate = self._walk_setup(treg)
         out = rwalk_walk(banks, live_u, live_L, axes, Lmin, _f32(scale),
-                         lambda rows: ev(rows, treg), stats=stats)
+                         evaluate, stats=stats, graphs=graphs)
         # the acceptance rate fills both the width and efficiency slots
         return out + (out[-1],)
 
