@@ -18,12 +18,14 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    D 1 on the sync walk's bank rows and K6, its update and step
    boundary, bit for bit inside a step, at its boundary, all walkers
    accepting and after the last step, at the sync engine runs' shapes,
-   above one block and at an odd P; K7, the random walk's acceptance,
-   bit for bit with rows outside the cube, on its faces and NaN), times
-   them with CUDA events (the kernel also on the device alone,
-   its calls queued behind a spin kernel; K4 and K5 also among 50 calls
-   in a CUDA graph, beside an empty kernel's time there, the floor of a
-   launch), and prints each shape's bound: the larger of its float32
+   above one block and at an odd P, in each of its forms (one block or
+   a grid; rank counting or radix selection); K7, the random walk's
+   acceptance and next proposal, and its prologue, bit for bit with
+   rows outside the cube, on its faces and NaN), times them with CUDA
+   events (the kernel also on the device alone, its calls queued behind
+   a spin kernel; K4 to K7 also among 50 calls in a CUDA graph, beside
+   an empty kernel's time there, the floor of a launch), and prints
+   each shape's bound: the larger of its float32
    operations at 67 TFLOP/s and its bytes at 3.35 TB/s (K4 and K5 also
    their share of it, their first form's device time and the registers
    ptxas gave their instantiation);
@@ -57,12 +59,15 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
      package's engine tests' configurations (``tests/test_popfused.py:
      40-107``), gated as those tests gate, and one classic-mode async
      run (segment path off) on the default MLFriends region; every
-     dispatch's walk as CUDA graphs (sync: K4 and K6; random walk: K7),
-     each run's wall, rounds, host reads, replays and ms a round
-     printed; one dispatch each of sync, sync8 and the random walk kept
-     and run again from the host loop (every K4, K6 and K7 call held
-     bit for bit against the plain versions) and as graphs (every
-     output the host loop's bits);
+     dispatch's walk as CUDA graphs (sync: K4 and K6; random walk: K7
+     and its prologue), each run's wall, rounds, host reads, replays and
+     ms a round printed; one dispatch each of sync, sync8 and the random
+     walk kept and run again from the host loop (every K4, K6 and K7
+     call held bit for bit against the plain versions) and as graphs
+     (every output the host loop's bits), and the kernel nodes of its
+     round or step counted in a captured graph (a sync round: K4, the
+     likelihood's and one K6; a random-walk step: the likelihood's and
+     K7, nothing else);
    * the classic ``NestedSampler`` (``tests/test_run.py:79-90``: 2-d
      gauss, 200 live points, seed 5) and ``ReactiveNestedSampler`` with a
      host ``SliceSampler`` (mixture directions, the settings of
@@ -176,7 +181,7 @@ KERNEL_NOTES = {
     'sync_update': ('ultranest_torch/csrc/sync_update.cu',
                     'ultranest_tpu/popfused.py:849'),
     'rwalk_accept': ('ultranest_torch/csrc/rwalk_accept.cu',
-                     'ultranest_tpu/popfused.py:1610'),
+                     'ultranest_tpu/popfused.py:1612'),
 }
 # the paths beside the spec problems, the async engine and the mesh's
 # asymgauss50 whose spec walks must run (as CUDA graphs, K4 and K5
@@ -793,17 +798,34 @@ def sync_update_bound(P, d, tin, st, Lp, Lmin, boundary):
     return bound(ops, nbytes)
 
 
-def check_sync_kernels(kernels, rng, P, d, registers=None):
+# K6's forms (kernels.SYNC_FORM_GRID | kernels.SYNC_FORM_RADIX bits):
+# the one a shape takes on its own (-1), and each it can take
+SYNC_FORMS = {'auto': -1, 'block, rank': 0, 'grid, rank': 1,
+              'block, radix': 2, 'grid, radix': 3}
+
+
+def sync_forms(kernels, P):
+    """K6's forms that take P walkers (rank counting takes P <=
+    ``kernels.SYNC_RANK_KEYS``)."""
+    return {n: f for n, f in SYNC_FORMS.items()
+            if f < 0 or f & kernels.SYNC_FORM_RADIX
+            or P <= kernels.SYNC_RANK_KEYS}
+
+
+def check_sync_kernels(kernels, rng, P, d, registers=None, floor=None):
     """K4 at D 1 on the sync walk's bank rows and K6 against their plain
     versions, bit for bit, at one shape: inside a step, at its boundary,
     every walker accepting and a finished round, with and without the
-    filter's rows; times K6 (host-paced, on the device alone and among
-    50 calls in a CUDA graph) inside a step and at a boundary, beside
-    the bounds, and prints the registers of its two kernels. Returns
-    (0.0, kernel ms, plain ms, bound ms, what bounds it, device ms,
-    graph ms, boundary graph ms, boundary bound ms), the first five
-    inside a step."""
+    filter's rows, K6 in each of its forms; times K6 in the form it takes
+    (host-paced, on the device alone and among 50 calls in a CUDA graph)
+    inside a step and at a boundary, beside the bounds and an empty
+    kernel's time in a graph (*floor*), and prints the registers of its
+    two instantiations (``scripts/bench_kernels.py --kernel sync_update``
+    times every form). Returns (0.0, kernel ms,
+    plain ms, bound ms, what bounds it, device ms, graph ms, boundary
+    graph ms, boundary bound ms), the first five inside a step."""
     from ultranest_torch.evaluate.bench_membership import cuda_ms
+    forms = sync_forms(kernels, P)
     inputs = {}
     for kind in ('mid', 'boundary', 'all_accept', 'finished'):
         st, tbank, dirbank, Lp, tin, Lmin, max_it = inputs[kind] = \
@@ -815,16 +837,17 @@ def check_sync_kernels(kernels, rng, P, d, registers=None):
             ('spec_propose disagrees on sync rows', P, d, kind)
         ts, tlc, trc, _ = want
         for t in (tin, None):
-            mine = {k: x.clone() for k, x in st.items()}
             plain = {k: x.clone() for k, x in st.items()}
-            kernels.sync_update(Lp, t, ts, tlc, trc, Lmin, dirbank, max_it,
-                                mine)
             kernels.sync_update_plain(Lp, t, ts, tlc, trc, Lmin, dirbank,
                                       max_it, plain)
-            bad = [k for k in kernels.SYNC_STATE
-                   if not values_equal(mine[k], plain[k])]
-            assert not bad, ('sync_update disagrees', P, d, kind,
-                             t is None, bad)
+            for name, form in forms.items():
+                mine = {k: x.clone() for k, x in st.items()}
+                kernels._sync_update_cuda(Lp, t, ts, tlc, trc, Lmin, dirbank,
+                                          max_it, mine, form)
+                bad = [k for k in kernels.SYNC_STATE
+                       if not values_equal(mine[k], plain[k])]
+                assert not bad, ('sync_update disagrees', P, d, kind,
+                                 name, t is None, bad)
         inputs[kind] += (ts, tlc, trc)
     out = {}
     for kind in ('mid', 'boundary'):
@@ -847,16 +870,18 @@ def check_sync_kernels(kernels, rng, P, d, registers=None):
         plain_ms = cuda_ms(lambda: kernels.sync_update_plain(*a), 5)
         out[kind] = (ms, dev, gms, plain_ms, bms, by)
     regs = {n: (registers or {}).get(n)
-            for n in ('sync_walker_kernel', 'sync_step_kernel')}
+            for n in ('sync_update_kernel<0>', 'sync_update_kernel<1>')}
     for kind, (ms, dev, gms, plain_ms, bms, by) in out.items():
         print('K6 sync_update P=%d d=%d %s: K4 at D 1 and K6 bit-equal to '
               'plain (inside a step, at its boundary, all accepting, '
-              'finished; with and without the filter), kernel %.4f ms, '
-              'device %.4f ms, in a graph %.4f ms, plain %.4f ms, bound '
-              '%.6f ms (%s), %.1f%% of the bound in a graph; registers %s'
+              'finished; with and without the filter; forms %s), kernel '
+              '%.4f ms, device %.4f ms, in a graph %.4f ms (an empty kernel '
+              '%.4f), plain %.4f ms, bound %.6f ms (%s), %.1f%% of the bound '
+              'in a graph; registers %s'
               % (P, d, 'inside a step' if kind == 'mid' else
-                 'at a step boundary', ms, dev, gms, plain_ms, bms, by,
-                 100 * bms / gms, json.dumps(regs)))
+                 'at a step boundary', ', '.join(forms), ms, dev, gms,
+                 floor if floor is not None else float('nan'), plain_ms,
+                 bms, by, 100 * bms / gms, json.dumps(regs)))
     ms, dev, gms, plain_ms, bms, by = out['mid']
     return (0.0, ms, plain_ms, bms, by, dev, gms, out['boundary'][2],
             out['boundary'][4])
@@ -865,7 +890,8 @@ def check_sync_kernels(kernels, rng, P, d, registers=None):
 def rwalk_round_inputs(rng, P, d):
     """One random-walk step's inputs on the card: proposals inside the
     cube and outside it, on its faces, NaN coordinates, NaN and infinite
-    likelihoods, the filter's rows, the threshold and a state."""
+    likelihoods, the filter's rows, the threshold, a state, the next
+    step's products (a signed zero among them) and the scale."""
     import torch
     f32 = np.float32
     up = rng.uniform(-0.02, 1.02, size=(P, d)).astype(f32)
@@ -883,65 +909,105 @@ def rwalk_round_inputs(rng, P, d):
               nc=torch.zeros((), dtype=torch.int64, device='cuda'))
     tin = torch.as_tensor(rng.uniform(size=P) < 0.9, device='cuda')
     Lmin = torch.tensor(-0.5, dtype=torch.float32, device='cuda')
+    m = (rng.normal(size=(P, d)) * 0.05).astype(f32)
+    m[::5, 0] = -0.0
+    scale = torch.tensor(0.1, dtype=torch.float32, device='cuda')
     return (torch.as_tensor(Lev, device='cuda'), tin,
-            torch.as_tensor(up, device='cuda'), Lmin, st)
+            torch.as_tensor(up, device='cuda'), Lmin, st,
+            torch.as_tensor(m, device='cuda'), scale)
 
 
-def rwalk_accept_bound(P, d, tin, Lev, up, Lmin):
+def rwalk_accept_bound(P, d, tin, Lev, up, Lmin, proposal=True):
     """Bound of K7 on these inputs: every proposal, likelihood (and filter
     row) read, 2 compares a coordinate; an accepted walker's row and
-    likelihood written."""
+    likelihood written; with the next *proposal*, the next products
+    read, a rejecting walker's point read, the next proposal written,
+    a multiply and an add a coordinate."""
     inside = ((up > 0) & (up < 1)).all(dim=1)
     acc = int((inside & (Lev > Lmin)).sum())
     nbytes = 4 * P * d + 4 * P + (P if tin is not None else 0) + 4 + 16 \
         + acc * (4 * d + 4)
-    return bound(2 * P * d, nbytes)
+    ops = 2 * P * d
+    if proposal:
+        nbytes += 4 * P * d + 4 * (P - acc) * d + 4 * P * d + 4
+        ops += 2 * P * d
+    return bound(ops, nbytes)
 
 
-def check_rwalk_kernel(kernels, rng, P, d, registers=None):
-    """K7 against its plain version, bit for bit, at one shape, with and
-    without the filter's rows; times it (host-paced, on the device alone
-    and among 50 calls in a CUDA graph; every call does the same work)
-    beside its bound. Returns (0.0, kernel ms, plain ms, bound ms, what
-    bounds it, device ms, graph ms)."""
+def rwalk_propose_bound(P, d):
+    """Bound of K7's prologue: the point and the products read, the
+    proposal written, a multiply and an add a coordinate."""
+    return bound(2 * P * d, 12 * P * d + 4)
+
+
+def check_rwalk_kernel(kernels, rng, P, d, registers=None, floor=None):
+    """K7 against its plain version, bit for bit, at one shape: its
+    prologue, a step that writes the next proposal and the last step
+    (none), with and without the filter's rows; times the step with its
+    proposal (host-paced, on the device alone and among 50 calls in a
+    CUDA graph) and the prologue in a graph, beside their bounds and an
+    empty kernel's time in a graph (*floor*). Returns (0.0, kernel ms,
+    plain ms, bound ms, what bounds it, device ms, graph ms, prologue
+    graph ms, prologue bound ms)."""
     from ultranest_torch.evaluate.bench_membership import cuda_ms
-    Lev, tin, up, Lmin, st = rwalk_round_inputs(rng, P, d)
+    Lev, tin, up, Lmin, st, m, scale = rwalk_round_inputs(rng, P, d)
+    mine, plain = up.clone(), up.clone()
+    kernels.rwalk_propose(mine, st, m, scale)
+    kernels.rwalk_propose_plain(plain, st, m, scale)
+    assert values_equal(mine, plain), ('rwalk_propose disagrees', P, d)
     for t in (tin, None):
-        mine = {k: x.clone() for k, x in st.items()}
-        plain = {k: x.clone() for k, x in st.items()}
-        kernels.rwalk_accept(Lev, t, up, Lmin, mine)
-        kernels.rwalk_accept_plain(Lev, t, up, Lmin, plain)
-        bad = [k for k in kernels.RWALK_STATE
-               if not values_equal(mine[k], plain[k])]
-        assert not bad, ('rwalk_accept disagrees', P, d, t is None, bad)
-    a = (Lev, tin, up, Lmin, st)
+        for nxt in (m, None):
+            mine = {k: x.clone() for k, x in st.items()}
+            plain = {k: x.clone() for k, x in st.items()}
+            up_mine, up_plain = up.clone(), up.clone()
+            kernels.rwalk_accept(Lev, t, up_mine, Lmin, mine, nxt, scale)
+            kernels.rwalk_accept_plain(Lev, t, up_plain, Lmin, plain, nxt,
+                                       scale)
+            bad = [k for k in kernels.RWALK_STATE
+                   if not values_equal(mine[k], plain[k])]
+            if not values_equal(up_mine, up_plain):
+                bad.append('up')
+            assert not bad, ('rwalk_accept disagrees', P, d, t is None,
+                             nxt is None, bad)
+    bms, by = rwalk_accept_bound(P, d, tin, Lev, up, Lmin)
+    pbms = rwalk_propose_bound(P, d)[0]
+    # timed on copies: a step moves the walkers on and rewrites up
+    a = (Lev, tin, up.clone(), Lmin, {k: x.clone() for k, x in st.items()},
+         m, scale)
     ms = cuda_ms(lambda: kernels.rwalk_accept(*a), 50)
     dev = queued_ms([lambda: kernels.rwalk_accept(*a)] * 50)
     gms = graph_ms(lambda: kernels.rwalk_accept(*a))
     plain_ms = cuda_ms(lambda: kernels.rwalk_accept_plain(*a), 5)
-    bms, by = rwalk_accept_bound(P, d, tin, Lev, up, Lmin)
-    print('K7 rwalk_accept P=%d d=%d: bit-equal to plain (with and without '
-          'the filter), kernel %.4f ms, device %.4f ms, in a graph %.4f ms, '
-          'plain %.4f ms, bound %.6f ms (%s), %.1f%% of the bound in a '
-          'graph; registers %s' % (
-              P, d, ms, dev, gms, plain_ms, bms, by, 100 * bms / gms,
-              (registers or {}).get('rwalk_accept_kernel')))
-    return (0.0, ms, plain_ms, bms, by, dev, gms)
+    p = (up.clone(), st, m, scale)
+    pgms = graph_ms(lambda: kernels.rwalk_propose(*p))
+    print('K7 rwalk_accept P=%d d=%d: the prologue and the step (with its '
+          'next proposal and without) bit-equal to plain (with and without '
+          'the filter); the step with its proposal: kernel %.4f ms, device '
+          '%.4f ms, in a graph %.4f ms (an empty kernel %.4f), plain %.4f '
+          'ms, bound %.6f ms (%s), %.1f%% of the bound in a graph; the '
+          'prologue in a graph %.4f ms (bound %.6f); registers %s' % (
+              P, d, ms, dev, gms,
+              floor if floor is not None else float('nan'), plain_ms, bms,
+              by, 100 * bms / gms, pgms, pbms,
+              (registers or {}).get('rwalk_step_kernel')))
+    return (0.0, ms, plain_ms, bms, by, dev, gms, pgms, pbms)
 
 
-# the kernels each walk launches, by walk
+# the kernels each walk launches, by walk, every round
 WALK_KERNELS = dict(spec=('spec_propose', 'spec_update'),
                     sync=('spec_propose', 'sync_update'),
                     rwalk=('rwalk_accept',))
+# and once a dispatch: K7's prologue
+WALK_PROLOGUES = dict(rwalk=('rwalk_propose',))
 
 
 class Walks:
     """Keeps the ``stats`` of every population walk made inside the block
     (``popfused.spec_walk``: the spec and async walks; ``sync_walk``;
     ``rwalk_walk``) and books each kernel's launches by shape: K4 and K5
-    of a spec walk under "P,D,d", K4 of a sync walk under "P,1,d", K6
-    and K7 under "P,d"; and the sync walks' step boundaries (``nsteps``
-    a walk) under K6's shape."""
+    of a spec walk under "P,D,d", K4 of a sync walk under "P,1,d", K6,
+    K7 and K7's prologue under "P,d"; and the sync walks' step
+    boundaries (``nsteps`` a walk) under K6's shape."""
 
     def __enter__(self):
         from ultranest_torch import popfused
@@ -965,13 +1031,14 @@ class Walks:
                         banks['tbank'].shape[0]
                 else:
                     P, D = banks['eps'].shape[1], None
-                seen = {k: kernels.LAUNCHES[k] for k in WALK_KERNELS[kind]}
+                booked = WALK_KERNELS[kind] + WALK_PROLOGUES.get(kind, ())
+                seen = {k: kernels.LAUNCHES[k] for k in booked}
                 try:
                     out = orig(*args, **kw)
                 finally:
                     # every launch of the walk, its warm-up round and a
                     # walk cut short by the watchdog's deadline included
-                    for k in WALK_KERNELS[kind]:
+                    for k in booked:
                         key = '%d,%d,%d' % (P, D, d) \
                             if k in ('spec_propose', 'spec_update') \
                             else '%d,%d' % (P, d)
@@ -1031,6 +1098,10 @@ def check_walk_path(name, walks, launched, required=()):
         for k in WALK_KERNELS[kind]:
             assert launched.get(k, 0) >= w['rounds'] > 0, \
                 ('%s not launched on the %s walks' % (k, kind), name,
+                 launched)
+        for k in WALK_PROLOGUES.get(kind, ()):
+            assert launched.get(k, 0) >= w['graph'], \
+                ('%s not launched on every %s walk' % (k, kind), name,
                  launched)
     if walks['launches_by_shape']:
         WALK_LAUNCHES[name] = walks['launches_by_shape']
@@ -1224,13 +1295,83 @@ def check_walk_traffic(kernels, name, kept):
                 / rep['rounds'])
 
 
+def engine_graph_nodes(kernels, kind, banks, live_u, live_L, axes, Lmin,
+                       scale, evaluate):
+    """The kernel nodes of a real dispatch's round (sync) or walk (random
+    walk), each captured in a CUDA graph and read from it
+    (``popfused.graph_kernel_names``), beside the likelihood's own nodes:
+    a sync round must be K4, the likelihood's kernels and one K6; the
+    random walk its products, K7's prologue and, a step, the likelihood's
+    kernels and K7, nothing else. Returns the counts by part."""
+    import torch
+    from ultranest_torch import popfused
+    dev = live_u.device
+    names = popfused.graph_kernel_names
+
+    def scalar(x):
+        return popfused._set_scalar(torch.empty((), dtype=torch.float32,
+                                                device=dev), x)
+
+    def count(nodes, kernel):
+        return sum(kernel in n for n in nodes)
+    Lmin_t, d = scalar(Lmin), live_u.shape[1]
+    if kind == 'sync':
+        tbank = banks['tbank']
+        nsteps, max_it, P = tbank.shape
+        rows = tbank.reshape(nsteps * max_it, P, 1).contiguous()
+        dirbank = popfused._direction_bank(banks, live_u, axes, scale)
+        st = popfused._sync_state(P, d, nsteps, dev)
+        popfused._sync_init(st, banks, live_u, live_L, dirbank)
+
+        def body():
+            popfused._sync_round(rows, evaluate, Lmin_t, dirbank, max_it, st)
+        body()                  # the likelihood's first call, eagerly
+        up = kernels.spec_propose(st['u'], st['v'], st['tl'], st['tr'],
+                                  rows, st['row'])[3]
+        round_nodes = names(body, dev)
+        like = names(lambda: evaluate(up), dev)
+        out = dict(round=len(round_nodes), likelihood=len(like),
+                   K4=count(round_nodes, 'spec_propose_kernel'),
+                   K6=count(round_nodes, 'sync_update_kernel'))
+        out['other'] = out['round'] - out['likelihood'] - out['K4'] - \
+            out['K6']
+        assert out['K4'] == out['K6'] == 1 and out['other'] == 0, \
+            ('a sync round is not K4, the likelihood and one K6', out,
+             round_nodes)
+        return out
+    eps = banks['eps']
+    nsteps, P, _ = eps.shape
+    st = popfused._rwalk_state(P, d, dev)
+    popfused._rwalk_init(st, banks, live_u, live_L)
+    m = torch.empty((nsteps, P, d), device=dev)
+    up = torch.empty((P, d), device=dev)
+    scale_t = scalar(scale)
+
+    def walk():
+        popfused._rwalk_steps(eps, axes, scale_t, evaluate, Lmin_t, st, m, up)
+    walk()                      # the first calls, eagerly
+    walk_nodes = names(walk, dev)
+    products = names(lambda: popfused._rwalk_products(eps, axes, m), dev)
+    like = names(lambda: evaluate(up), dev)
+    k7 = count(walk_nodes, 'rwalk_step_kernel')
+    out = dict(walk=len(walk_nodes), products=len(products),
+               likelihood=len(like), K7=k7, steps=nsteps,
+               step=(len(walk_nodes) - len(products) - 1) / nsteps)
+    out['other'] = len(walk_nodes) - len(products) - 1 - \
+        nsteps * (len(like) + 1)
+    assert k7 == nsteps + 1 and out['other'] == 0, \
+        ('a random-walk step is not the likelihood and K7', out, walk_nodes)
+    return out
+
+
 def check_engine_traffic(kernels, name, kept):
     """One real dispatch of a sync or random-walk engine run, kept by
     :class:`DispatchKeeper`: run from the host loop with K4 and K6 (or
-    K7), each call held against the plain versions bit for bit; then as
-    CUDA graphs (a first run captures, a second replays), whose outputs
-    must be the host loop's bits. Prints rounds and wall per round of
-    both; returns them."""
+    K7 and its prologue), each call held against the plain versions bit
+    for bit; then as CUDA graphs (a first run captures, a second
+    replays), whose outputs must be the host loop's bits; then the
+    kernel nodes of its round or step (:func:`engine_graph_nodes`).
+    Prints rounds and wall per round of both; returns them."""
     import torch
     from ultranest_torch import popfused
     from ultranest_torch.fused import _f32
@@ -1244,8 +1385,8 @@ def check_engine_traffic(kernels, name, kept):
     args = (banks, kept['live_u'], kept['live_L'], kept['axes'],
             kept['Lmin'], _f32(kept['scale']))
     calls = collections.Counter()
-    orig = {k: getattr(kernels, k)
-            for k in ('spec_propose', 'sync_update', 'rwalk_accept')}
+    wrapped = ('spec_propose', 'sync_update', 'rwalk_accept', 'rwalk_propose')
+    orig = {k: getattr(kernels, k) for k in wrapped}
 
     def propose(*a):
         got = orig['spec_propose'](*a)
@@ -1256,23 +1397,41 @@ def check_engine_traffic(kernels, name, kept):
         calls['spec_propose'] += 1
         return got
 
-    def checked(k, state_keys, plain_fn):
-        def call(*a):
-            st = a[-1]
-            plain = {key: x.clone() for key, x in st.items()}
-            orig[k](*a)
-            plain_fn(*a[:-1], plain)
-            bad = [key for key in state_keys
-                   if not values_equal(st[key], plain[key])]
-            assert not bad, ('%s disagrees on real traffic' % k, name,
-                             calls[k], bad)
-            calls[k] += 1
-        return call
-    kernels.spec_propose = propose
-    kernels.sync_update = checked('sync_update', kernels.SYNC_STATE,
-                                  kernels.sync_update_plain)
-    kernels.rwalk_accept = checked('rwalk_accept', kernels.RWALK_STATE,
-                                   kernels.rwalk_accept_plain)
+    def sync_update(*a):
+        st = a[-1]
+        plain = {key: x.clone() for key, x in st.items()}
+        orig['sync_update'](*a)
+        kernels.sync_update_plain(*a[:-1], plain)
+        bad = [key for key in kernels.SYNC_STATE
+               if not values_equal(st[key], plain[key])]
+        assert not bad, ('sync_update disagrees on real traffic', name,
+                         calls['sync_update'], bad)
+        calls['sync_update'] += 1
+
+    def rwalk_accept(Lev, tin, up, Lmin, st, m=None, scale=None):
+        plain = {key: x.clone() for key, x in st.items()}
+        up_plain = up.clone()
+        orig['rwalk_accept'](Lev, tin, up, Lmin, st, m, scale)
+        kernels.rwalk_accept_plain(Lev, tin, up_plain, Lmin, plain, m, scale)
+        bad = [key for key in kernels.RWALK_STATE
+               if not values_equal(st[key], plain[key])]
+        if not values_equal(up, up_plain):
+            bad.append('up')
+        assert not bad, ('rwalk_accept disagrees on real traffic', name,
+                         calls['rwalk_accept'], bad)
+        calls['rwalk_accept'] += 1
+
+    def rwalk_propose(up, st, m, scale):
+        up_plain = up.clone()
+        orig['rwalk_propose'](up, st, m, scale)
+        kernels.rwalk_propose_plain(up_plain, st, m, scale)
+        assert values_equal(up, up_plain), \
+            ('rwalk_propose disagrees on real traffic', name)
+        calls['rwalk_propose'] += 1
+    checks = dict(spec_propose=propose, sync_update=sync_update,
+                  rwalk_accept=rwalk_accept, rwalk_propose=rwalk_propose)
+    for k in wrapped:
+        setattr(kernels, k, checks[k])
     host = {}
     try:
         want = walk(*args, lambda r: ev(r, treg), stats=host)
@@ -1282,6 +1441,8 @@ def check_engine_traffic(kernels, name, kept):
             setattr(kernels, k, f)
     for k in WALK_KERNELS[kind]:
         assert calls[k] == host['rounds'], (k, dict(calls), host)
+    for k in WALK_PROLOGUES.get(kind, ()):
+        assert calls[k] == 1, (k, dict(calls))
     t0 = time.perf_counter()
     walk(*args, lambda r: ev(r, treg))
     torch.cuda.synchronize()
@@ -1300,18 +1461,22 @@ def check_engine_traffic(kernels, name, kept):
                 ('the graph dispatch differs from the host loop', name, i)
         assert st['graph'] and st['rounds'] == host['rounds']
     (cap_wall, cap), (rep_wall, rep) = runs
+    nodes = engine_graph_nodes(kernels, kind, *args,
+                               lambda r: ev(r, treg_s))
     P, d = banks['idx0'].shape[0], kept['live_u'].shape[1]
     print('%s real dispatch (P %d, d %d, %d rounds): every %s call bit-equal '
           'to plain (%d each); host loop %.4f ms a round; as CUDA graphs '
           'every output bit-equal to the host loop, %.4f ms a round replayed '
-          '(%d replays), first run %.3f s with %d captures in %.3f s' % (
-              name, P, d, host['rounds'], ' and '.join(WALK_KERNELS[kind]),
+          '(%d replays), first run %.3f s with %d captures in %.3f s; kernel '
+          'nodes in a captured graph: %s' % (
+              name, P, d, host['rounds'], ' and '.join(
+                  WALK_KERNELS[kind] + WALK_PROLOGUES.get(kind, ())),
               calls[WALK_KERNELS[kind][-1]], 1e3 * host_s / host['rounds'],
               1e3 * rep_wall / rep['rounds'], rep['replays'], cap_wall,
-              cap['captures'], cap['capture_s']))
+              cap['captures'], cap['capture_s'], json.dumps(nodes)))
     return dict(rounds=host['rounds'], host_ms_per_round=1e3 * host_s
                 / host['rounds'], graph_ms_per_round=1e3 * rep_wall
-                / rep['rounds'])
+                / rep['rounds'], nodes=nodes)
 
 
 class KernelCapture:
@@ -3120,8 +3285,9 @@ def walk_gaps(kernels, walk_launches, boundaries):
     K4 on :func:`spec_round_inputs` at its depth (1 for the sync walk),
     K5 mid-dispatch (:func:`mid_dispatch_update`), K6 inside a step and
     at a boundary (:func:`sync_round_inputs`; the boundary launches
-    weighed apart), K7 on :func:`rwalk_round_inputs`. Prints each shape
-    and returns {kernel: ms}."""
+    weighed apart), K7's step with its next proposal and its prologue on
+    :func:`rwalk_round_inputs`. Prints each shape and returns {kernel:
+    ms}."""
     shapes = collections.defaultdict(collections.Counter)
     for by_kernel in walk_launches.values():
         for k, by_shape in by_kernel.items():
@@ -3181,13 +3347,23 @@ def walk_gaps(kernels, walk_launches, boundaries):
                   P, d, n, paths_of('sync_update', key), nb, gm, bm, gb, bb))
     for key, n in sorted(shapes['rwalk_accept'].items()):
         P, d = (int(x) for x in key.split(','))
-        Lev, tin, up, Lmin, st = rwalk_round_inputs(rng, P, d)
-        g = graph_ms(lambda: kernels.rwalk_accept(Lev, tin, up, Lmin, st))
+        Lev, tin, up, Lmin, st, m, scale = rwalk_round_inputs(rng, P, d)
         b = rwalk_accept_bound(P, d, tin, Lev, up, Lmin)[0]
+        g = graph_ms(lambda: kernels.rwalk_accept(Lev, tin, up, Lmin, st, m,
+                                                  scale))
         gap['rwalk_accept'] += n * (g - b)
-        print('K7 at P=%d d=%d, %d launches on the paths (%s): in a graph '
-              '%.4f ms (bound %.6f)' % (P, d, n,
-                                         paths_of('rwalk_accept', key), g, b))
+        print('K7 at P=%d d=%d, %d launches on the paths (%s): a step with '
+              'its next proposal in a graph %.4f ms (bound %.6f)' % (
+                  P, d, n, paths_of('rwalk_accept', key), g, b))
+    for key, n in sorted(shapes['rwalk_propose'].items()):
+        P, d = (int(x) for x in key.split(','))
+        _, _, up, _, st, m, scale = rwalk_round_inputs(rng, P, d)
+        b = rwalk_propose_bound(P, d)[0]
+        g = graph_ms(lambda: kernels.rwalk_propose(up, st, m, scale))
+        gap['rwalk_propose'] += n * (g - b)
+        print('K7 prologue at P=%d d=%d, %d launches on the paths (%s): in a '
+              'graph %.4f ms (bound %.6f)' % (
+                  P, d, n, paths_of('rwalk_propose', key), g, b))
     return gap
 
 
@@ -3200,6 +3376,9 @@ def print_ranking(real, spec=None):
     gap = {k: sum(r['calls'] * (r['device_ms'] - r['bound_ms'])
                   for r in paths.values()) for k, paths in real.items()}
     gap.update(spec or {})
+    # K7's launches are its steps' and its prologues'
+    gap['rwalk_accept'] = gap.get('rwalk_accept', 0.0) + \
+        gap.pop('rwalk_propose', 0.0)
     gap['radius_member_t'] = 0.0
     print('ranking by launches x (device ms - bound ms) over the sampler '
           'paths: ' + ', '.join(
@@ -3264,16 +3443,18 @@ def main(argv=()):
     errs['consume_scan'] = 0.0
     registers = {name: regs for name, regs, _ in
                  ptxas_summary(kernels.BUILD_LOG)}
-    check_launch_floor()
+    floor = check_launch_floor()[1]
     spec = [check_spec_kernels(kernels, rng, *shape, registers=registers)
             for shape in SPEC_SHAPES]
     for i, name in enumerate(WALK_KERNELS['spec']):
         shapes[name] = [res[i] for res in spec]
     shapes['sync_update'] = [check_sync_kernels(kernels, rng, *shape,
-                                                registers=registers)
+                                                registers=registers,
+                                                floor=floor)
                              for shape in SYNC_SHAPES]
     shapes['rwalk_accept'] = [check_rwalk_kernel(kernels, rng, *shape,
-                                                 registers=registers)
+                                                 registers=registers,
+                                                 floor=floor)
                               for shape in RWALK_SHAPES]
     for name in kernels.POPULATION_KERNELS:
         errs[name] = 0.0
@@ -3397,9 +3578,8 @@ def main(argv=()):
               json.dumps(run['segment_exits']))
         print('engine %s kernel launches:' % name,
               json.dumps(run['launches']))
-        for k in kernels.KERNELS:
-            if k != 'radius_member_t':
-                launches[k] += run['launches'].get(k, 0)
+        for k in kernels.REGION_KERNELS + kernels.POPULATION_KERNELS:
+            launches[k] += run['launches'].get(k, 0)
     ratio = engines['async']['ncall_per_iter'] / \
         engines['sync8']['ncall_per_iter']
     print('async vs sync on asymgauss8: ncall/niter %.3f vs %.3f, ratio %.3f '
@@ -3581,7 +3761,9 @@ def main(argv=()):
     print('chip_smoke: every phase passed in %.1f s' % (time.time() - t_start))
 
     # no single PyTorch call computes any of the eight functions, so none
-    # has a library yardstick (library_ms null)
+    # has a library yardstick (library_ms null); K7's launches are its
+    # steps' and its prologues'
+    launches['rwalk_accept'] += launches.pop('rwalk_propose')
     print(json.dumps({'kernels': [
         dict(name=name, route='cuda', source=KERNEL_NOTES[name][0],
              replaces=KERNEL_NOTES[name][1], launches=launches[name],

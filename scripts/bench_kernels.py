@@ -3,18 +3,25 @@
 
 ``--kernel`` names the kernel: ``consume_scan`` (K3), ``radius_member``
 (K1), ``radius_member_t`` (K1t), ``bootstrap_radius`` (K2),
-``spec_propose`` (K4) or ``spec_update`` (K5). Each ``--source
-NAME=PATH`` is a source file with that kernel's C entry point
-(``un_consume_scan``, ``un_radius_member``, ``un_radius_member_t``,
-``un_bootstrap_radius``, ``un_spec_propose``, ``un_spec_update``), e.g.
+``spec_propose`` (K4), ``spec_update`` (K5), ``sync_update`` (K6) or
+``rwalk_accept`` (K7). Each ``--source NAME=PATH`` is a source file with
+that kernel's C entry point (``un_consume_scan``, ``un_radius_member``,
+``un_radius_member_t``, ``un_bootstrap_radius``, ``un_spec_propose``,
+``un_spec_update``, ``un_sync_update``, ``un_rwalk_accept``), e.g.
 the file of another commit taken from a ``git archive``; a header it
 includes lies beside it. Each is built into a shared library of its own
 with nvcc, all compilers started together. ``--legacy NAME`` marks a
 source with the entry point of before the redesign of K1, K1t and K2 (no
-group argument, no scratch argument) or of K4 (no vector width).
+group argument, no scratch argument), of K4 (no vector width), of K6
+(no form, no tick) or of K7 (no next proposal: torch's multiply and add
+write it after the kernel, as the walk did).
 Then, on one CUDA card, at each of the kernel's shapes in
 ``chip_smoke.py`` (``SCAN_SHAPES``, ``MEMBER_SHAPES``,
 ``BOOTSTRAP_SHAPES``, ``SPEC_SHAPES``: K5 also beside an empty kernel;
+K6 at ``SYNC_SHAPES`` and a sweep of P and d, inside a step and at a
+step boundary, each form of a source that takes one, and K7 at
+``RWALK_SHAPES``, a step with its next proposal, both only among 50
+calls in a CUDA graph, as the walks run them, beside an empty kernel;
 K1t: the membership shootout's shapes, at ``r2 =
 4 d`` and at the candidates' median nearest distance, beside the
 package's K1, and each group size of a source that takes one) and on
@@ -462,12 +469,175 @@ def bench_update(fns, traffic, results):
                                       mid_times=mid_times))
 
 
+def sync_fn(so, legacy=False):
+    """The source's K6 as ``kernels.sync_update`` calls it (no count),
+    its form forced where given; *legacy*: the entry point of before its
+    redesign (no form, no tick)."""
+    fn = ctypes.CDLL(so).un_sync_update
+    fn.argtypes = [VP] * 7 + [CI] * (4 if legacy else 5) \
+        + [VP] * (15 if legacy else 16)
+    fn.restype = CI
+    keys = kernels.SYNC_STATE[:-1] if legacy else kernels.SYNC_STATE
+
+    def call(Lp, tin, ts, tlc, trc, Lmin, dirbank, max_it, st, form=-1):
+        nsteps, P, d = dirbank.shape
+        ints = (nsteps, max_it, P, d) + (() if legacy else (form,))
+        _check_rc('un_sync_update', fn(
+            Lp.data_ptr(), None if tin is None else tin.data_ptr(),
+            ts.data_ptr(), tlc.data_ptr(), trc.data_ptr(), Lmin.data_ptr(),
+            dirbank.data_ptr(), *ints, *(st[k].data_ptr() for k in keys),
+            _stream()))
+    call.legacy = legacy
+    return call
+
+
+# K6's shapes: chip_smoke.SYNC_SHAPES, then P and d on both sides of the
+# one block's reach (P * d <= 8192, P <= 1024) and of rank counting's
+# (P <= 256)
+SYNC_SWEEP = chip_smoke.SYNC_SHAPES + (
+    (128, 2), (256, 2), (512, 2), (1024, 2), (2048, 2), (256, 8),
+    (512, 8), (1024, 8), (1025, 8), (2048, 8), (64, 50), (128, 50),
+    (164, 50), (256, 50), (1024, 50))
+
+
+def graph_sources(variants, args):
+    """{name: [graph ms of each pass]}: each variant ``(fn, extra)``
+    called as ``fn(*args(), *extra)`` among 50 calls in a CUDA graph
+    (``chip_smoke.graph_ms``), in the order A B ... B A, on a fresh copy
+    of the arguments each pass."""
+    out = {name: [] for name in variants}
+    for name in list(variants) + list(variants)[::-1]:
+        fn, extra = variants[name]
+        a = args()
+        out[name].append(chip_smoke.graph_ms(lambda: fn(*a, *extra)))
+    return out
+
+
+def report_graph(label, bound_ms, times):
+    print('%s: bound %.6f ms; in a graph, two passes: %s' % (
+        label, bound_ms, '; '.join(
+            '%s %s' % (name, ' / '.join('%.4f' % t for t in ts))
+            for name, ts in times.items())), flush=True)
+
+
+def _floor(results):
+    floor = [chip_smoke.graph_ms(lambda: torch.cuda._sleep(0))
+             for _ in range(2)]
+    print('empty kernel in a graph: %s ms' % ' / '.join(
+        '%.4f' % t for t in floor), flush=True)
+    results['empty_kernel_graph_ms'] = floor
+
+
+def bench_sync(fns, traffic, results):
+    """K6 at :data:`SYNC_SWEEP`, inside a step and at a step boundary
+    (``chip_smoke.sync_round_inputs``), every source and every form of a
+    source that takes one bit-equal to the plain version, then timed in
+    a graph (no saved traffic: K6 runs inside the sync walk's graphs)."""
+    _floor(results)
+    for P, d in SYNC_SWEEP:
+        rng = np.random.RandomState(P + d)
+        for kind in ('mid', 'boundary'):
+            st, tbank, dirbank, Lp, tin, Lmin, max_it = \
+                chip_smoke.sync_round_inputs(rng, P, d, kind)
+            ts, tlc, trc, _ = kernels.spec_propose_plain(
+                st['u'], st['v'], st['tl'], st['tr'], tbank, st['row'])
+            plain = {k: x.clone() for k, x in st.items()}
+            kernels.sync_update_plain(Lp, tin, ts, tlc, trc, Lmin, dirbank,
+                                      max_it, plain)
+            variants = {}
+            for name, fn in fns.items():
+                if fn.legacy:
+                    variants[name] = (fn, ())
+                else:
+                    for fname, form in chip_smoke.sync_forms(kernels,
+                                                             P).items():
+                        variants['%s %s' % (name, fname)] = (fn, (form,))
+
+            def args():
+                return (Lp, tin, ts, tlc, trc, Lmin, dirbank, max_it,
+                        {k: x.clone() for k, x in st.items()})
+            for vname, (fn, extra) in variants.items():
+                a = args()
+                fn(*a, *extra)
+                bad = [k for k in kernels.SYNC_STATE
+                       if k != 'tick' and not
+                       chip_smoke.values_equal(a[-1][k], plain[k])]
+                assert not bad, ('sync_update differs', vname, P, d, kind,
+                                 bad)
+            bms = chip_smoke.sync_update_bound(P, d, tin, st, Lp, Lmin,
+                                               kind == 'boundary')[0]
+            times = graph_sources(variants, args)
+            report_graph('K6 P=%d d=%d %s' % (
+                P, d, 'inside a step' if kind == 'mid' else
+                'at a step boundary'), bms, times)
+            results['shapes'].append(dict(P=P, d=d, kind=kind, bound_ms=bms,
+                                          graph_ms=times))
+
+
+def rwalk_fn(so, legacy=False):
+    """The source's K7 as a random-walk step calls it (no count): accept,
+    then the next proposal ``u + scale * m`` into *up*; *legacy*: the
+    kernel of before its redesign, then torch's multiply and add, as its
+    walk built the proposal."""
+    fn = ctypes.CDLL(so).un_rwalk_accept
+    fn.argtypes = [VP] * (4 if legacy else 6) + [CI] * 2 + [VP] * 5
+    fn.restype = CI
+
+    def call(Lev, tin, up, Lmin, st, m, scale):
+        P, d = up.shape
+        ptrs = [Lev.data_ptr(), None if tin is None else tin.data_ptr(),
+                up.data_ptr(), Lmin.data_ptr()]
+        if not legacy:
+            ptrs += [m.data_ptr(), scale.data_ptr()]
+        _check_rc('un_rwalk_accept', fn(
+            *ptrs, P, d, *(st[k].data_ptr() for k in kernels.RWALK_STATE),
+            _stream()))
+        if legacy:
+            torch.add(st['u'], scale * m, out=up)
+    return call
+
+
+def bench_rwalk(fns, traffic, results):
+    """K7 at ``chip_smoke.RWALK_SHAPES`` (``chip_smoke.rwalk_round_inputs``):
+    a step with its next proposal, every source bit-equal to the plain
+    version, then timed in a graph (no saved traffic: K7 runs inside the
+    random walk's graph)."""
+    _floor(results)
+    for P, d in chip_smoke.RWALK_SHAPES:
+        rng = np.random.RandomState(P + d)
+        Lev, tin, up, Lmin, st, m, scale = chip_smoke.rwalk_round_inputs(
+            rng, P, d)
+
+        def args():
+            return (Lev, tin, up.clone(), Lmin,
+                    {k: x.clone() for k, x in st.items()}, m, scale)
+        want = args()
+        kernels.rwalk_accept_plain(*want)
+        for name, fn in fns.items():
+            a = args()
+            fn(*a)
+            bad = [k for k in kernels.RWALK_STATE
+                   if not chip_smoke.values_equal(a[4][k], want[4][k])]
+            if not chip_smoke.values_equal(a[2], want[2]):
+                bad.append('up')
+            assert not bad, ('rwalk_accept differs', name, P, d, bad)
+        bms = chip_smoke.rwalk_accept_bound(P, d, tin, Lev, up, Lmin)[0]
+        times = graph_sources({name: (fn, ()) for name, fn in fns.items()},
+                              args)
+        report_graph('K7 P=%d d=%d a step with its next proposal' % (P, d),
+                     bms, times)
+        results['shapes'].append(dict(P=P, d=d, bound_ms=bms,
+                                      graph_ms=times))
+
+
 BENCHES = {'consume_scan': (scan_fn, bench_scan),
            'radius_member': (member_fn, bench_member),
            'radius_member_t': (member_t_fn, bench_member_t),
            'bootstrap_radius': (bootstrap_fn, bench_bootstrap),
            'spec_propose': (propose_fn, bench_propose),
-           'spec_update': (update_fn, bench_update)}
+           'spec_update': (update_fn, bench_update),
+           'sync_update': (sync_fn, bench_sync),
+           'rwalk_accept': (rwalk_fn, bench_rwalk)}
 
 
 def host_us(fn, n=1000, chunk=100):
@@ -549,7 +719,7 @@ def main():
                     help='NAME=PATH of a source with the kernel\'s entry')
     ap.add_argument('--legacy', action='append', default=[],
                     help='NAME of a source with the entry point of before '
-                    'the redesign of K1 and K2')
+                    'its kernel\'s redesign')
     ap.add_argument('--traffic', help='file of chip_smoke.py --save-traffic')
     ap.add_argument('--host-floor', action='store_true',
                     help='split the K1 and K2 wrappers\' host time instead')

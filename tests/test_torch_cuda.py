@@ -7,6 +7,7 @@ torch is installed:
     python -m pytest -q --noconftest -p no:cacheprovider -m cuda \
         tests/test_torch_cuda.py
 """
+import collections
 import time
 
 import numpy as np
@@ -1191,14 +1192,33 @@ SYNC_KINDS = ('mid', 'last_it', 'all_accept', 'all_rejected', 'last_step',
               'finished')
 
 
-@pytest.mark.parametrize('P', [64, 128, 1000, 2048, 4096])
-@pytest.mark.parametrize('d', [2, 8, 50])
+# K6's forms: chosen from P and d (-1), forced to the one block, the
+# grid, radix selection, both; rank counting takes P <= SYNC_RANK_KEYS
+SYNC_FORMS = (-1, 0, 1, 2, 3)
+
+
+def _sync_forms(P):
+    from ultranest_torch.ops import kernels as k
+    return [f for f in SYNC_FORMS if f < 0 or f & k.SYNC_FORM_RADIX
+            or P <= k.SYNC_RANK_KEYS]
+
+
+# the shapes of chip_smoke.SYNC_SHAPES (64, 2), (128, 8), (4096, 50),
+# (65, 3) among them; P 1; P at and just above the one block's reach at
+# each d (P * d <= 12800 and P <= 2048: 2048 / 2049 at d 2, 1600 / 1601
+# at d 8, 256 / 257 at d 50)
+@pytest.mark.parametrize('P,d', [
+    (P, d) for P in (1, 64, 65, 128, 1000, 4096) for d in (2, 8, 50)]
+    + [(65, 3), (2048, 2), (2049, 2), (1600, 8), (1601, 8), (256, 50),
+       (257, 50)])
 def test_sync_kernels_equal_plain(cuda, P, d):
     """K4 at D = 1 on the sync walk's bank rows and K6 bit for bit against
-    their plain versions: inside a step, at its boundary (P above one
-    block: the boundary's block strides over the walkers), every walker
+    their plain versions: inside a step, at its boundary, every walker
     accepting or none, the last step and a finished dispatch; with the
-    filter's rows and without."""
+    filter's rows and without; K6 in every form (one block or a grid
+    whose last block ends the step; rank counting or radix selection),
+    each one launch."""
+    forms = _sync_forms(P)
     for kind in SYNC_KINDS:
         st, tbank, dirbank, Lp, tin, Lmin, max_it = _sync_round_inputs(
             cuda, P, d, kind)
@@ -1210,61 +1230,115 @@ def test_sync_kernels_equal_plain(cuda, P, d):
             assert _same_bits(a, b), kind
         ts, tlc, trc, _ = want
         for t in (tin, None):
-            mine = {k: x.clone() for k, x in st.items()}
             plain = {k: x.clone() for k, x in st.items()}
-            kernels.sync_update(Lp, t, ts, tlc, trc, Lmin, dirbank, max_it,
-                                mine)
             kernels.sync_update_plain(Lp, t, ts, tlc, trc, Lmin, dirbank,
                                       max_it, plain)
-            torch.cuda.synchronize()
-            bad = [k for k in kernels.SYNC_STATE
-                   if not _same_bits(mine[k], plain[k])]
-            assert not bad, (kind, t is None, bad)
-            if kind == 'finished':
-                assert all(_same_bits(mine[k], st[k])
-                           for k in kernels.SYNC_STATE)
-            if kind in ('last_it', 'all_accept'):
-                assert int(mine['s']) == 3 and int(mine['it']) == 0
-                assert int(mine['row']) == 3 * max_it
-            if kind == 'last_step':
-                assert bool(mine['flag'])
-                assert int(mine['row']) == int(st['row'])
+            for form in forms:
+                mine = {k: x.clone() for k, x in st.items()}
+                kernels._sync_update_cuda(Lp, t, ts, tlc, trc, Lmin,
+                                          dirbank, max_it, mine, form)
+                torch.cuda.synchronize()
+                bad = [k for k in kernels.SYNC_STATE
+                       if not _same_bits(mine[k], plain[k])]
+                assert not bad, (kind, t is None, form, bad)
+                if kind == 'finished':
+                    assert all(_same_bits(mine[k], st[k])
+                               for k in kernels.SYNC_STATE)
+                if kind in ('last_it', 'all_accept'):
+                    assert int(mine['s']) == 3 and int(mine['it']) == 0
+                    assert int(mine['row']) == 3 * max_it
+                if kind == 'last_step':
+                    assert bool(mine['flag'])
+                    assert int(mine['row']) == int(st['row'])
         assert kernels.LAUNCHES['spec_propose'] == 1
-        assert kernels.LAUNCHES['sync_update'] == 2
+        assert kernels.LAUNCHES['sync_update'] == 2 * len(forms)
         assert sum(kernels.PLAIN_CALLS.values()) == 0
 
 
+def _median_state(cuda, w, nsteps=5, max_it=6):
+    """A sync state on the card at its step's last round, every walker
+    done, its final brackets of widths *w* (tl +0; a -0 width from tr
+    -0)."""
+    P = len(w)
+    st, tbank, dirbank, Lp, tin, Lmin, _ = _sync_round_inputs(
+        cuda, P, 3, 'all_accept', nsteps=nsteps, max_it=max_it)
+    w = np.asarray(w, dtype=np.float32)
+    st['done'].fill_(True)
+    st['tl'].zero_()
+    st['tr'].copy_(torch.as_tensor(w))
+    st['tr'][torch.as_tensor((w == 0) & np.signbit(w), device=cuda)] = -0.0
+    ts = torch.zeros((P, 1), device=cuda)
+    return st, (Lp, None, ts, st['tl'].clone(), st['tr'].clone(), Lmin,
+                dirbank, max_it)
+
+
 def test_sync_median_selects_the_order_statistics(cuda):
-    """K6's median at a step boundary on brackets with repeated widths,
-    infinite ones (zero directions) and odd and even P, against torch's
-    sorted values."""
-    for P in (1, 2, 3, 64, 257, 1000, 1001):
-        st, tbank, dirbank, Lp, tin, Lmin, max_it = _sync_round_inputs(
-            cuda, P, 3, 'all_accept')
-        # widths from a few values, some repeated at the median rank
-        w = torch.as_tensor(np.random.RandomState(P).choice(
-            [0.25, 0.5, 0.5, 1.0, np.inf], size=P).astype(np.float32),
-            device=cuda)
-        st['tl'].zero_()
-        st['tr'].copy_(w)
-        mine = {k: x.clone() for k, x in st.items()}
+    """K6's median at a step boundary, in every form, on brackets with
+    repeated widths, infinite ones (zero directions) and odd and even P,
+    against torch's sorted values; and at every free case of the plain
+    version (ties, NaN, both zeros, P 1, every width equal): K6 gives
+    the key selection's numpy model bit for bit (a NaN as the card's
+    NaN), and the plain version's bits but where a -0 and a +0 width
+    meet at the median rank, its value there."""
+    from test_torch_sync_round import MEDIAN_CASES, _key_median
+    rng = np.random.RandomState(3)
+    cases = {'P %d' % P: rng.choice([0.25, 0.5, 0.5, 1.0, np.inf], size=P)
+             for P in (1, 2, 3, 64, 257, 1000, 1001, 1025, 4096)}
+    cases.update(MEDIAN_CASES)
+    cases['NaN and zeros, P 3001'] = rng.choice(
+        [np.nan, -0.0, 0.0, 0.125, 3.0], size=3001)
+    for name, w in cases.items():
+        st, args = _median_state(cuda, w)
         plain = {k: x.clone() for k, x in st.items()}
-        ts = torch.zeros((P, 1), device=cuda)
-        kernels.sync_update(Lp, None, ts, st['tl'], st['tr'], Lmin, dirbank,
-                            max_it, mine)
-        kernels.sync_update_plain(Lp, None, ts, st['tl'], st['tr'], Lmin,
-                                  dirbank, max_it, plain)
-        assert _same_bits(mine['widths'], plain['widths']), P
-        assert _same_bits(mine['accs'], plain['accs']), P
+        kernels.sync_update_plain(*args, plain)
+        model = torch.tensor(_key_median(w))
+        w = np.asarray(w, dtype=np.float32)
+        zeros = w[w == 0]
+        free = np.signbit(zeros).any() and not np.signbit(zeros).all()
+        for form in _sync_forms(len(w)):
+            mine = {k: x.clone() for k, x in st.items()}
+            kernels._sync_update_cuda(*args, mine, form)
+            got = mine['widths'][2].cpu()
+            # NaN: the card's NaN, not the host's
+            assert _same_bits(got, model) or bool(got.isnan()) and \
+                bool(model.isnan()), (name, form, got, model)
+            assert _same_bits(mine['accs'], plain['accs']), (name, form)
+            if free:
+                assert float(mine['widths'][2]) == float(plain['widths'][2])
+            else:
+                assert _same_bits(mine['widths'], plain['widths']), \
+                    (name, form)
+            assert int(mine['s']) == 3 and not mine['tick'].any()
 
 
-@pytest.mark.parametrize('P', [64, 128, 1000, 2048, 4096])
-@pytest.mark.parametrize('d', [2, 8, 50])
-def test_rwalk_accept_equals_plain(cuda, P, d):
-    """K7 bit for bit against its plain version: rows outside the cube,
-    on its faces and corners, NaN coordinates, NaN and infinite
-    likelihoods; with the filter's rows and without."""
-    rng = np.random.RandomState(P + d)
+def test_sync_round_is_one_kernel_node(cuda):
+    """A round captured in a CUDA graph: K4 and K6 are one kernel node
+    each, in every form (the grid's last block ends the round inside its
+    one launch)."""
+    from ultranest_torch import popfused
+    for P, d in ((64, 2), (128, 8), (4096, 50)):
+        st, tbank, dirbank, Lp, tin, Lmin, max_it = _sync_round_inputs(
+            cuda, P, d, 'mid')
+        ts, tlc, trc, _ = kernels.spec_propose(
+            st['u'], st['v'], st['tl'], st['tr'], tbank, st['row'])
+        for form in _sync_forms(P):
+            nodes = _kernel_nodes(lambda: kernels._sync_update_cuda(
+                Lp, tin, ts, tlc, trc, Lmin, dirbank, max_it, st, form))
+            assert len(nodes) == 1 and 'sync_update' in nodes[0], nodes
+        nodes = _kernel_nodes(lambda: popfused._sync_round(
+            tbank, lambda r: (r[:, 0] * 1.0, None), Lmin, dirbank, max_it,
+            st))
+        assert sum('sync_update' in n for n in nodes) == 1, nodes
+        assert sum('spec_propose' in n for n in nodes) == 1, nodes
+
+
+def _kernel_nodes(fn):
+    from ultranest_torch import popfused
+    return popfused.graph_kernel_names(fn, torch.device('cuda'))
+
+
+def _rwalk_step_case(cuda, P, d, seed):
+    rng = np.random.RandomState(seed)
     f32 = np.float32
     up = rng.uniform(-0.05, 1.05, size=(P, d)).astype(f32)
     up[::9] = rng.uniform(0.2, 0.8, size=up[::9].shape)
@@ -1280,21 +1354,75 @@ def test_rwalk_accept_equals_plain(cuda, P, d):
               L=torch.as_tensor(rng.normal(size=P).astype(f32), device=cuda),
               nacc=torch.full((), 5, dtype=torch.int64, device=cuda),
               nc=torch.full((), 9, dtype=torch.int64, device=cuda))
+    m = torch.as_tensor((rng.normal(size=(P, d)) * 0.05).astype(f32),
+                        device=cuda)
+    m[::7, 0] = -0.0
     up, Lev = (torch.as_tensor(x, device=cuda) for x in (up, Lev))
     tin = torch.as_tensor(rng.uniform(size=P) < 0.8, device=cuda)
+    return up, Lev, st, m, tin
+
+
+# chip_smoke.RWALK_SHAPES (128, 8), (4096, 50), (63, 3), P 1, d above a
+# warp
+@pytest.mark.parametrize('P,d', [(1, 8), (63, 3), (64, 2), (128, 8),
+                                 (1000, 50), (2048, 8), (4096, 50),
+                                 (100, 33), (30, 70)])
+def test_rwalk_accept_equals_plain(cuda, P, d):
+    """K7 bit for bit against its plain version: the prologue, a middle
+    step (accept, then the next proposal in place) and the last step (no
+    proposal); rows outside the cube, on its faces and corners, NaN
+    coordinates, NaN and infinite likelihoods; with the filter's rows and
+    without."""
+    up, Lev, st, m, tin = _rwalk_step_case(cuda, P, d, P + d)
     Lmin = torch.tensor(-0.5, dtype=torch.float32, device=cuda)
+    scale = torch.tensor(0.3, dtype=torch.float32, device=cuda)
+    kernels.reset_counts()
+    mine, plain = up.clone(), up.clone()
+    kernels.rwalk_propose(mine, st, m, scale)
+    kernels.rwalk_propose_plain(plain, st, m, scale)
+    assert _same_bits(mine, plain)
+    assert kernels.LAUNCHES == collections.Counter(rwalk_propose=1)
     for t in (tin, None):
-        kernels.reset_counts()
-        mine = {k: x.clone() for k, x in st.items()}
-        plain = {k: x.clone() for k, x in st.items()}
-        kernels.rwalk_accept(Lev, t, up, Lmin, mine)
-        kernels.rwalk_accept_plain(Lev, t, up, Lmin, plain)
-        torch.cuda.synchronize()
-        for k in kernels.RWALK_STATE:
-            assert _same_bits(mine[k], plain[k]), (k, t is None)
-        assert kernels.LAUNCHES['rwalk_accept'] == 1
-        assert sum(kernels.PLAIN_CALLS.values()) == 0
-        assert int(mine['nacc']) > 5
+        for nxt in (m, None):
+            kernels.reset_counts()
+            mine = {k: x.clone() for k, x in st.items()}
+            plain = {k: x.clone() for k, x in st.items()}
+            up_mine, up_plain = up.clone(), up.clone()
+            kernels.rwalk_accept(Lev, t, up_mine, Lmin, mine, nxt, scale)
+            kernels.rwalk_accept_plain(Lev, t, up_plain, Lmin, plain, nxt,
+                                       scale)
+            torch.cuda.synchronize()
+            for k in kernels.RWALK_STATE:
+                assert _same_bits(mine[k], plain[k]), (k, t is None)
+            assert _same_bits(up_mine, up_plain), (t is None, nxt is None)
+            assert kernels.LAUNCHES == collections.Counter(rwalk_accept=1)
+            assert sum(kernels.PLAIN_CALLS.values()) == 0
+            assert int(mine['nacc']) > 5 or P < 8
+
+
+# the engines' shapes (P 64 to 128, d 2 and 8, nsteps 8 to 40), the
+# random-walk run's (128, 8, 40), and wider ones
+@pytest.mark.parametrize('nsteps,P,d', [(40, 128, 8), (16, 128, 8),
+                                        (8, 64, 2), (12, 63, 3),
+                                        (40, 4096, 50), (5, 1, 8)])
+def test_rwalk_products_batched_against_per_step(cuda, nsteps, P, d):
+    """The walk's products are one matmul a step, each the bits of the
+    reference scan's ``eps[s] @ axes.T`` (:func:`popfused._rwalk_products`);
+    whether one batched matmul of every step would give the same bits is
+    printed: on an H100 it did not at the random-walk run's P 128, d 8,
+    so the walk keeps one a step."""
+    from ultranest_torch import popfused
+    g = torch.Generator(device=cuda).manual_seed(nsteps + P + d)
+    eps = torch.randn((nsteps, P, d), generator=g, device=cuda)
+    axes = torch.randn((d, d), generator=g, device=cuda) * 0.1
+    per_step = popfused._rwalk_products(eps, axes,
+                                        torch.empty_like(eps))
+    for s in range(nsteps):
+        assert _same_bits(per_step[s], eps[s] @ axes.T)
+    batched = torch.matmul(eps, axes.T)
+    same = _same_bits(batched, per_step)
+    print('rwalk products nsteps %d P %d d %d: batched %s per step'
+          % (nsteps, P, d, '==' if same else '!='))
 
 
 def _engine_walk_inputs(cuda, engine, P=128, d=8, nsteps=16, max_it=64,
@@ -1342,6 +1470,8 @@ def test_engine_graph_walk_equals_host_loop(cuda, engine):
         else ('rwalk_accept',)
     for k in names:
         assert kernels.LAUNCHES[k] == host['rounds']
+    # K7's prologue: once a dispatch
+    assert kernels.LAUNCHES['rwalk_propose'] == (engine == 'rwalk')
     assert sum(kernels.PLAIN_CALLS.values()) == 0
     if engine == 'sync':
         old = _old_sync_walk(*args, scale, ev)
@@ -1373,6 +1503,8 @@ def test_engine_graph_walk_equals_host_loop(cuda, engine):
             warm = stats['rounds']
         for k in names:
             assert kernels.LAUNCHES[k] == stats['rounds'] + (n == 0) * warm
+        assert kernels.LAUNCHES['rwalk_propose'] == \
+            (engine == 'rwalk') * (1 + (n == 0))
     assert sum(kernels.PLAIN_CALLS.values()) == 0
 
 
@@ -1408,3 +1540,65 @@ def test_uncapturable_likelihood_runs_the_engine_kernels(cuda, engine):
     again = {}
     walk(*args, 0.5, reads_the_host, stats=again, graphs=graphs)
     assert not again['graph'] and again['captures'] == 0
+
+
+@pytest.mark.parametrize('engine', ['sync', 'rwalk'])
+def test_engine_dispatch_syncs_only_at_its_flag_reads(cuda, engine):
+    """A sync or random-walk dispatch replayed from its captured graphs
+    under ``set_sync_debug_mode('error')``: nothing but the sync walk's
+    flag reads (CUDA events) waits, and the random walk reads nothing;
+    the bits are the capturing run's."""
+    from ultranest_torch import popfused
+    args, ev = _engine_walk_inputs(cuda, engine)
+    walk = popfused.sync_walk if engine == 'sync' else popfused.rwalk_walk
+    scale = 0.8 if engine == 'sync' else 0.3
+    graphs = popfused.SpecGraphs('asymgauss')
+    want = walk(*args, scale, ev, graphs=graphs)
+    torch.cuda.synchronize()
+    kernels.reset_counts()
+    stats = {}
+    torch.cuda.set_sync_debug_mode('error')
+    try:
+        got = walk(*args, scale, ev, stats=stats, graphs=graphs)
+    finally:
+        torch.cuda.set_sync_debug_mode('default')
+    torch.cuda.synchronize()
+    assert stats['graph'] and stats['captures'] == 0
+    for a, b in zip(got, want):
+        assert _same_bits(a, b), engine
+    names = ('spec_propose', 'sync_update') if engine == 'sync' \
+        else ('rwalk_accept',)
+    for k in names:
+        assert kernels.LAUNCHES[k] == stats['rounds']
+    if engine == 'sync':
+        assert stats['reads'] == stats['rounds'] // \
+            popfused.SYNC_CHECK_EVERY - 1
+    else:
+        assert stats['reads'] == 0 and kernels.LAUNCHES['rwalk_propose'] == 1
+
+
+def test_rwalk_step_is_the_likelihood_and_k7(cuda):
+    """The random walk's graph: the products before the first step, K7's
+    prologue, then each step is the likelihood's kernels and K7, and no
+    other kernel."""
+    from ultranest_torch import popfused
+    args, ev = _engine_walk_inputs(cuda, 'rwalk', nsteps=6)
+    banks, live_u, live_L, axes, Lmin = args
+    nsteps, P, d = banks['eps'].shape
+    st = popfused._rwalk_state(P, d, cuda)
+    popfused._rwalk_init(st, banks, live_u, live_L)
+    m = torch.empty((nsteps, P, d), device=cuda)
+    up = torch.empty((P, d), device=cuda)
+    scale = torch.tensor(0.3, device=cuda)
+
+    def steps():
+        popfused._rwalk_steps(banks['eps'], axes, scale, ev, Lmin, st, m, up)
+    steps()                         # first calls outside the capture
+    torch.cuda.synchronize()
+    walk = _kernel_nodes(steps)
+    products = _kernel_nodes(
+        lambda: popfused._rwalk_products(banks['eps'], axes, m))
+    like = _kernel_nodes(lambda: ev(up))
+    assert sum('rwalk_step_kernel' in n for n in walk) == nsteps + 1, walk
+    assert len(walk) == len(products) + 1 + nsteps * (len(like) + 1), \
+        (walk, products, like)

@@ -464,3 +464,188 @@ def test_sync_and_rwalk_samplers_log_their_walks_on_the_cpu():
         assert st['graph'] is False and st['captures'] == 0 and \
             st['replays'] == 0 and st['capture_s'] == 0.0
         assert getattr(s, '_graphs', None) is None
+
+
+# --------------------------------------------------------------------------
+# K6's median at a step boundary: every free case of the plain version,
+# against a numpy model of the selection K6 makes (the least key whose
+# count of keys at or below it exceeds the rank)
+
+
+def _key_median(w):
+    """The median of float32 widths *w* as K6 selects it: two order
+    statistics of order-preserving 32-bit keys (-0 below +0, NaN above
+    +inf), their midpoint rounded as float32."""
+    w = np.asarray(w, dtype=np.float32)
+    b = w.view(np.uint32)
+    keys = np.where(np.isnan(w), np.uint32(0xffffffff),
+                    np.where(b & 0x80000000, ~b, b | 0x80000000))
+    keys = keys.astype(np.uint32)
+    le = (keys[None, :] <= keys[:, None]).sum(axis=1)
+    n = len(w)
+    pair = []
+    for r in ((n - 1) // 2, n // 2):
+        k = keys[le > r].min()
+        if k == 0xffffffff:
+            pair.append(np.float32(np.nan))
+        else:
+            k = np.uint32(k & 0x7fffffff) if k & 0x80000000 else ~k
+            pair.append(np.array([k], dtype=np.uint32).view(np.float32)[0])
+    with np.errstate(invalid='ignore'):
+        return (pair[0] + pair[1]) * np.float32(0.5)
+
+
+def _boundary_widths(w):
+    """sync_update_plain's median over final brackets of widths *w*: every
+    walker done, the step's last round (tl 0, tr w; a -0 width from tr -0
+    and tl +0)."""
+    w = np.asarray(w, dtype=np.float32)
+    P, d = len(w), 2
+    st = popfused._sync_state(P, d, 2, 'cpu')
+    st['done'].fill_(True)
+    tr = torch.as_tensor(w)
+    st['tr'].copy_(tr)
+    st['tl'].zero_()
+    neg_zero = (w == 0) & np.signbit(w)
+    st['tr'][torch.as_tensor(neg_zero)] = -0.0
+    dirbank = torch.full((2, P, d), 0.1)
+    z = torch.zeros(P)
+    kernels.sync_update_plain(z, None, z[:, None], z, z, torch.tensor(0.0),
+                              dirbank, 4, st)
+    assert int(st['s']) == 1
+    return st['widths'][0]
+
+
+MEDIAN_CASES = {
+    'one walker': [0.3],
+    'two walkers': [0.7, 0.1],
+    'odd P, ties at the median': [0.5, 0.25, 0.5, 0.5, 1.0, 0.25, 0.5],
+    'even P, a tie across the middle pair': [0.5, 0.5, 0.25, 1.0, 0.5, 0.75],
+    'every width equal': [0.375] * 9,
+    'NaN last, below the median': [np.nan, 0.2, 0.4, 0.3, np.nan, 0.1, 0.6],
+    'NaN at the median': [np.nan, np.nan, 0.2, np.nan, 0.4],
+    'NaN in the middle pair': [np.nan, 0.2, np.nan, 0.4],
+    'every width NaN': [np.nan] * 4,
+    'infinite widths': [np.inf, 0.5, np.inf, np.inf, 0.25],
+    'zeros of one sign': [-0.0, -0.0, 0.5, -0.0, 0.25],
+    'both zeros, a free tie': [-0.0, 0.0, 0.5, -0.0, 0.0, 0.25],
+}
+
+
+@pytest.mark.parametrize('case', sorted(MEDIAN_CASES))
+def test_plain_median_at_its_free_cases(case):
+    """The plain median equals K6's key selection bit for bit; where a -0
+    and a +0 width meet at the median rank (torch.sort may order them
+    either way) it equals it in value."""
+    w = MEDIAN_CASES[case]
+    got = _boundary_widths(w)
+    want = torch.tensor(_key_median(w))
+    if case.endswith('free tie'):
+        assert float(got) == float(want)
+    else:
+        _assert_bits(got, want)
+    if np.isnan(np.asarray(w, dtype=np.float32)).sum() > (len(w) - 1) // 2:
+        assert math.isnan(float(got))
+
+
+# --------------------------------------------------------------------------
+# K7's fused form: its plain twin against the old step's separate torch
+# operators, bit for bit
+
+
+def _old_rwalk_step(Lev, tin, up, Lmin, u, L, nacc, nc, m, scale):
+    """The old scan body after the likelihood, then the next step's
+    proposal as the old loop built it (``u + scale * (eps @ axes_t)``,
+    *scale* a Python float)."""
+    inside = ((up > 0) & (up < 1)).all(dim=1)
+    Lp = torch.where(inside, Lev, -math.inf)
+    acc = inside & (Lp > Lmin)
+    u = torch.where(acc[:, None], up, u)
+    L = torch.where(acc, Lp, L)
+    nacc = nacc + acc.sum()
+    nc = nc + (inside if tin is None else inside & tin).sum()
+    nxt = None if m is None else u + scale * m
+    return u, L, nacc, nc, nxt
+
+
+def _rwalk_step_inputs(P, d, seed):
+    rng = np.random.RandomState(seed)
+    f32 = np.float32
+    up = rng.uniform(-0.1, 1.1, size=(P, d)).astype(f32)
+    up[::3] = rng.uniform(0.2, 0.8, size=up[::3].shape)
+    up[1::7] = 0.0
+    up[2::11, -1] = 1.0
+    up[3::13, 0] = np.nan
+    Lev = rng.normal(size=P).astype(f32)
+    Lev[::17] = np.nan
+    Lev[1::19] = np.inf
+    u = rng.uniform(0.05, 0.95, size=(P, d)).astype(f32)
+    L = rng.normal(size=P).astype(f32)
+    eps = rng.normal(size=(P, d)).astype(f32)
+    axes = np.diag(rng.uniform(0.01, 0.2, size=d)).astype(f32)
+    axes[0, -1] = f32(0.03)
+    tin = rng.uniform(size=P) < 0.8
+    return [torch.as_tensor(x) for x in (up, Lev, u, L, eps, axes, tin)]
+
+
+@pytest.mark.parametrize('step', ['prologue', 'middle', 'last'])
+@pytest.mark.parametrize('P,d,filtered,scale', [
+    (64, 2, False, 0.5), (128, 8, True, 0.3), (63, 3, True, 4.0),
+    (40, 33, False, 0.1)])
+def test_rwalk_fused_step_equals_the_old_operators(step, P, d, filtered,
+                                                   scale):
+    """K7's plain twin: the prologue writes step 0's proposal, a middle
+    step accepts and writes the next one, the last step accepts and
+    writes none; rows outside the cube, on its faces and NaN, NaN and
+    infinite likelihoods; the products are the ones the walk computes
+    ahead (:func:`popfused._rwalk_products`)."""
+    up, Lev, u, L, eps, axes, tin = _rwalk_step_inputs(P, d, P + d)
+    tin = tin if filtered else None
+    m = popfused._rwalk_products(eps[None], axes,
+                                 torch.empty(1, P, d))[0]
+    _assert_bits(m, eps @ axes.T)
+    scale_t = torch.tensor(scale, dtype=torch.float32)
+    Lmin = torch.tensor(-0.3)
+    st = dict(u=u.clone(), L=L.clone(),
+              nacc=torch.full((), 3, dtype=torch.int64),
+              nc=torch.full((), 5, dtype=torch.int64))
+    kernels.reset_counts()
+    if step == 'prologue':
+        mine = up.clone()
+        before = {k: x.clone() for k, x in st.items()}
+        kernels.rwalk_propose(mine, st, m, scale_t)
+        _assert_bits(mine, u + float(np.float32(scale)) * (eps @ axes.T))
+        for k in kernels.RWALK_STATE:
+            _assert_bits(st[k], before[k])
+        assert kernels.PLAIN_CALLS == collections.Counter(rwalk_propose=1)
+        return
+    want = _old_rwalk_step(Lev, tin, up, Lmin, u, L, st['nacc'], st['nc'],
+                           None if step == 'last' else eps @ axes.T,
+                           float(np.float32(scale)))
+    mine = up.clone()
+    kernels.rwalk_accept(Lev, tin, mine, Lmin, st,
+                         None if step == 'last' else m, scale_t)
+    for k, w in zip(kernels.RWALK_STATE, want):
+        _assert_bits(st[k], w)
+    _assert_bits(mine, up if step == 'last' else want[-1])
+    assert kernels.PLAIN_CALLS == collections.Counter(rwalk_accept=1)
+    # some walkers accepted, some proposals fell outside
+    assert 3 < int(st['nacc']) < 3 + P
+
+
+def test_rwalk_walk_proposes_once_a_dispatch():
+    """A walk runs K7's prologue once and K7 once a step; a walk of no
+    steps runs neither."""
+    banks, live_u, live_L, axes, L = _rwalk_inputs(64, 3, 9, nsteps=5)
+    Lmin = float(np.sort(L)[len(L) // 3])
+    kernels.reset_counts()
+    popfused.rwalk_walk(banks, live_u, live_L, axes, Lmin, 0.4,
+                        _evaluator(False))
+    assert kernels.PLAIN_CALLS == collections.Counter(rwalk_propose=1,
+                                                      rwalk_accept=5)
+    banks['eps'] = banks['eps'][:0]
+    kernels.reset_counts()
+    uf, Lf = popfused.rwalk_walk(banks, live_u, live_L, axes, Lmin, 0.4,
+                                 _evaluator(False))[:2]
+    assert sum(kernels.PLAIN_CALLS.values()) == 0
+    _assert_bits(uf, live_u[banks['idx0']])

@@ -1,6 +1,6 @@
 // The chord of a walker's line u + t v through the unit cube, shared by
 // K5 (spec_update.cu) and K6 (sync_update.cu), and the NaN-propagating
-// max and min it folds with.
+// max and min it folds with, across a warp (K5) or a group of lanes (K6).
 //
 // As the plain versions' cube_intersection (ultranest_torch/ops/
 // kernels.py): per axis with v != 0, a = (0 - u) / v and b = (1 - u) / v,
@@ -44,8 +44,18 @@ __device__ __forceinline__ void chord(float uk, float vk, float& lo,
   hi = min_nan(hi, max_nan(a, b));
 }
 
-// the chord's (lo, hi) folded across the 32 lanes of a warp, each lane
-// having folded its own axes; every lane gets the result
+// the chord's (lo, hi) folded across aligned groups of g lanes (g a power
+// of two up to 32), each lane having folded its own axes; every lane of a
+// group gets its group's result. Every lane of the warp must call it.
+__device__ __forceinline__ void chord_group_fold(float& lo, float& hi,
+                                                 int g) {
+  for (int o = g >> 1; o > 0; o >>= 1) {
+    lo = max_nan(lo, __shfl_xor_sync(0xffffffffu, lo, o));
+    hi = min_nan(hi, __shfl_xor_sync(0xffffffffu, hi, o));
+  }
+}
+
+// the same across the 32 lanes of a warp
 __device__ __forceinline__ void chord_warp_fold(float& lo, float& hi) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) {

@@ -21,10 +21,13 @@ Eight kernels, sources in ``ultranest_torch/csrc/``:
   and ``:587-640``); K4 at D = 1 is also the propose half of a shrink
   iteration of the sync walk;
 * K6 :func:`sync_update` (``csrc/sync_update.cu``) is the update half
-  of that iteration and the step boundary around it: the body and step
-  of the JAX package's sync engine (``ultranest_tpu/popfused.py:849-870``);
-* K7 :func:`rwalk_accept` (``csrc/rwalk_accept.cu``) is the acceptance
-  half of a random-walk step, after the likelihood (``:1613-1621``).
+  of that iteration and the step boundary around it, one kernel launch
+  a round: the body and step of the JAX package's sync engine
+  (``ultranest_tpu/popfused.py:849-870``);
+* K7 :func:`rwalk_accept` (``csrc/rwalk_accept.cu``) is a random-walk
+  step after the likelihood, its acceptance and the next step's
+  proposal (``:1612-1621``); :func:`rwalk_propose` launches the same
+  kernel for step 0's proposal.
 
 Each source file says what bounds its kernel on an H100 and what its
 design does about it. K1, K1t and K2 share ``csrc/member_core.cuh``: the
@@ -70,10 +73,12 @@ from ..native import build_dir
 
 __all__ = ['radius_member', 'radius_member_t', 'bootstrap_radius',
            'consume_scan', 'spec_propose', 'spec_update', 'sync_update',
-           'rwalk_accept', 'radius_member_plain', 'radius_member_t_plain',
+           'rwalk_accept', 'rwalk_propose', 'radius_member_plain',
+           'radius_member_t_plain',
            'bootstrap_radius_plain', 'consume_scan_plain',
            'spec_propose_plain', 'spec_update_plain', 'sync_update_plain',
-           'rwalk_accept_plain', 'cube_intersection', 'SPEC_STATE',
+           'rwalk_accept_plain', 'rwalk_propose_plain', 'cube_intersection',
+           'SPEC_STATE',
            'SYNC_STATE', 'RWALK_STATE', 'build', 'LAUNCHES', 'PLAIN_CALLS',
            'CAPTURED',
            'reset_counts', 'KERNELS', 'REGION_KERNELS', 'POPULATION_KERNELS',
@@ -87,9 +92,10 @@ KERNELS = ('radius_member', 'radius_member_t', 'bootstrap_radius',
 REGION_KERNELS = ('radius_member', 'bootstrap_radius', 'consume_scan')
 # the rounds of the population walks: K4 and K5 of the spec and async
 # walks (popfused.spec_walk), K4 and K6 of the sync walk
-# (popfused.sync_walk), K7 of the random walk (popfused.rwalk_walk)
+# (popfused.sync_walk), K7 of the random walk and, once a dispatch, its
+# prologue (popfused.rwalk_walk; the same kernel, counted apart)
 POPULATION_KERNELS = ('spec_propose', 'spec_update', 'sync_update',
-                      'rwalk_accept')
+                      'rwalk_accept', 'rwalk_propose')
 SOURCES = ('radius_member.cu', 'radius_member_t.cu', 'bootstrap_radius.cu',
            'consume_scan.cu', 'spec_propose.cu', 'spec_update.cu',
            'sync_update.cu', 'rwalk_accept.cu')
@@ -205,8 +211,8 @@ def _lib():
             lib.un_consume_scan.argtypes = [vp, ci, vp, vp, ci, vp, vp, vp]
             lib.un_spec_propose.argtypes = [vp] * 6 + [ci] * 5 + [vp] * 5
             lib.un_spec_update.argtypes = [vp] * 7 + [ci] * 4 + [vp] * 13
-            lib.un_sync_update.argtypes = [vp] * 7 + [ci] * 4 + [vp] * 15
-            lib.un_rwalk_accept.argtypes = [vp] * 4 + [ci] * 2 + [vp] * 5
+            lib.un_sync_update.argtypes = [vp] * 7 + [ci] * 5 + [vp] * 16
+            lib.un_rwalk_accept.argtypes = [vp] * 6 + [ci] * 2 + [vp] * 5
             for fn in (lib.un_radius_member, lib.un_radius_member_t,
                        lib.un_bootstrap_radius, lib.un_consume_scan,
                        lib.un_spec_propose, lib.un_spec_update,
@@ -784,10 +790,18 @@ def spec_update(Lp, tin, ts, tlc, trc, Lmin, dirbank, state):
 # start u and direction v (P, d), its bracket tl, tr (P,) float32, its
 # point un (P, d) and likelihood Ln (P,) float32 so far, done (P,) bool;
 # the counters (0-d int64: billed rows, the step, the iteration in it,
-# the bank row K4 reads), the flag "every step ran" (0-d bool) and each
-# step's accepting fraction and median final bracket (nsteps,) float32
+# the bank row K4 reads), the flag "every step ran" (0-d bool), each
+# step's accepting fraction and median final bracket (nsteps,) float32,
+# and tick (2,) int64, the kernel's own counters between its blocks, 0
+# between calls (the plain version leaves it alone)
 SYNC_STATE = ('u', 'v', 'tl', 'tr', 'un', 'Ln', 'done', 'nc', 's', 'it',
-              'row', 'flag', 'accs', 'widths')
+              'row', 'flag', 'accs', 'widths', 'tick')
+# K6's forms (un_sync_update's form bits): one block or a grid whose
+# last block ends the round; the median by rank counting or by radix
+# selection (rank counting takes P <= SYNC_RANK_KEYS)
+SYNC_FORM_GRID = 1
+SYNC_FORM_RADIX = 2
+SYNC_RANK_KEYS = 1024
 
 
 def _median(x):
@@ -842,6 +856,46 @@ def sync_update_plain(Lp, tin, ts, tlc, trc, Lmin, dirbank, max_it, state):
     st['flag'].fill_(s >= nsteps)
 
 
+def _sync_update_cuda(Lp, tin, ts, tlc, trc, Lmin, dirbank, max_it, state,
+                      form):
+    """K6 on the card in *form* (-1: chosen from P and d in C; else
+    :data:`SYNC_FORM_GRID` | :data:`SYNC_FORM_RADIX` bits)."""
+    st = state
+    nsteps, P, d = dirbank.shape
+    if min(nsteps, P, d, max_it) < 1 or P >= 2**24 or P * d >= 2**31:
+        raise ValueError('sync_update needs 1 <= P < 2**24 walkers, a step, '
+                         'a coordinate, an iteration and P * d < 2**31, got '
+                         'dirbank %s, max_it %d'
+                         % (tuple(dirbank.shape), max_it))
+    if form >= 0 and not form & SYNC_FORM_RADIX and P > SYNC_RANK_KEYS:
+        raise ValueError('rank counting takes at most %d walkers, got %d'
+                         % (SYNC_RANK_KEYS, P))
+    _check_shape(Lp, 'Lp', torch.float32, (P,))
+    if tin is not None:
+        _on_cpu(Lp, tin)
+        _check_shape(tin, 'tin', torch.bool, (P,))
+    _check_shape(ts, 'ts', torch.float32, (P, 1))
+    for t, name in ((tlc, 'tlc'), (trc, 'trc')):
+        _check_shape(t, name, torch.float32, (P,))
+    _check_shape(Lmin, 'Lmin', torch.float32, ())
+    _check_shape(dirbank, 'dirbank', torch.float32, (nsteps, P, d))
+    want = dict(u=(torch.float32, (P, d)), v=(torch.float32, (P, d)),
+                un=(torch.float32, (P, d)), tl=(torch.float32, (P,)),
+                tr=(torch.float32, (P,)), Ln=(torch.float32, (P,)),
+                done=(torch.bool, (P,)), flag=(torch.bool, ()),
+                accs=(torch.float32, (nsteps,)),
+                widths=(torch.float32, (nsteps,)),
+                tick=(torch.int64, (2,)))
+    for name in SYNC_STATE:
+        dtype, shape = want.get(name, (torch.int64, ()))
+        _check_shape(st[name], name, dtype, shape)
+    _launch('sync_update', _lib().un_sync_update, Lp.data_ptr(),
+            None if tin is None else tin.data_ptr(), ts.data_ptr(),
+            tlc.data_ptr(), trc.data_ptr(), Lmin.data_ptr(),
+            dirbank.data_ptr(), nsteps, max_it, P, d, form,
+            *(st[k].data_ptr() for k in SYNC_STATE))
+
+
 def sync_update(Lp, tin, ts, tlc, trc, Lmin, dirbank, max_it, state):
     """K6: update the sync walk's *state* in place after one shrink
     iteration of every walker, and end the step where every walker is
@@ -865,8 +919,8 @@ def sync_update(Lp, tin, ts, tlc, trc, Lmin, dirbank, max_it, state):
         :data:`SYNC_STATE`'s tensors, updated in place; once every step
         ran, a call changes nothing
 
-    On the card one launch: two kernels, a warp a walker, then one block
-    for the counters and the step boundary.
+    On the card one kernel launch: one block, or a grid whose last block
+    counts the round and ends the step (``csrc/sync_update.cu``).
     """
     st = state
     if _on_cpu(Lp, ts, tlc, trc, Lmin, dirbank,
@@ -874,34 +928,7 @@ def sync_update(Lp, tin, ts, tlc, trc, Lmin, dirbank, max_it, state):
         PLAIN_CALLS['sync_update'] += 1
         return sync_update_plain(Lp, tin, ts, tlc, trc, Lmin, dirbank,
                                  max_it, st)
-    nsteps, P, d = dirbank.shape
-    if min(nsteps, P, d, max_it) < 1 or P >= 2**24:
-        raise ValueError('sync_update needs 1 <= P < 2**24 walkers, a step, '
-                         'a coordinate and an iteration, got dirbank %s, '
-                         'max_it %d' % (tuple(dirbank.shape), max_it))
-    _check_shape(Lp, 'Lp', torch.float32, (P,))
-    if tin is not None:
-        _on_cpu(Lp, tin)
-        _check_shape(tin, 'tin', torch.bool, (P,))
-    _check_shape(ts, 'ts', torch.float32, (P, 1))
-    for t, name in ((tlc, 'tlc'), (trc, 'trc')):
-        _check_shape(t, name, torch.float32, (P,))
-    _check_shape(Lmin, 'Lmin', torch.float32, ())
-    _check_shape(dirbank, 'dirbank', torch.float32, (nsteps, P, d))
-    want = dict(u=(torch.float32, (P, d)), v=(torch.float32, (P, d)),
-                un=(torch.float32, (P, d)), tl=(torch.float32, (P,)),
-                tr=(torch.float32, (P,)), Ln=(torch.float32, (P,)),
-                done=(torch.bool, (P,)), flag=(torch.bool, ()),
-                accs=(torch.float32, (nsteps,)),
-                widths=(torch.float32, (nsteps,)))
-    for name in SYNC_STATE:
-        dtype, shape = want.get(name, (torch.int64, ()))
-        _check_shape(st[name], name, dtype, shape)
-    _launch('sync_update', _lib().un_sync_update, Lp.data_ptr(),
-            None if tin is None else tin.data_ptr(), ts.data_ptr(),
-            tlc.data_ptr(), trc.data_ptr(), Lmin.data_ptr(),
-            dirbank.data_ptr(), nsteps, max_it, P, d,
-            *(st[k].data_ptr() for k in SYNC_STATE))
+    _sync_update_cuda(Lp, tin, ts, tlc, trc, Lmin, dirbank, max_it, st, -1)
 
 
 # ---------------------------------------------------------------- K7 -----
@@ -912,10 +939,11 @@ def sync_update(Lp, tin, ts, tlc, trc, Lmin, dirbank, max_it, state):
 RWALK_STATE = ('u', 'L', 'nacc', 'nc')
 
 
-def rwalk_accept_plain(Lev, tin, up, Lmin, state):
+def rwalk_accept_plain(Lev, tin, up, Lmin, state, m=None, scale=None):
     """Plain torch K7: accept each walker's proposal *up* that lies inside
-    the unit cube above *Lmin* (``csrc/rwalk_accept.cu`` states the
-    update). Returns None."""
+    the unit cube above *Lmin*, then, given the next step's products *m*,
+    write the next proposal ``u + scale * m`` into *up*
+    (``csrc/rwalk_accept.cu`` states the step). Returns None."""
     st = state
     inside = ((up > 0) & (up < 1)).all(dim=1)
     Lp = torch.where(inside, Lev, -math.inf)
@@ -924,11 +952,49 @@ def rwalk_accept_plain(Lev, tin, up, Lmin, state):
     st['L'].copy_(torch.where(acc, Lp, st['L']))
     st['nacc'].add_(acc.sum())
     st['nc'].add_((inside if tin is None else inside & tin).sum())
+    if m is not None:
+        rwalk_propose_plain(up, st, m, scale)
 
 
-def rwalk_accept(Lev, tin, up, Lmin, state):
-    """K7: one random-walk step's acceptance, in place
-    (:func:`rwalk_accept_plain`).
+def rwalk_propose_plain(up, state, m, scale):
+    """Plain torch prologue of K7: the proposal ``u + scale * m`` from
+    the *state*'s point into *up*, a multiply and an add as torch rounds
+    them."""
+    up.copy_(state['u'] + scale * m)
+
+
+def _rwalk_call(name, Lev, tin, up, Lmin, state, m, scale):
+    st = state
+    P, d = up.shape
+    if d < 1 or P * d >= 2**31:
+        raise ValueError('%s takes 1 <= d and fewer than 2**31 row values, '
+                         'got up %s' % (name, tuple(up.shape)))
+    _check_shape(up, 'up', torch.float32, (P, d))
+    if Lev is not None:
+        _check_shape(Lev, 'Lev', torch.float32, (P,))
+        _check_shape(Lmin, 'Lmin', torch.float32, ())
+        if tin is not None:
+            _on_cpu(Lev, tin)
+            _check_shape(tin, 'tin', torch.bool, (P,))
+    if m is not None:
+        _on_cpu(up, m, scale)
+        _check_shape(m, 'm', torch.float32, (P, d))
+        _check_shape(scale, 'scale', torch.float32, ())
+    _check_shape(st['u'], 'u', torch.float32, (P, d))
+    _check_shape(st['L'], 'L', torch.float32, (P,))
+    for k in ('nacc', 'nc'):
+        _check_shape(st[k], k, torch.int64, ())
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+    _launch(name, _lib().un_rwalk_accept, ptr(Lev), ptr(tin), up.data_ptr(),
+            ptr(Lmin), ptr(m), ptr(scale), P, d,
+            *(st[k].data_ptr() for k in RWALK_STATE))
+
+
+def rwalk_accept(Lev, tin, up, Lmin, state, m=None, scale=None):
+    """K7: one random-walk step's acceptance, in place, and the next
+    step's proposal (:func:`rwalk_accept_plain`).
 
     Parameters
     ----------
@@ -938,32 +1004,35 @@ def rwalk_accept(Lev, tin, up, Lmin, state):
         rows the p-space filter let through (None: every inside row
         billed)
     up: (P, d) float32
-        the proposed rows
+        the proposed rows; given *m*, overwritten with the next step's
     Lmin: 0-d float32
         the likelihood threshold
     state: dict
         :data:`RWALK_STATE`'s tensors, updated in place
+    m: (P, d) float32 or None
+        the next step's products ``eps @ axes.T`` (None: the last step,
+        no proposal written)
+    scale: 0-d float32
+        the proposal's scale, where *m* is given
 
     On the card one launch; the int64 counts are summed in it.
     """
     st = state
     if _on_cpu(Lev, up, Lmin, *(st[k] for k in RWALK_STATE)):
         PLAIN_CALLS['rwalk_accept'] += 1
-        return rwalk_accept_plain(Lev, tin, up, Lmin, st)
-    P, d = up.shape
-    if d < 1 or P * d >= 2**31:
-        raise ValueError('rwalk_accept takes 1 <= d and fewer than 2**31 '
-                         'row values, got up %s' % (tuple(up.shape),))
-    _check_shape(Lev, 'Lev', torch.float32, (P,))
-    if tin is not None:
-        _on_cpu(Lev, tin)
-        _check_shape(tin, 'tin', torch.bool, (P,))
-    _check_shape(up, 'up', torch.float32, (P, d))
-    _check_shape(Lmin, 'Lmin', torch.float32, ())
-    _check_shape(st['u'], 'u', torch.float32, (P, d))
-    _check_shape(st['L'], 'L', torch.float32, (P,))
-    for name in ('nacc', 'nc'):
-        _check_shape(st[name], name, torch.int64, ())
-    _launch('rwalk_accept', _lib().un_rwalk_accept, Lev.data_ptr(),
-            None if tin is None else tin.data_ptr(), up.data_ptr(),
-            Lmin.data_ptr(), P, d, *(st[k].data_ptr() for k in RWALK_STATE))
+        return rwalk_accept_plain(Lev, tin, up, Lmin, st, m, scale)
+    _rwalk_call('rwalk_accept', Lev, tin, up, Lmin, st, m, scale)
+
+
+def rwalk_propose(up, state, m, scale):
+    """K7's prologue: step 0's proposal ``u + scale * m`` from the
+    *state*'s point (:data:`RWALK_STATE`, left alone) into *up*
+    (:func:`rwalk_propose_plain`).
+
+    On the card one launch of K7's kernel with nothing to accept, counted
+    as ``rwalk_propose``.
+    """
+    if _on_cpu(up, m, scale, *(state[k] for k in RWALK_STATE)):
+        PLAIN_CALLS['rwalk_propose'] += 1
+        return rwalk_propose_plain(up, state, m, scale)
+    _rwalk_call('rwalk_propose', None, None, up, None, state, m, scale)

@@ -95,6 +95,7 @@ __all__ = ['FusedPopulationSliceSampler', 'FusedPopulationRandomWalkSampler',
            'draw_spec_banks', 'draw_sync_banks', 'draw_rwalk_banks',
            'spec_walk', 'sync_walk', 'rwalk_walk', 'spec_max_rounds',
            'optimal_spec_depth', 'SpecGraphs', 'graph_call_seconds',
+           'graph_kernel_names',
            'round_overhead', 'measure_round_overhead', 'SPEC_CHECK_EVERY',
            'SYNC_CHECK_EVERY', 'ROUND_OVERHEAD_S']
 
@@ -103,11 +104,12 @@ SPEC_CHECK_EVERY = 8
 # rounds (shrink iterations of every walker, across step boundaries) in
 # one graph of the sync walk, and between two host reads of its flag,
 # read one chunk behind. On an NVIDIA H100 80GB HBM3 at a 700 W power
-# limit (scripts/compare_walls.py --warm, two runs each), sync at d 8
-# (popsize 128, nsteps 16, 200 live points) took 0.465/0.478 s at 2,
-# 0.387/0.487 s at 4, 0.405/0.424 s at 8 and 0.430/0.413 s at 16; sync
-# at d 2 (popsize 64, nsteps 8, 100 live) 0.132/0.140, 0.135/0.139,
-# 0.114/0.132 and 0.131/0.149 s; equal results at every value.
+# limit (scripts/compare_walls.py --warm, two runs each, K6 as one kernel
+# a round), sync at d 8 (popsize 128, nsteps 16, 200 live points) took
+# 0.453/0.478 s at 2, 0.441/0.423 s at 4, 0.417/0.423 s at 8 and
+# 0.390/0.438 s at 16; sync at d 2 (popsize 64, nsteps 8, 100 live)
+# 0.155/0.137, 0.138/0.148, 0.129/0.135 and 0.128/0.135 s; equal results
+# at every value. 8 and 16 tie; 16 queues 8% more no-op rounds.
 SYNC_CHECK_EVERY = 8
 # Fixed cost of one spec-walk round on the card without the likelihood,
 # the A of optimal_spec_depth: K4, K5, the width sum and an eighth of the
@@ -479,7 +481,8 @@ class _SyncGraphEntry(_GraphEntry):
 
 class _RwalkGraphEntry(_GraphEntry):
     """The buffers a captured random walk reads and writes: the noise,
-    the region axes, the scale, the threshold and the state."""
+    the region axes, the scale, the threshold, the state, every step's
+    products and the proposal."""
 
     def __init__(self, P, d, nsteps, dev):
         super().__init__(torch.zeros((), dtype=torch.bool, device=dev))
@@ -488,6 +491,8 @@ class _RwalkGraphEntry(_GraphEntry):
         self.scale = _f32_buffer(dev)
         self.Lmin = _f32_buffer(dev)
         self.state = _rwalk_state(P, d, dev)
+        self.m = _f32_buffer(dev, nsteps, P, d)
+        self.up = _f32_buffer(dev, P, d)
 
 
 def _graphs_ready(graphs, key, entry, sizes, body, flag, init, info):
@@ -569,6 +574,62 @@ def _eager_seconds(fn, on_card):
         if i:               # the first call warms caches and allocator
             best = min(best, t)
     return best
+
+
+def graph_kernel_names(fn, device):
+    """The kernel nodes of one call of *fn* captured in a CUDA graph, in
+    the graph's order, each by its function's (mangled) name; a node of
+    another kind as ``<node type N>`` (N a ``CUgraphNodeType``).
+
+    Reads the graph through ``libcuda``: what a round or a step of a
+    walk launches, for the measurements; nothing in the walks calls it.
+    """
+    import ctypes
+    g = torch.cuda.CUDAGraph(keep_graph=True)
+    cur = torch.cuda.current_stream(device)
+    side = torch.cuda.Stream(device=device)
+    side.wait_stream(cur)
+    with torch.cuda.stream(side):
+        g.capture_begin()
+        try:
+            fn()
+        finally:
+            g.capture_end()
+    cur.wait_stream(side)
+    cu = ctypes.CDLL('libcuda.so.1')
+    vp = ctypes.c_void_p
+
+    def check(rc, what):
+        if rc != 0:
+            raise RuntimeError('%s failed: CUresult %d' % (what, rc))
+    graph = vp(g.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    check(cu.cuGraphGetNodes(graph, None, ctypes.byref(n)), 'cuGraphGetNodes')
+    nodes = (vp * n.value)()
+    check(cu.cuGraphGetNodes(graph, nodes, ctypes.byref(n)), 'cuGraphGetNodes')
+    names = []
+    for node in nodes:
+        kind = ctypes.c_int()
+        check(cu.cuGraphNodeGetType(vp(node), ctypes.byref(kind)),
+              'cuGraphNodeGetType')
+        if kind.value != 0:             # CU_GRAPH_NODE_TYPE_KERNEL
+            names.append('<node type %d>' % kind.value)
+            continue
+        # CUDA_KERNEL_NODE_PARAMS_v2: func at byte 0, kern at byte 56
+        params = (ctypes.c_char * 128)()
+        check(cu.cuGraphKernelNodeGetParams_v2(vp(node), params),
+              'cuGraphKernelNodeGetParams')
+        func = vp.from_buffer(params, 0).value
+        kern = vp.from_buffer(params, 56).value
+        name = ctypes.c_char_p()
+        if func:
+            check(cu.cuFuncGetName(ctypes.byref(name), vp(func)),
+                  'cuFuncGetName')
+        else:
+            check(cu.cuKernelGetName(ctypes.byref(name), vp(kern)),
+                  'cuKernelGetName')
+        names.append(name.value.decode())
+    return names
 
 
 def graph_call_seconds(fn, device, calls=4, reps=8, trials=5, graphs=None):
@@ -824,7 +885,8 @@ def _sync_state(P, d, nsteps, dev):
                 done=torch.zeros(P, dtype=torch.bool, device=dev), nc=i64(),
                 s=i64(), it=i64(), row=i64(),
                 flag=torch.zeros((), dtype=torch.bool, device=dev),
-                accs=f32(nsteps), widths=f32(nsteps))
+                accs=f32(nsteps), widths=f32(nsteps),
+                tick=torch.zeros(2, dtype=torch.int64, device=dev))
 
 
 def _sync_init(st, banks, live_u, live_L, dirbank):
@@ -963,17 +1025,36 @@ def _rwalk_init(st, banks, live_u, live_L):
     st['nc'].zero_()
 
 
-def _rwalk_steps(eps, axes, scale, evaluate, Lmin, st):
-    """Every step of a random-walk dispatch: the proposal ``u + scale *
-    eps[s] @ axes.T`` (torch ops; the matmul in full float32, TF32 off),
-    the likelihood and K7 (:func:`kernels.rwalk_accept`). *scale* is a
-    float or a 0-d float32 tensor of the same value: the products round
-    alike."""
+def _rwalk_products(eps, axes, out):
+    """Every step's product ``eps[s] @ axes.T`` into *out* (nsteps, P, d),
+    in full float32 (TF32 off): one matmul a step, each the call the
+    reference's scan makes a step. None depends on the walk, so all run
+    before its first step. (One batched matmul of every step gives other
+    bits on an H100 at the random-walk run's P 128, d 8:
+    ``tests/test_torch_cuda.py::test_rwalk_products_batched_against_per_step``.)"""
     axes_t = axes.T
     for s in range(eps.shape[0]):
-        up = st['u'] + scale * (eps[s] @ axes_t)
+        torch.matmul(eps[s], axes_t, out=out[s])
+    return out
+
+
+def _rwalk_steps(eps, axes, scale, evaluate, Lmin, st, m, up):
+    """Every step of a random-walk dispatch: the products into *m*
+    (:func:`_rwalk_products`), K7's prologue (:func:`kernels.rwalk_propose`:
+    step 0's proposal ``u + scale * m[0]`` into *up*), then a step is the
+    likelihood of *up* and K7 (:func:`kernels.rwalk_accept`), which
+    accepts and writes the next step's proposal into *up*. *scale* is a
+    0-d float32 tensor."""
+    nsteps = eps.shape[0]
+    if nsteps == 0:
+        return
+    _rwalk_products(eps, axes, m)
+    kernels.rwalk_propose(up, st, m[0], scale)
+    for s in range(nsteps):
         Lev, tin = evaluate(up)
-        kernels.rwalk_accept(Lev.reshape(-1).contiguous(), tin, up, Lmin, st)
+        nxt = m[s + 1] if s + 1 < nsteps else None
+        kernels.rwalk_accept(Lev.reshape(-1).contiguous(), tin, up, Lmin, st,
+                             nxt, scale)
 
 
 def rwalk_walk(banks, live_u, live_L, axes, Lmin, scale, evaluate,
@@ -983,11 +1064,13 @@ def rwalk_walk(banks, live_u, live_L, axes, Lmin, scale, evaluate,
     Each of the ``nsteps`` steps proposes ``u + scale * eps @ axes.T``
     for every walker (``eps`` from :func:`draw_rwalk_banks`) and accepts
     proposals inside the unit cube above *Lmin* (K7,
-    :func:`kernels.rwalk_accept`). The loop has a fixed trip count, so
-    the host reads nothing. The matmul runs in full float32 (TF32 stays
-    off). With *graphs* on a card the whole walk is one CUDA graph
+    :func:`kernels.rwalk_accept`, which also writes the next step's
+    proposal; the products run before the first step,
+    :func:`_rwalk_steps`). The loop has a fixed trip count, so the host
+    reads nothing. The matmuls run in full float32 (TF32 stays off).
+    With *graphs* on a card the whole walk is one CUDA graph
     (:class:`SpecGraphs`), replayed once; otherwise the steps run from
-    the host (the plain version of K7 on the CPU). Both give the same
+    the host (the plain versions of K7 on the CPU). Both give the same
     bits.
 
     Returns ``uf, Lf, done, idx0, nc, nuseful, acc_rate``: ``done`` all
@@ -1010,7 +1093,8 @@ def rwalk_walk(banks, live_u, live_L, axes, Lmin, scale, evaluate,
         st = entry.state
 
         def body(e=entry):
-            _rwalk_steps(e.eps, e.axes, e.scale, evaluate, e.Lmin, e.state)
+            _rwalk_steps(e.eps, e.axes, e.scale, evaluate, e.Lmin, e.state,
+                         e.m, e.up)
         if not _graphs_ready(graphs, key, entry, [1], body, lambda: None,
                              lambda: _rwalk_init(st, banks, live_u, live_L),
                              info):
@@ -1025,9 +1109,12 @@ def rwalk_walk(banks, live_u, live_L, axes, Lmin, scale, evaluate,
     else:
         st = _rwalk_state(P, d, dev)
         _rwalk_init(st, banks, live_u, live_L)
-        _rwalk_steps(eps, axes, scale, evaluate,
-                     _set_scalar(torch.empty((), dtype=torch.float32,
-                                             device=dev), Lmin), st)
+
+        def scalar(x):
+            return _set_scalar(torch.empty((), dtype=torch.float32,
+                                           device=dev), x)
+        _rwalk_steps(eps, axes, scalar(scale), evaluate, scalar(Lmin), st,
+                     _f32_buffer(dev, nsteps, P, d), _f32_buffer(dev, P, d))
     if stats is not None:
         stats.update(reads=0, rounds=nsteps, **info)
     acc_rate = st['nacc'].to(torch.float32) / float(P * nsteps)
