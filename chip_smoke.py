@@ -1299,14 +1299,15 @@ def engine_graph_nodes(kernels, kind, banks, live_u, live_L, axes, Lmin,
                        scale, evaluate):
     """The kernel nodes of a real dispatch's round (sync) or walk (random
     walk), each captured in a CUDA graph and read from it
-    (``popfused.graph_kernel_names``), beside the likelihood's own nodes:
+    (``ultranest_torch.evaluate.graph_nodes``), beside the likelihood's own nodes:
     a sync round must be K4, the likelihood's kernels and one K6; the
     random walk its products, K7's prologue and, a step, the likelihood's
     kernels and K7, nothing else. Returns the counts by part."""
     import torch
     from ultranest_torch import popfused
+    from ultranest_torch.evaluate.graph_nodes import \
+        graph_kernel_names as names
     dev = live_u.device
-    names = popfused.graph_kernel_names
 
     def scalar(x):
         return popfused._set_scalar(torch.empty((), dtype=torch.float32,

@@ -492,8 +492,9 @@ def sync_fn(so, legacy=False):
 
 
 # K6's shapes: chip_smoke.SYNC_SHAPES, then P and d on both sides of the
-# one block's reach (P * d <= 8192, P <= 1024) and of rank counting's
-# (P <= 256)
+# one block's reach and of rank counting's (the thresholds were chosen
+# from this sweep; they are kSingleElems, kSingleWalkers and kRankMax in
+# csrc/sync_update.cu)
 SYNC_SWEEP = chip_smoke.SYNC_SHAPES + (
     (128, 2), (256, 2), (512, 2), (1024, 2), (2048, 2), (256, 8),
     (512, 8), (1024, 8), (1025, 8), (2048, 8), (64, 50), (128, 50),

@@ -1203,14 +1203,21 @@ def _sync_forms(P):
             or P <= k.SYNC_RANK_KEYS]
 
 
-# the shapes of chip_smoke.SYNC_SHAPES (64, 2), (128, 8), (4096, 50),
-# (65, 3) among them; P 1; P at and just above the one block's reach at
-# each d (P * d <= 12800 and P <= 2048: 2048 / 2049 at d 2, 1600 / 1601
-# at d 8, 256 / 257 at d 50)
-@pytest.mark.parametrize('P,d', [
-    (P, d) for P in (1, 64, 65, 128, 1000, 4096) for d in (2, 8, 50)]
-    + [(65, 3), (2048, 2), (2049, 2), (1600, 8), (1601, 8), (256, 50),
-       (257, 50)])
+def _p_by_d(grid, extra):
+    """(P, d) cases of a grid of P x d and *extra* pairs, each named
+    "d-P" as a P and a d parametrisation stacked name their cases."""
+    pairs = [(P, d) for d in grid[1] for P in grid[0]] + list(extra)
+    return [pytest.param(P, d, id='%d-%d' % (d, P)) for P, d in pairs]
+
+
+# P 64 to 4096 at d 2, 8 and 50, the shapes of chip_smoke.SYNC_SHAPES
+# ((64, 2), (128, 8), (4096, 50), (65, 3)) among them; P 1 and 65; P at
+# and just above the one block's reach at each d (P * d <= 12800 and
+# P <= 2048: sync_update.cu's kSingleElems and kSingleWalkers; 2048 /
+# 2049 at d 2, 1600 / 1601 at d 8, 256 / 257 at d 50)
+@pytest.mark.parametrize('P,d', _p_by_d(
+    ((1, 64, 65, 128, 1000, 2048, 4096), (2, 8, 50)),
+    [(65, 3), (2049, 2), (1600, 8), (1601, 8), (256, 50), (257, 50)]))
 def test_sync_kernels_equal_plain(cuda, P, d):
     """K4 at D = 1 on the sync walk's bank rows and K6 bit for bit against
     their plain versions: inside a step, at its boundary, every walker
@@ -1333,8 +1340,8 @@ def test_sync_round_is_one_kernel_node(cuda):
 
 
 def _kernel_nodes(fn):
-    from ultranest_torch import popfused
-    return popfused.graph_kernel_names(fn, torch.device('cuda'))
+    from ultranest_torch.evaluate.graph_nodes import graph_kernel_names
+    return graph_kernel_names(fn, torch.device('cuda'))
 
 
 def _rwalk_step_case(cuda, P, d, seed):
@@ -1362,11 +1369,11 @@ def _rwalk_step_case(cuda, P, d, seed):
     return up, Lev, st, m, tin
 
 
-# chip_smoke.RWALK_SHAPES (128, 8), (4096, 50), (63, 3), P 1, d above a
-# warp
-@pytest.mark.parametrize('P,d', [(1, 8), (63, 3), (64, 2), (128, 8),
-                                 (1000, 50), (2048, 8), (4096, 50),
-                                 (100, 33), (30, 70)])
+# P 64 to 4096 at d 2, 8 and 50, chip_smoke.RWALK_SHAPES ((128, 8),
+# (4096, 50), (63, 3)) among them; P 1; d above a warp
+@pytest.mark.parametrize('P,d', _p_by_d(
+    ((64, 128, 1000, 2048, 4096), (2, 8, 50)),
+    [(1, 8), (63, 3), (100, 33), (30, 70)]))
 def test_rwalk_accept_equals_plain(cuda, P, d):
     """K7 bit for bit against its plain version: the prologue, a middle
     step (accept, then the next proposal in place) and the last step (no

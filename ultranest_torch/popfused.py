@@ -95,7 +95,6 @@ __all__ = ['FusedPopulationSliceSampler', 'FusedPopulationRandomWalkSampler',
            'draw_spec_banks', 'draw_sync_banks', 'draw_rwalk_banks',
            'spec_walk', 'sync_walk', 'rwalk_walk', 'spec_max_rounds',
            'optimal_spec_depth', 'SpecGraphs', 'graph_call_seconds',
-           'graph_kernel_names',
            'round_overhead', 'measure_round_overhead', 'SPEC_CHECK_EVERY',
            'SYNC_CHECK_EVERY', 'ROUND_OVERHEAD_S']
 
@@ -574,62 +573,6 @@ def _eager_seconds(fn, on_card):
         if i:               # the first call warms caches and allocator
             best = min(best, t)
     return best
-
-
-def graph_kernel_names(fn, device):
-    """The kernel nodes of one call of *fn* captured in a CUDA graph, in
-    the graph's order, each by its function's (mangled) name; a node of
-    another kind as ``<node type N>`` (N a ``CUgraphNodeType``).
-
-    Reads the graph through ``libcuda``: what a round or a step of a
-    walk launches, for the measurements; nothing in the walks calls it.
-    """
-    import ctypes
-    g = torch.cuda.CUDAGraph(keep_graph=True)
-    cur = torch.cuda.current_stream(device)
-    side = torch.cuda.Stream(device=device)
-    side.wait_stream(cur)
-    with torch.cuda.stream(side):
-        g.capture_begin()
-        try:
-            fn()
-        finally:
-            g.capture_end()
-    cur.wait_stream(side)
-    cu = ctypes.CDLL('libcuda.so.1')
-    vp = ctypes.c_void_p
-
-    def check(rc, what):
-        if rc != 0:
-            raise RuntimeError('%s failed: CUresult %d' % (what, rc))
-    graph = vp(g.raw_cuda_graph())
-    n = ctypes.c_size_t(0)
-    check(cu.cuGraphGetNodes(graph, None, ctypes.byref(n)), 'cuGraphGetNodes')
-    nodes = (vp * n.value)()
-    check(cu.cuGraphGetNodes(graph, nodes, ctypes.byref(n)), 'cuGraphGetNodes')
-    names = []
-    for node in nodes:
-        kind = ctypes.c_int()
-        check(cu.cuGraphNodeGetType(vp(node), ctypes.byref(kind)),
-              'cuGraphNodeGetType')
-        if kind.value != 0:             # CU_GRAPH_NODE_TYPE_KERNEL
-            names.append('<node type %d>' % kind.value)
-            continue
-        # CUDA_KERNEL_NODE_PARAMS_v2: func at byte 0, kern at byte 56
-        params = (ctypes.c_char * 128)()
-        check(cu.cuGraphKernelNodeGetParams_v2(vp(node), params),
-              'cuGraphKernelNodeGetParams')
-        func = vp.from_buffer(params, 0).value
-        kern = vp.from_buffer(params, 56).value
-        name = ctypes.c_char_p()
-        if func:
-            check(cu.cuFuncGetName(ctypes.byref(name), vp(func)),
-                  'cuFuncGetName')
-        else:
-            check(cu.cuKernelGetName(ctypes.byref(name), vp(kern)),
-                  'cuKernelGetName')
-        names.append(name.value.decode())
-    return names
 
 
 def graph_call_seconds(fn, device, calls=4, reps=8, trials=5, graphs=None):
