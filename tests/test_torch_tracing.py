@@ -1,0 +1,263 @@
+"""The spans of a run (``ultranest_torch.tracing``), on the CPU: a small
+eggbox fit on the segment path and a small spec-walk fit. The record
+keeps the segment loop's five phases, nests every span in its parent,
+covers ``run()``'s wall, and becomes ``torch.profiler`` ranges named by
+its keys only while the profiler records."""
+
+import gc
+import time
+
+import pytest
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+import ultranest_torch
+import ultranest_torch.mlfriends as tml
+import ultranest_torch.popfused as tpop
+from ultranest_torch import tracing
+from ultranest_torch.models import problems
+from ultranest_torch.parallel import launch
+
+RUN = dict(viz_callback=False, show_status=False,
+           max_num_improvement_loops=0, frac_remain=0.5)
+PHASES = ('launch', 'fetch', 'replay', 'rebuild', 'results')
+# the spans that follow one another through run(); 'segment' and 'gc'
+# overlap them
+TOP = PHASES + ('prepare', 'classic', 'plan')
+# the spans that are profiler ranges while the profiler records
+RANGED = ('prepare', 'classic', 'segment', 'rebuild', 'results', 'plan',
+          'results/combine', 'results/replay', 'prepare/rebuild',
+          'classic/rebuild')
+
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _eggbox(loglike=None):
+    prob = problems.eggbox()
+    kw = prob.sampler_kwargs(use_torch=True)
+    if loglike is not None:
+        kw['torch_loglike'] = loglike
+    s = ultranest_torch.ReactiveNestedSampler(seed=1, device='cpu', **kw)
+    s.fused_sampler.segment_enabled = True
+    return s, dict(RUN, min_num_live_points=100, max_ncalls=200000)
+
+
+def _spec(loglike=None):
+    prob = problems.asymgauss(ndim=8, sigma_min=0.01)
+    s = ultranest_torch.ReactiveNestedSampler(
+        prob.param_names, prob.loglike, vectorized=True, seed=2,
+        device='cpu')
+    s.transform_layer_class = tml.ScalingLayer
+    s.stepsampler = tpop.FusedPopulationSliceSampler(
+        popsize=128, nsteps=16, spec_depth=8, engine='spec', seed=2,
+        torch_loglike=loglike or prob.torch_loglike, device='cpu')
+    return s, dict(RUN, min_num_live_points=100, region_class=tml.SimpleRegion,
+                   cluster_num_live_points=0)
+
+
+FITS = dict(eggbox=_eggbox, spec=_spec)
+
+
+def _run(fit, loglike=None):
+    """(sampler, run()'s wall) of fit *fit*."""
+    sampler, kw = FITS[fit](loglike)
+    t0 = time.perf_counter()
+    sampler.run(**kw)
+    return sampler, time.perf_counter() - t0
+
+
+def _calls_of_record_function(monkeypatch):
+    calls = []
+    real = torch.profiler.record_function
+
+    def counted(name, *args):
+        calls.append(name)
+        return real(name, *args)
+    monkeypatch.setattr(torch.profiler, 'record_function', counted)
+    return calls
+
+
+@pytest.fixture(scope='module')
+def runs():
+    """fit -> (sampler, run()'s wall, the names record_function was
+    called with, whether gc.callbacks came out as they went in)."""
+    out = {}
+    for fit in FITS:
+        with pytest.MonkeyPatch.context() as mp:
+            calls = _calls_of_record_function(mp)
+            before = list(gc.callbacks)
+            out[fit] = _run(fit) + (calls, gc.callbacks == before)
+    return out
+
+
+def _seconds(rec):
+    return {k: v for k, v in rec.items() if not k.endswith('#')}
+
+
+@pytest.mark.parametrize('fit', sorted(FITS))
+def test_phases_keep_their_keys_and_children_their_parents(runs, fit):
+    sampler = runs[fit][0]
+    rec = sampler._segment_phase_s
+    assert isinstance(rec, tracing.Spans) and isinstance(rec, dict)
+    for key in PHASES + ('prepare', 'classic', 'plan', 'segment',
+                         'fetch/wait', 'fetch/parse', 'results/combine',
+                         'results/replay', 'rebuild/layer', 'rebuild/radius',
+                         'rebuild/ellipsoid', 'rebuild/tregion'):
+        assert rec.get(key + '#', 0) >= 1, key
+    secs = _seconds(rec)
+    for key, v in secs.items():
+        assert v >= 0 and rec[key + '#'] >= 1
+        if '/' in key:
+            parent = key.rsplit('/', 1)[0]
+            assert v <= secs[parent] + 1e-9, (key, v, secs[parent])
+    # one parse for every fetch, which waits for its records (and the
+    # walk's counts)
+    assert rec['fetch/parse#'] == rec['fetch#']
+    assert rec['fetch/wait#'] == rec['fetch#'] * (2 if fit == 'spec' else 1)
+    if fit == 'spec':
+        # the walk's flag reads wait under 'launch'; the diagnostics
+        assert rec['launch/wait#'] >= 1
+        assert rec['fetch/diagnose#'] == rec['fetch#']
+
+
+@pytest.mark.parametrize('fit', sorted(FITS))
+def test_top_level_spans_cover_the_run(runs, fit):
+    sampler, wall = runs[fit][:2]
+    rec = sampler._segment_phase_s
+    top = sum(v for k, v in _seconds(rec).items() if '/' not in k
+              and k not in ('segment', 'gc'))
+    assert top == pytest.approx(sum(rec.get(k, 0.0) for k in TOP))
+    assert 0.95 * wall <= top <= wall
+    # 'segment' holds launch, fetch, replay and rebuild, and no more
+    inner = rec['launch'] + rec['fetch'] + rec['replay'] + rec['rebuild']
+    assert inner <= rec['segment'] + 1e-9
+    assert rec['segment'] <= inner + 0.02 * wall
+
+
+def _annotations(prof):
+    """(start, end, name) of the user annotations on the host."""
+    from torch._C._autograd import DeviceType
+    return [(e.start_ns(), e.end_ns(), e.name())
+            for e in prof.profiler.kineto_results.events()
+            if e.is_user_annotation() and e.device_type() == DeviceType.CPU]
+
+
+@pytest.mark.parametrize('fit', sorted(FITS))
+def test_ranges_under_the_profiler_are_named_and_nested_by_key(
+        fit, monkeypatch):
+    calls = _calls_of_record_function(monkeypatch)
+    before = list(gc.callbacks)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        sampler, _ = _run(fit)
+    assert gc.callbacks == before
+    rec = sampler._segment_phase_s
+    spans = [a for a in _annotations(prof) if a[2] in rec]
+    names = [a[2] for a in spans]
+    assert sorted(names) == sorted(calls)
+    for key in RANGED:
+        assert names.count(key) == rec.get(key + '#', 0), key
+    assert set(names) <= set(RANGED)
+    # 'segment' holds the segment loop's top-level spans on the timeline
+    # and adds nothing to their keys
+    for a0, a1, key in spans:
+        outer = [s for s in spans if s[0] <= a0 and a1 <= s[1]
+                 and s != (a0, a1, key)]
+        keyed = [s for s in outer if s[2] != 'segment']
+        if '/' in key:
+            parent = min(keyed, key=lambda s: s[1] - s[0])
+            assert parent[2] == key.rsplit('/', 1)[0], key
+        else:
+            assert not keyed, (key, keyed[:3])
+            assert not outer or key == 'rebuild', (key, outer[:3])
+
+
+@pytest.mark.parametrize('fit', sorted(FITS))
+def test_no_range_and_no_gc_hook_without_a_profiler(runs, fit):
+    sampler, _, calls, gc_hooks_kept = runs[fit]
+    assert calls == []
+    assert gc_hooks_kept
+    assert 'gc' not in sampler._segment_phase_s
+
+
+def test_gc_is_counted_while_the_profiler_records():
+    prob = problems.asymgauss(ndim=8, sigma_min=0.01)
+    collected = []
+
+    def loglike(x):
+        # one collection with something to collect, inside run()
+        if not collected:
+            a = []
+            a.append(a)
+            del a
+            collected.append(gc.collect())
+        return prob.torch_loglike(x)
+    before = list(gc.callbacks)
+    with profile(activities=[ProfilerActivity.CPU]):
+        sampler, _ = _run('spec', loglike)
+    assert gc.callbacks == before
+    rec = sampler._segment_phase_s
+    assert collected and rec['gc#'] >= 1 and rec['gc'] > 0
+
+
+class _SlowEvent:
+    """A CUDA event's stand-in that completes after a few queries."""
+
+    def __init__(self, queries):
+        self.queries = queries
+
+    def query(self):
+        self.queries -= 1
+        time.sleep(0.002)
+        return self.queries < 0
+
+    def synchronize(self):
+        time.sleep(0.01)
+
+
+def test_wait_ready_books_wait_under_the_innermost_span(monkeypatch):
+    monkeypatch.delenv('ULTRANEST_TORCH_DISPATCH_DEADLINE', raising=False)
+    rec = tracing.Spans()
+    rec.reset()
+    launch.wait_ready(_SlowEvent(3))          # no run in progress
+    assert rec == {}
+    with rec.running():
+        rec.open('fetch', ranged=False)
+        launch.wait_ready(_SlowEvent(3))
+        launch.wait_ready(None)
+        rec.switch('launch', ranged=False)
+        launch.wait_ready(_SlowEvent(1), deadline=0)   # synchronize()
+    assert rec['fetch/wait#'] == 2 and rec['launch/wait#'] == 1
+    assert 0.006 <= rec['fetch/wait'] <= rec['fetch']
+    assert 0.01 <= rec['launch/wait'] <= rec['launch']
+    assert tracing._current is None
+
+
+def test_spans_nest_switch_and_unwind():
+    rec = tracing.Spans()
+    rec.reset()
+    rec.open('prepare')
+    with rec.count('layer'):
+        rec.book('wait', 0.5)
+    rec.switch('classic')
+    assert rec.innermost == 'classic'
+    rec.unwind()
+    rec.open('segment', nests=False)
+    rec.open('launch', ranged=False)
+    with rec.count('capture'):
+        pass
+    rec.switch('fetch', ranged=False)
+    rec.unwind()
+    assert rec.innermost is None
+    assert set(_seconds(rec)) == {
+        'prepare', 'prepare/layer', 'prepare/layer/wait', 'classic',
+        'segment', 'launch', 'launch/capture', 'fetch'}
+    assert rec['prepare/layer/wait'] == 0.5
+    assert all(rec[k + '#'] == 1 for k in _seconds(rec))
+    rec.reset()
+    assert rec == {} and rec.ranges is False

@@ -31,6 +31,7 @@ Matmuls run in full f32: TF32 must stay off
 import numpy as np
 import torch
 
+from . import tracing
 from .ops import kernels
 from .ops.pairwise import pad_rows, pairwise_sqdist, round_up
 from .parallel import (all_gather_rows, check_mesh, psum, shard_count,
@@ -522,7 +523,12 @@ class FusedRegionSampler:
 
     def segment_fetch(self):
         """Wait for the oldest queued segment; returns parsed records."""
-        packed = finish_fetch(self._seg_queue.pop(0)).astype(float)
+        raw = finish_fetch(self._seg_queue.pop(0))
+        with tracing.count('parse'):
+            return self._segment_parse(raw.astype(float))
+
+    def _segment_parse(self, packed):
+        """The records of a fetched segment (:meth:`segment_fetch`)."""
         d = self.x_dim
         rows, scal = packed[:-1], packed[-1]
         # guard against f32 rounding onto the cube boundary

@@ -86,6 +86,7 @@ from .parallel.strategy import bootstrap_kl_table
 from .store import HDF5PointStore
 from .store import NullPointStore
 from .store import TextPointStore
+from .tracing import Spans
 from .utils import create_logger
 from .utils import is_affine_transform
 from .utils import listify as _listify
@@ -1027,6 +1028,8 @@ class ReactiveNestedSampler:
                     "delete '%s'." % log_dir)
         self._set_likelihood_function(transform, loglike, num_test_samples)
         self.stepsampler = None
+        # the spans of the latest run (ultranest_torch.tracing)
+        self._segment_phase_s = Spans()
         self._init_fused_sampler(torch_loglike, torch_transform, seed, mesh)
 
     def _parse_wrapped(self, wrapped_params):
@@ -1731,16 +1734,20 @@ class ReactiveNestedSampler:
 
     def _init_region(self, active_u, active_node_ids, nbootstraps, minvol):
         """Build the very first region of a pass from the live points."""
-        self.transformLayer = self.transform_layer_class(
-            wrapped_dims=self.wrapped_axes)
-        self.transformLayer.optimize(active_u, active_u, minvol=minvol)
-        self.region = self.region_class(active_u, self.transformLayer,
-                                        device=self.device)
+        spans = self._segment_phase_s
+        with spans.count('layer'):
+            self.transformLayer = self.transform_layer_class(
+                wrapped_dims=self.wrapped_axes)
+            self.transformLayer.optimize(active_u, active_u, minvol=minvol)
+            self.region = self.region_class(active_u, self.transformLayer,
+                                            device=self.device)
         self.region_nodes = active_node_ids.copy()
         assert self.region.maxradiussq is None
-        _update_region_bootstrap(self.region, nbootstraps, minvol,
-                                 rng=self.rng, mesh=self.mesh)
-        self.region.create_ellipsoid(minvol=minvol)
+        with spans.count('radius'):
+            _update_region_bootstrap(self.region, nbootstraps, minvol,
+                                     rng=self.rng, mesh=self.mesh)
+        with spans.count('ellipsoid'):
+            self.region.create_ellipsoid(minvol=minvol)
 
     def _refit_region_radius(self, active_u, active_node_ids, nbootstraps,
                              minvol):
@@ -1754,19 +1761,23 @@ class ReactiveNestedSampler:
 
         Returns True if unassigned points remain.
         """
+        spans = self._segment_phase_s
         oldu = self.region.u
         self.region.u = active_u
         self.region_nodes = active_node_ids.copy()
-        self.region.set_transformLayer(self.transformLayer)
-        _update_region_bootstrap(self.region, nbootstraps, minvol,
-                                 rng=self.rng, mesh=self.mesh)
-
-        oldt = self.transformLayer.transform(oldu)
-        self.transformLayer.clusterids = match_clusters(
-            oldt, self.transformLayer.clusterids,
-            self.region.unormed, self.region.maxradiussq, device=self.device)
+        with spans.count('layer'):
+            self.region.set_transformLayer(self.transformLayer)
+        with spans.count('radius'):
+            _update_region_bootstrap(self.region, nbootstraps, minvol,
+                                     rng=self.rng, mesh=self.mesh)
+        with spans.count('layer'):
+            oldt = self.transformLayer.transform(oldu)
+            self.transformLayer.clusterids = match_clusters(
+                oldt, self.transformLayer.clusterids, self.region.unormed,
+                self.region.maxradiussq, device=self.device)
         assert len(self.region.u) == len(self.transformLayer.clusterids)
-        self.region.create_ellipsoid(minvol=minvol)
+        with spans.count('ellipsoid'):
+            self.region.create_ellipsoid(minvol=minvol)
         return bool((self.transformLayer.clusterids == 0).any())
 
     def _fit_candidate_region(self, active_u, nbootstraps, minvol):
@@ -1776,25 +1787,30 @@ class ReactiveNestedSampler:
         promoted to errors, singular covariances) propagates to the
         caller, which then keeps the previous region.
         """
-        layer = self.transformLayer.create_new(
-            active_u, self.region.maxradiussq, minvol=minvol,
-            device=self.device)
-        assert not (layer.clusterids == 0).any()
-        _, cluster_sizes = np.unique(layer.clusterids, return_counts=True)
-        if self.log and cluster_sizes.min() == 1:
-            self.logger.debug(
-                "clustering found some stray points %s",
-                np.unique(layer.clusterids, return_counts=True))
-        if self.log and layer.nclusters >= 20:
-            self.logger.info(
-                "Found a lot of clusters: %d (%d with >1 members)",
-                layer.nclusters, (cluster_sizes > 1).sum())
-
-        candidate = self.region_class(active_u, layer, device=self.device)
-        assert np.isfinite(candidate.unormed).all()
-        _update_region_bootstrap(candidate, nbootstraps, minvol,
-                                 rng=self.rng, mesh=self.mesh)
-        candidate.create_ellipsoid(minvol=minvol)
+        spans = self._segment_phase_s
+        with spans.count('layer'):
+            layer = self.transformLayer.create_new(
+                active_u, self.region.maxradiussq, minvol=minvol,
+                device=self.device)
+            assert not (layer.clusterids == 0).any()
+            _, cluster_sizes = np.unique(layer.clusterids,
+                                         return_counts=True)
+            if self.log and cluster_sizes.min() == 1:
+                self.logger.debug(
+                    "clustering found some stray points %s",
+                    np.unique(layer.clusterids, return_counts=True))
+            if self.log and layer.nclusters >= 20:
+                self.logger.info(
+                    "Found a lot of clusters: %d (%d with >1 members)",
+                    layer.nclusters, (cluster_sizes > 1).sum())
+            candidate = self.region_class(active_u, layer,
+                                          device=self.device)
+            assert np.isfinite(candidate.unormed).all()
+        with spans.count('radius'):
+            _update_region_bootstrap(candidate, nbootstraps, minvol,
+                                     rng=self.rng, mesh=self.mesh)
+        with spans.count('ellipsoid'):
+            candidate.create_ellipsoid(minvol=minvol)
         return candidate, cluster_sizes
 
     def _check_live_point_health(self, active_u, region):
@@ -1853,15 +1869,18 @@ class ReactiveNestedSampler:
             updated = True
 
         assert len(self.region.u) == len(self.transformLayer.clusterids)
+        spans = self._segment_phase_s
         with warnings.catch_warnings(), np.errstate(all='raise'):
             try:
                 candidate, cluster_sizes = self._fit_candidate_region(
                     active_u, nbootstraps, minvol)
-                self.live_points_healthy = self._check_live_point_health(
-                    active_u, candidate)
-                assert (candidate.u == active_u).all()
-                if self._acceptable_region(candidate, cluster_sizes,
-                                           active_u, must_accept):
+                with spans.count('ellipsoid'):
+                    self.live_points_healthy = \
+                        self._check_live_point_health(active_u, candidate)
+                    assert (candidate.u == active_u).all()
+                    accept = self._acceptable_region(
+                        candidate, cluster_sizes, active_u, must_accept)
+                if accept:
                     self.region = candidate
                     self.transformLayer = candidate.transformLayer
                     self.region_nodes = active_node_ids.copy()
@@ -1872,7 +1891,8 @@ class ReactiveNestedSampler:
                     self.logger.debug("not updating region", exc_info=True)
 
         assert len(self.region.u) == len(self.transformLayer.clusterids)
-        self._refresh_tregion(active_p, nbootstraps)
+        with spans.count('tregion'):
+            self._refresh_tregion(active_p, nbootstraps)
         self._refresh_region_caches()
         self._region_membership_unchecked = True
         return updated
@@ -2155,9 +2175,20 @@ class ReactiveNestedSampler:
 
         Returns whether a rebuild was attempted this iteration.
         """
-        mi = st.main_iterator
-        if not mi.logVolremaining < st.next_update_interval_volume:
+        if not st.main_iterator.logVolremaining \
+                < st.next_update_interval_volume:
             return False
+        with self._segment_phase_s.span('rebuild'):
+            return self._refresh_region(
+                st, Lminval, active_u, active_p, active_node_ids,
+                active_rootids, active_values, viz_callback,
+                update_interval_volume_log_fraction)
+
+    def _refresh_region(self, st, Lminval, active_u, active_p,
+                        active_node_ids, active_rootids, active_values,
+                        viz_callback, update_interval_volume_log_fraction):
+        """Rebuild the region (:meth:`_refresh_region_if_due`, due)."""
+        mi = st.main_iterator
         if self.region is None:
             st.it_at_first_region = st.it
         region_fresh = self._update_region(
@@ -2472,33 +2503,25 @@ class ReactiveNestedSampler:
         if not hasattr(self, '_segment_exits'):
             from collections import Counter
             self._segment_exits = Counter()
-        if not hasattr(self, '_segment_phase_s'):
-            from collections import Counter
-            # wall-clock per engine phase: 'fetch' = blocked on the
-            # device (dispatch + transfer latency not hidden by the
-            # queue), 'launch' = host cost of argument pack + dispatch,
-            # 'replay' = host tree/counter/pointstore replay,
-            # 'rebuild' = region refresh. Published via bench extras.
-            self._segment_phase_s = Counter()
-        phase_s = self._segment_phase_s
-        tmark = time.perf_counter()
-
-        def _phase(name):
-            nonlocal tmark
-            now = time.perf_counter()
-            phase_s[name] += now - tmark
-            tmark = now
-
+        # the loop's phases, one after another: 'launch' (segment_start
+        # and the dispatches), 'fetch' (waiting for a dispatch and
+        # parsing it), 'replay' (the records into the tree) and
+        # 'rebuild' (a region refresh), all inside one 'segment' range
+        # a visit (ultranest_torch.tracing)
+        spans = self._segment_phase_s
+        spans.unwind()
+        spans.open('segment', nests=False)
+        spans.open('launch', ranged=False)
         ss.segment_start(self.pointpile.getu(ex.active_node_ids),
                          ex.active_node_values,
                          ndraw=_next_pow2(max(int(st.ndraw), 16)))
         try:
             for _ in range(depth):
                 ss.segment_launch(self.region, tregion=self.tregion)
-            _phase('launch')
+            spans.switch('fetch', ranged=False)
             while True:
                 rec = ss.segment_fetch()
-                _phase('fetch')
+                spans.switch('replay', ranged=False)
                 self.ncall += rec['nc']
                 self.ncall_region += rec['nc']
                 idx = np.flatnonzero(rec['accept'])
@@ -2686,16 +2709,16 @@ class ReactiveNestedSampler:
                     self._segment_exits['budget'] += 1
                     break
                 if mi.logVolremaining < st.next_update_interval_volume:
-                    _phase('replay')
+                    spans.switch('rebuild')
                     self.pointstore.flush()
                     active_u = self.pointpile.getu(ex.active_node_ids)
                     active_p = self.pointpile.getp(ex.active_node_ids)
-                    self._refresh_region_if_due(
+                    self._refresh_region(
                         st, self.Lmin, active_u, active_p,
                         ex.active_node_ids, ex.active_root_ids,
                         ex.active_node_values, opts['viz_callback'],
                         uivlf)
-                    _phase('rebuild')
+                    spans.switch('replay', ranged=False)
                     if not self.live_points_healthy:
                         self._segment_exits['unhealthy'] += 1
                         break
@@ -2710,9 +2733,9 @@ class ReactiveNestedSampler:
                                 < opts['max_num_improvement_loops']):
                         self._segment_exits['width'] += 1
                         break
-                _phase('replay')
+                spans.switch('launch', ranged=False)
                 ss.segment_launch(self.region, tregion=self.tregion)
-                _phase('launch')
+                spans.switch('fetch', ranged=False)
                 if self.log and time.time() > st.last_status + 0.2:
                     self._emit_status(st, self.Lmin, np.nan, np.nan,
                                       nlive, True, opts['show_status'])
@@ -2720,7 +2743,7 @@ class ReactiveNestedSampler:
             self._segment_exits['device-lost'] += 1
             self._degrade_to_host(e)
         finally:
-            _phase('replay')
+            spans.unwind()
             ss.segment_stop()
         return total
 
@@ -2735,6 +2758,10 @@ class ReactiveNestedSampler:
         target_min_num_children = opts['target_min_num_children']
         viz_callback = opts['viz_callback']
         uivlf = log(opts['update_interval_volume_fraction'])
+        # 'prepare' (open since the run started) ends with the first
+        # region; each run of iterations outside the segment loop is one
+        # 'classic' span
+        spans = self._segment_phase_s
 
         while True:
             # device segment fast path: consume whole dispatches of
@@ -2746,6 +2773,8 @@ class ReactiveNestedSampler:
             visit = st.explorer.next_node()
             if visit is None:
                 break
+            if spans.innermost is None:
+                spans.open('classic')
             rootid, node, (_, active_rootids, active_values,
                            active_node_ids) = visit
             assert not isinstance(rootid, float)
@@ -2770,6 +2799,8 @@ class ReactiveNestedSampler:
                 region_fresh = self._refresh_region_if_due(
                     st, node.value, active_u, active_p, active_node_ids,
                     active_rootids, active_values, viz_callback, uivlf)
+                if spans.innermost == 'prepare' and self.region is not None:
+                    spans.switch('classic')
 
                 if nlive < self.cluster_num_live_points * st.nclusters \
                         and opts['improvement_it'] \
@@ -2824,6 +2855,7 @@ class ReactiveNestedSampler:
         if self.log:
             self.logger.info("Explored until L=%.1g  ", node.value)
         self.pointstore.flush()
+        spans.unwind()
         return Llo, Lhi, strategy_stale
 
     def _live_coords_if_needed(self, st, Lmin, active_node_ids):
@@ -2944,40 +2976,49 @@ class ReactiveNestedSampler:
             "Invalid value for max_iters: %s." % max_iters)
         assert max_ncalls is None or max_ncalls > 0, (
             "Invalid value for max_ncalls: %s." % max_ncalls)
-        self._prepare_run(
-            opts['dlogz'], opts['frac_remain'],
-            opts['min_num_live_points'], opts['cluster_num_live_points'],
-            opts['region_class'],
-            opts['widen_before_initial_plateau_num_warn'],
-            opts['widen_before_initial_plateau_num_max'])
-        if opts['viz_callback'] == 'auto':
-            opts['viz_callback'] = get_default_viz_callback()
-        opts.update(minimal_widths=[], target_min_num_children={},
-                    improvement_it=0)
+        spans = self._segment_phase_s
+        spans.reset()
+        with spans.running():
+            spans.open('prepare')
+            self._prepare_run(
+                opts['dlogz'], opts['frac_remain'],
+                opts['min_num_live_points'],
+                opts['cluster_num_live_points'], opts['region_class'],
+                opts['widen_before_initial_plateau_num_warn'],
+                opts['widen_before_initial_plateau_num_max'])
+            if opts['viz_callback'] == 'auto':
+                opts['viz_callback'] = get_default_viz_callback()
+            opts.update(minimal_widths=[], target_min_num_children={},
+                        improvement_it=0)
 
-        Llo, Lhi = -np.inf, np.inf
-        Lmax = -np.inf
-        strategy_stale = True
-        self.results = None
-
-        while True:
-            st = self._begin_pass(Lmax, opts['minimal_widths'],
+            Llo, Lhi = -np.inf, np.inf
+            strategy_stale = True
+            self.results = None
+            st = self._begin_pass(-np.inf, opts['minimal_widths'],
                                   log_interval)
-            if self.log and (np.isfinite(Llo) or np.isfinite(Lhi)):
-                self.logger.info(
-                    "Exploring (in particular: L=%.2f..%.2f) ...", Llo, Lhi)
-            Llo, Lhi, strategy_stale = self._explore_pass(
-                st, Llo, Lhi, strategy_stale, opts)
-            self._update_results(st.main_iterator, st.saved_logl,
-                                 st.saved_nodeids)
-            yield self.results
 
-            Lmax = st.main_iterator.Lmax
-            plan = self._plan_more_work(st, Llo, Lhi, opts)
-            if plan is None:
-                break
-            Llo, Lhi = plan
-        self._warn_if_chains_short()
+            while True:
+                if self.log and (np.isfinite(Llo) or np.isfinite(Lhi)):
+                    self.logger.info(
+                        "Exploring (in particular: L=%.2f..%.2f) ...",
+                        Llo, Lhi)
+                Llo, Lhi, strategy_stale = self._explore_pass(
+                    st, Llo, Lhi, strategy_stale, opts)
+                self._update_results(st.main_iterator, st.saved_logl,
+                                     st.saved_nodeids)
+                yield self.results
+
+                with spans.span('plan'):
+                    plan = self._plan_more_work(st, Llo, Lhi, opts)
+                    if plan is None:
+                        self._warn_if_chains_short()
+                    else:
+                        st = self._begin_pass(
+                            st.main_iterator.Lmax, opts['minimal_widths'],
+                            log_interval)
+                if plan is None:
+                    break
+                Llo, Lhi = plan
 
     def _warn_if_chains_short(self):
         """Flag a step-sampler run whose chains did not decorrelate.
@@ -3078,13 +3119,14 @@ class ReactiveNestedSampler:
         if self.log:
             self.logger.info('Likelihood function evaluations: %d',
                              self.ncall)
-        if not hasattr(self, '_segment_phase_s'):
-            from collections import Counter
-            self._segment_phase_s = Counter()
-        t_assembly = time.perf_counter()
-
-        results = combine_results(saved_logl, saved_nodeids, self.pointpile,
-                                  main_iterator, mpi_comm=None)
+        # 'results': combine_results and the trace replay, without the
+        # chain files' I/O
+        spans = self._segment_phase_s
+        spans.open('results')
+        with spans.span('combine'):
+            results = combine_results(saved_logl, saved_nodeids,
+                                      self.pointpile, main_iterator,
+                                      mpi_comm=None)
         results['ncall'] = int(self.ncall)
         results['paramnames'] = self.paramnames + self.derivedparamnames
         results['logzerr_single'] = (
@@ -3094,8 +3136,10 @@ class ReactiveNestedSampler:
         # posterior assembly (combine_results) already ran above on the
         # run's own iterator; replaying it a second time for the fresh
         # counter would roughly double the results-assembly cost.
-        replayed = replay_sequence(self.root, self.pointpile,
-                                   random=True, check_insertion_order=True)
+        with spans.span('replay'):
+            replayed = replay_sequence(self.root, self.pointpile,
+                                       random=True,
+                                       check_insertion_order=True)
         if replayed is None:
             sequence, replay_iterator = None, None
         else:
@@ -3106,10 +3150,7 @@ class ReactiveNestedSampler:
                 converged=replay_iterator.insertion_order_converged,
             )
 
-        # 'results' phase: combine_results + trace replay (the chain
-        # files are I/O, not assembly) — published via bench extras so
-        # the host results-assembly floor is measured, not asserted
-        self._segment_phase_s['results'] += time.perf_counter() - t_assembly
+        spans.close()
         if self.log_to_disk and sequence is not None:
             self._write_chain_files(sequence, results, saved_logl)
         self.results = results

@@ -47,6 +47,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from .. import tracing
 from . import make_mesh, shard_count, shard_index
 
 __all__ = ['init_distributed', 'global_mesh', 'slice_mesh',
@@ -194,23 +195,28 @@ def wait_ready(event, deadline=None):
 
     *deadline* in seconds, None for :func:`dispatch_deadline`. Completed
     work costs one query; otherwise the host spins on ``query()`` with a
-    yield to other threads between queries.
+    yield to other threads between queries. The wait is booked as
+    ``wait`` in the sampler's run in progress (:mod:`ultranest_torch.tracing`).
     """
-    if is_ready(event):
-        return
-    if deadline is None:
-        deadline = dispatch_deadline()
-    if not deadline or deadline <= 0:
-        if event is not None:
-            event.synchronize()
-        return
-    t_end = time.monotonic() + deadline
-    while not is_ready(event):
-        if time.monotonic() > t_end:
-            raise DeviceLostError(
-                'device read exceeded the %g s dispatch deadline '
-                '(accelerator lost?)' % deadline)
-        time.sleep(0)
+    t0 = time.perf_counter()
+    try:
+        if is_ready(event):
+            return
+        if deadline is None:
+            deadline = dispatch_deadline()
+        if not deadline or deadline <= 0:
+            if event is not None:
+                event.synchronize()
+            return
+        t_end = time.monotonic() + deadline
+        while not is_ready(event):
+            if time.monotonic() > t_end:
+                raise DeviceLostError(
+                    'device read exceeded the %g s dispatch deadline '
+                    '(accelerator lost?)' % deadline)
+            time.sleep(0)
+    finally:
+        tracing.book('wait', time.perf_counter() - t0)
 
 
 def start_fetch(x):

@@ -76,6 +76,7 @@ import warnings
 import numpy as np
 import torch
 
+from . import tracing
 from .fused import _as_f32, _f32, _inside_ellipsoid, tregion_geometry
 from .ops import kernels
 from .ops.kernels import cube_intersection as _cube_intersection
@@ -388,7 +389,12 @@ class SpecGraphs:
         *n* rounds and the flag for each *n* in *sizes*. Returns the
         seconds it took, or None where the capture failed (then the
         stream and the allocator are as before, and :attr:`failed`
-        says why)."""
+        says why). Booked as ``capture`` in the sampler's run in
+        progress (:mod:`ultranest_torch.tracing`)."""
+        with tracing.count('capture'):
+            return self._capture(entry, sizes, body, flag)
+
+    def _capture(self, entry, sizes, body, flag):
         t0 = time.perf_counter()
         dev = entry.flag.device
         if dev.type != 'cuda':
@@ -1797,8 +1803,16 @@ class FusedPopulationSliceSampler(GenericPopulationSampler):
         adaptive nsteps governor, as the classic-mode harvest does.
         """
         handle, counts, at_nsteps, region = self._seg_queue.pop(0)
-        packed = finish_fetch(handle).astype(float)
+        raw = finish_fetch(handle)
         nc, nu = (int(c) for c in finish_fetch(counts))
+        with tracing.count('parse'):
+            rec = self._segment_parse(raw.astype(float), nc, nu, at_nsteps)
+        with tracing.count('diagnose'):
+            self._segment_diagnose(rec, at_nsteps, region)
+        return rec
+
+    def _segment_parse(self, packed, nc, nu, at_nsteps):
+        """The records of a fetched segment (:meth:`segment_fetch`)."""
         d = self._seg_ndim
         rows, scal = packed[:-1], packed[-1]
         # guard against f32 rounding onto the cube boundary (region
@@ -1820,7 +1834,6 @@ class FusedPopulationSliceSampler(GenericPopulationSampler):
         self.ncalls += rec['nc']
         self.ncalls_useful += rec['nc_useful']
         self._adapt_scale(rec['width'])
-        self._segment_diagnose(rec, at_nsteps, region)
         return rec
 
     def _segment_diagnose(self, rec, at_nsteps, region):

@@ -1,0 +1,205 @@
+# noqa: D400 D205
+"""
+Spans of a sampler's run
+------------------------
+
+Where the host's time goes in :meth:`ReactiveNestedSampler.run`: one
+:class:`Spans` record a sampler (``sampler._segment_phase_s``), cleared
+when a run starts. It is a flat dict, key -> seconds, with each key's
+count under the key and ``#`` (``'fetch/wait#'``).
+
+A span is a bracket, entered and left; a span entered inside another is
+its child, and its key is the parent's key, ``/``, its own name
+(``'rebuild/radius'``). The run's top-level spans follow one another
+and cover its wall:
+
+- ``prepare``: the first live points through the first region;
+- ``classic``: each unbroken run of the per-point iterations (its region
+  rebuilds are ``classic/rebuild``);
+- ``launch``, ``fetch``, ``replay`` and ``rebuild``: the segment loop's
+  dispatch (with ``segment_start``), waiting for and parsing a
+  dispatch's records, replaying them into the tree, and the region
+  rebuilds it makes;
+- ``results`` (``results/combine``, ``results/replay``): the results
+  of a pass, without writing the chain files;
+- ``plan``: deciding on another pass, and the chains' check at the end.
+
+Inside them: ``*/wait``, the host blocked on the device
+(:func:`ultranest_torch.parallel.launch.wait_ready`); ``fetch/parse``
+and ``fetch/diagnose`` (the population walks' diagnostics);
+``launch/capture``, CUDA graph captures; and ``rebuild/layer``,
+``rebuild/radius`` (the bootstrapped radius, kernel K2),
+``rebuild/ellipsoid`` (with the new region's acceptance) and
+``rebuild/tregion``, also under ``classic/rebuild`` and
+``prepare/rebuild``. Two keys overlap the spans and are never summed
+with them: ``segment``, one for each visit of the segment loop, and
+``gc``, Python's garbage collector.
+
+Each span costs one clock read at each edge. While torch's profiler
+records (checked once when a run starts), the spans ``prepare``,
+``classic``, ``segment``, ``rebuild``, ``results`` and ``plan``, and
+their children ``*/rebuild``, ``results/combine`` and
+``results/replay``, are also ``torch.profiler.record_function`` ranges
+named by their keys, on the profiler's timeline beside the device's
+work; and ``gc`` is counted from ``gc.callbacks``. The other spans are
+counted only, so that a run makes about as many ranges as it rebuilds
+its region: ``segment`` holds ``launch``, ``fetch``, ``replay`` and
+``rebuild`` on the timeline, while their keys stay at the top level.
+
+Code below the sampler (:mod:`ultranest_torch.parallel.launch`,
+:mod:`ultranest_torch.fused`, :mod:`ultranest_torch.popfused`) books
+into the run in progress with :func:`book` and :func:`count`, under
+its innermost open span.
+"""
+
+import contextlib
+import gc
+import time
+
+import torch
+
+__all__ = ['Spans', 'book', 'count']
+
+# the record of the run in progress (Spans.running)
+_current = None
+
+
+class _Edge:
+    """``with``: a span of a :class:`Spans` entered and left."""
+
+    __slots__ = ('spans', 'name', 'ranged')
+
+    def __init__(self, spans, name, ranged):
+        self.spans, self.name, self.ranged = spans, name, ranged
+
+    def __enter__(self):
+        self.spans.open(self.name, self.ranged)
+
+    def __exit__(self, *exc):
+        self.spans.close()
+
+
+class Spans(dict):
+    """One run's spans and counters; see the module's description."""
+
+    def __init__(self):
+        super().__init__()
+        # open spans: (key, children's key prefix, start, profiler range)
+        self._open = []
+        self.ranges = False       # whether spans are profiler ranges
+        self._gc_t0 = None
+
+    def reset(self):
+        """Clear the record for a new run; ranges from here on where
+        torch's profiler records now."""
+        self.unwind()
+        self.clear()
+        self.ranges = torch.autograd._profiler_enabled()
+
+    @property
+    def innermost(self):
+        """Key of the innermost open span, or None."""
+        return self._open[-1][0] if self._open else None
+
+    def _key(self, name):
+        prefix = self._open[-1][1] if self._open else None
+        return prefix + '/' + name if prefix else name
+
+    def _range(self, key):
+        if not self.ranges:
+            return None
+        rf = torch.profiler.record_function(key)
+        rf.__enter__()
+        return rf
+
+    def _add(self, key, seconds):
+        self[key] = self.get(key, 0.0) + seconds
+        self[key + '#'] = self.get(key + '#', 0) + 1
+
+    def _push(self, name, ranged, nests, now):
+        key = self._key(name)
+        prefix = key if nests else (self._open[-1][1] if self._open
+                                    else None)
+        rf = self._range(key) if ranged else None
+        self._open.append((key, prefix, now, rf))
+
+    def _pop(self, now):
+        key, _, t0, rf = self._open.pop()
+        self._add(key, now - t0)
+        if rf is not None:
+            rf.__exit__(None, None, None)
+
+    def open(self, name, ranged=True, nests=True):
+        """Enter span *name* inside the innermost open one; a profiler
+        range too where *ranged* and the profiler records. Where not
+        *nests*, the spans inside it take their keys as if it were not
+        open (``segment``)."""
+        self._push(name, ranged, nests, time.perf_counter())
+
+    def close(self):
+        """Leave the innermost open span."""
+        self._pop(time.perf_counter())
+
+    def switch(self, name, ranged=True):
+        """Leave the innermost open span and enter its sibling *name*, at
+        one clock read."""
+        now = time.perf_counter()
+        self._pop(now)
+        self._push(name, ranged, True, now)
+
+    def unwind(self, depth=0):
+        """Leave open spans until *depth* remain."""
+        while len(self._open) > depth:
+            self.close()
+
+    def span(self, name):
+        """``with``: a span, a profiler range while the profiler records."""
+        return _Edge(self, name, True)
+
+    def count(self, name):
+        """``with``: a span that is never a profiler range."""
+        return _Edge(self, name, False)
+
+    def book(self, name, seconds):
+        """Add *seconds*, measured by the caller, and one to the count of
+        *name* under the innermost open span."""
+        self._add(self._key(name), seconds)
+
+    def _gc(self, phase, info):
+        if phase == 'start':
+            self._gc_t0 = time.perf_counter()
+        elif self._gc_t0 is not None:
+            self._add('gc', time.perf_counter() - self._gc_t0)
+            self._gc_t0 = None
+
+    @contextlib.contextmanager
+    def running(self):
+        """Make this the run in progress that :func:`book` and
+        :func:`count` book into; while the profiler records, count the
+        garbage collector too. Every span left open is left on exit."""
+        global _current
+        previous, _current = _current, self
+        hook = self._gc if self.ranges else None
+        if hook is not None:
+            gc.callbacks.append(hook)
+        try:
+            yield self
+        finally:
+            self.unwind()
+            if hook is not None:
+                gc.callbacks.remove(hook)
+                self._gc_t0 = None
+            _current = previous
+
+
+def book(name, seconds):
+    """Book *seconds* under *name* in the run in progress, if any."""
+    rec = _current
+    if rec is not None:
+        rec.book(name, seconds)
+
+
+def count(name):
+    """``with``: a counted span *name* of the run in progress, if any."""
+    rec = _current
+    return rec.count(name) if rec is not None else contextlib.nullcontext()
