@@ -46,6 +46,7 @@ is identical on every rank.
 
 import csv
 import json
+import math
 import os
 import sys
 import time
@@ -1898,35 +1899,34 @@ class ReactiveNestedSampler:
         return updated
 
     def _refresh_region_caches(self):
-        """Rebuild the per-iteration caches derived from the region.
-
-        * cluster occupancy counts (and how many ids hold >1 point), so
-          the per-iteration expansion test does not re-run np.unique
-          over the cluster labels 40k+ times per pass;
-        * node-id -> region-slot map, so replacing a live point does not
-          scan the whole region_nodes array.
-        Both are maintained incrementally by :meth:`_swap_into_region`
-        between rebuilds.
-        """
+        """Recount the cluster occupancy (and how many ids hold >1 point),
+        so the per-iteration expansion test does not re-run np.unique
+        over the cluster labels 40k+ times per pass; kept by
+        :meth:`_unassign_clusters` between rebuilds."""
         ids = self.transformLayer.clusterids
         self._cluster_counts = np.bincount(ids).astype(np.int64)
         self._n_multi_clusters = int((self._cluster_counts > 1).sum())
-        slots = {}
-        for slot, nid in enumerate(self.region_nodes):
-            slots.setdefault(int(nid), []).append(slot)
-        self._region_node_slots = slots
 
-    def _cluster_label_zeroed(self, old_id):
-        """Track one point moving from cluster *old_id* to unassigned."""
-        counts = self._cluster_counts
-        old_id = int(old_id)
-        if old_id != 0:
-            if counts[old_id] == 2:
-                self._n_multi_clusters -= 1
-            counts[old_id] -= 1
-            if counts[0] == 1:
-                self._n_multi_clusters += 1
-            counts[0] += 1
+    def _region_slots(self, node_ids):
+        """Region slot of each of *node_ids*, -1 where the region holds no
+        such node (``region_nodes`` holds distinct ids)."""
+        rn = self.region_nodes
+        order = np.argsort(rn, kind='stable')
+        pos = np.minimum(np.searchsorted(rn[order], node_ids), rn.size - 1)
+        return np.where(rn[order[pos]] == node_ids, order[pos], -1)
+
+    def _unassign_clusters(self, slots):
+        """Move the region points at *slots* to cluster 0 (unassigned),
+        keeping the cluster counts."""
+        ids = self.transformLayer.clusterids
+        old = ids[slots]
+        old = old[old != 0]
+        if old.size:
+            counts = self._cluster_counts
+            counts -= np.bincount(old, minlength=counts.size)
+            counts[0] += old.size
+            self._n_multi_clusters = int((counts > 1).sum())
+        ids[slots] = 0
 
     def _refresh_tregion(self, active_p, nbootstraps):
         """Fit the p-space wrapping ellipsoid (pre-filter for candidates)."""
@@ -2277,42 +2277,106 @@ class ReactiveNestedSampler:
             self.pointstore.add_many(np.concatenate(rows, axis=0),
                                      self.ncall)
 
-    def _insertion_test_batch(self, st, ranks, nlive, zst, win):
-        """Feed a batch of insertion ranks to the MWW U-test, vectorized.
+    def _replay_rows(self, st, w_a, Lnew_a, u_a, p_a):
+        """Insert a dispatch's accepted rows into the tree, in order.
 
-        Exactly equivalent to per-row :meth:`UniformOrderAccumulator.add`
-        + threshold/window checks (the classic loop at
-        :meth:`_track_insertion_order`), but the scan between reset
-        events is one cumulative-sum pass — resets are rare, so the
-        python cost is O(events), not O(rows).
+        Row j replaces the live point at index ``w_a[j]``: it consumes
+        the value held there, its f64 value *Lnew_a[j]* is clamped one
+        ulp above that value where an f32-boundary inversion put it at
+        or below, and it becomes the child of the node there and takes
+        over the node's region slot. Rows at one index chain: a row's
+        predecessor is the index's previous row. Returns the consumed
+        and the (clamped) new values.
+        """
+        ex = st.explorer
+        k = len(w_a)
+        spans = self._segment_phase_s
+        # each row's predecessor (-1: the live point itself) and the last
+        # row at each index
+        order = np.argsort(w_a, kind='stable')
+        ws = w_a[order]
+        repeat = ws[1:] == ws[:-1]
+        prev = np.full(k, -1, dtype=np.int64)
+        prev[order[1:][repeat]] = order[:-1][repeat]
+        last = order[np.append(~repeat, True)]
+        w_last = w_a[last]
+        chained = bool(repeat.any())
+        vals = ex.active_node_values
+        Lnew_a = Lnew_a.copy()
+        Li_a = vals[w_a]
+        if chained:
+            with spans.count('chained'):
+                has = prev >= 0
+                Li_a[has] = Lnew_a[prev[has]]
+        bad = ~(Lnew_a > Li_a)
+        if bad.any():
+            if not chained:
+                Lnew_a[bad] = np.nextafter(Li_a[bad], np.inf)
+            else:
+                # a clamped value is its successor's consumed value
+                with spans.count('serial'):
+                    for j, p in enumerate(prev.tolist()):
+                        if p >= 0:
+                            Li_a[j] = Lnew_a[p]
+                        if not Lnew_a[j] > Li_a[j]:
+                            Lnew_a[j] = np.nextafter(Li_a[j], np.inf)
+        vals[w_last] = Lnew_a[last]
+
+        nodes = ex.active_nodes
+        live_ids = ex.active_node_ids
+        base = self.pointpile.add_many(u_a, p_a)
+        child_ids = np.arange(base, base + k, dtype=np.int64)
+        children = list(map(TreeNode, Lnew_a.tolist(), range(base, base + k)))
+        for child, w, p in zip(children, w_a.tolist(), prev.tolist()):
+            (children[p] if p >= 0 else nodes[w]).children.append(child)
+        st.saved_nodeids.extend(
+            np.where(prev < 0, live_ids[w_a], child_ids[prev]).tolist())
+        slots = self._region_slots(live_ids[w_last])
+        for w, j in zip(w_last.tolist(), last.tolist()):
+            nodes[w] = children[j]
+        live_ids[w_last] = child_ids[last]
+
+        # between rebuilds the region follows the live points
+        has = slots >= 0
+        if has.any():
+            slots, rows = slots[has], last[has]
+            self.region_nodes[slots] = child_ids[rows]
+            self._unassign_clusters(slots)
+            region = self.region
+            region.u[slots] = u_a[rows]
+            region.unormed = self.transformLayer.transform(region.u)
+            region.ellipsoid_center = region.u.mean(axis=0)
+        return Li_a, Lnew_a
+
+    def _insertion_test_batch(self, st, ranks, nlive, zst, win):
+        """Feed a batch of insertion ranks to the MWW U-test.
+
+        The per-row :meth:`UniformOrderAccumulator.add` and
+        threshold/window checks of the classic loop
+        (:meth:`_track_insertion_order`), in plain floats, with one
+        association of the running sum: the sum before an event or the
+        batch plus the ranks' sum since, left to right.
         """
         acc = st.insertion_test
-        norm = (np.asarray(ranks, float) + 0.5) / nlive
-        i, k = 0, len(norm)
-        while i < k:
-            # the window expiry guarantees an event within win+1 rows,
-            # so each scan is bounded: total cost O(k), not O(k^2/win)
-            m = min(k - i, max(int(win) - acc.N + 1, 1))
-            S = acc.U + np.cumsum(norm[i:i + m])
-            n = acc.N + 1 + np.arange(m)
-            z = (S - 0.5 * n) / np.sqrt(n / 12.0)
-            trig = np.flatnonzero((np.abs(z) > zst) | (n > win))
-            if trig.size == 0:
-                acc.load(S[-1], n[-1])
-                i += m
-                continue
-            j = int(trig[0])
-            acc.load(S[j], n[j])
-            if abs(acc.zscore) > zst:
-                st.insertion_test_runs.append(acc.N)
-                st.insertion_test_quality = acc.N
-                st.insertion_test_direction = np.sign(acc.zscore)
+        U0, c, n = acc.U, 0.0, acc.N
+        for r in ((np.asarray(ranks, float) + 0.5) / nlive).tolist():
+            # the sum since the last event or the batch's start, added
+            # to the sum before it
+            c += r
+            n += 1
+            S = U0 + c
+            if abs((S - 0.5 * n) / math.sqrt(n / 12.0)) > zst or n > win:
+                acc.load(S, n)
+                if abs(acc.zscore) > zst:
+                    st.insertion_test_runs.append(acc.N)
+                    st.insertion_test_quality = acc.N
+                    st.insertion_test_direction = np.sign(acc.zscore)
+                else:
+                    st.insertion_test_quality = np.inf
+                    st.insertion_test_direction = 0
                 acc.reset()
-            else:
-                st.insertion_test_quality = np.inf
-                st.insertion_test_direction = 0
-                acc.reset()
-            i += j + 1
+                U0, c, n = acc.U, 0.0, acc.N
+        acc.load(U0 + c, n)
 
     def _track_insertion_order(self, st, L, nlive, active_values,
                                zscore_threshold, window):
@@ -2336,8 +2400,7 @@ class ReactiveNestedSampler:
         Between rebuilds the region follows the live points; the
         ellipsoid center is re-meaned incrementally instead of refit.
         """
-        slot = self._region_node_slots.pop(int(node.id), [])
-        self._region_node_slots.setdefault(int(child.id), []).extend(slot)
+        slot = np.flatnonzero(self.region_nodes == node.id)
         self.region_nodes[slot] = child.id
         if len(slot):
             removed_sum = self.region.u[slot].sum(axis=0)
@@ -2349,9 +2412,7 @@ class ReactiveNestedSampler:
                 + (len(slot) * u - removed_sum) / len(self.region.u))
         if self.tregion:
             self.tregion.update_center(np.mean(active_p, axis=0))
-        for s in slot:
-            self._cluster_label_zeroed(self.transformLayer.clusterids[s])
-        self.transformLayer.clusterids[slot] = 0
+        self._unassign_clusters(slot)
 
     def _emit_status(self, st, Lmin, Llo, Lhi, nlive, strategy_stale,
                      show_status):
@@ -2598,69 +2659,11 @@ class ReactiveNestedSampler:
                     u_a = u_acc[sl]
                     p_a = p_acc[sl]
                     w_a = w_seq[sl]
-                    # replay the f64 values through the slot mirror:
-                    # the consumed value is whatever the slot held, and
-                    # rare f32-boundary inversions (device accepted but
-                    # f64 says not-above) are clamped one ulp above
-                    vals = ex.active_node_values
-                    Lnew_a = L64[sl].copy()
-                    # distinct worst slots (the common case) have no
-                    # within-batch chaining: the mirror update is one
-                    # gather/scatter instead of a python loop
-                    distinct_w = np.unique(w_a).size == stop_at
-                    if distinct_w:
-                        Li_a = vals[w_a].copy()
-                        bad = ~(Lnew_a > Li_a)
-                        if bad.any():
-                            Lnew_a[bad] = np.nextafter(Li_a[bad], np.inf)
-                        vals[w_a] = Lnew_a
-                    else:
-                        Li_a = np.empty(stop_at)
-                        for j in range(stop_at):
-                            w = int(w_a[j])
-                            Li_a[j] = vals[w]
-                            if not Lnew_a[j] > Li_a[j]:
-                                Lnew_a[j] = np.nextafter(Li_a[j], np.inf)
-                            vals[w] = Lnew_a[j]
+                    Li_a, Lnew_a = self._replay_rows(st, w_a, L64[sl],
+                                                     u_a, p_a)
                     mi.passing_segment(Li_a, ex.active_root_ids[w_a],
                                        lse_seq[sl], nlive0=nlive)
                     mi.Lmax = max(mi.Lmax, float(Lnew_a.max()))
-                    nodes = ex.active_nodes
-                    # batch point-pile append: ids are sequential from
-                    # base, so the TreeNodes can be built up front
-                    base = self.pointpile.add_many(u_a, p_a)
-                    children = [TreeNode(value=float(Lnew_a[j]),
-                                         id=base + j)
-                                for j in range(stop_at)]
-                    child_ids = np.arange(base, base + stop_at,
-                                          dtype=np.int64)
-                    if distinct_w:
-                        st.saved_nodeids.extend(
-                            ex.active_node_ids[w_a].tolist())
-                    # hot replay loop: python-native scalars only (numpy
-                    # scalar indexing costs more than the rest of the body)
-                    slot_rows, slot_urows = [], []
-                    region_slots = self._region_node_slots
-                    clusterids = self.transformLayer.clusterids
-                    zeroed = self._cluster_label_zeroed
-                    saved_nodeids = st.saved_nodeids
-                    for j, w in enumerate(w_a.tolist()):
-                        node = nodes[w]
-                        child = children[j]
-                        node.children.append(child)
-                        if not distinct_w:
-                            saved_nodeids.append(node.id)
-                        nodes[w] = child
-                        slot = region_slots.pop(node.id, None)
-                        if slot:
-                            region_slots.setdefault(
-                                child.id, []).extend(slot)
-                            self.region_nodes[slot] = child.id
-                            for s in slot:
-                                zeroed(clusterids[s])
-                            clusterids[slot] = 0
-                            slot_rows.extend(slot)
-                            slot_urows.extend([j] * len(slot))
                     if it_test:
                         self._insertion_test_batch(
                             st, rank_seq[:stop_at], nlive, zst, win)
@@ -2674,7 +2677,6 @@ class ReactiveNestedSampler:
                         observe(rank_seq[:stop_at], nlive,
                                 rec.get('nsteps'))
                     st.saved_logl.extend(Li_a.tolist())
-                    ex.active_node_ids[w_a] = child_ids
                     if self.log_to_pointstore:
                         # this batch's chains ran at the at-launch
                         # nsteps (the governor may have changed it since)
@@ -2689,12 +2691,6 @@ class ReactiveNestedSampler:
                             self._log_segment_leftovers(
                                 rec, idx, stop_at, u_acc, p_acc, L64,
                                 Li_seq, quality)
-                    if slot_rows:
-                        self.region.u[slot_rows] = u_a[slot_urows]
-                        self.region.unormed = \
-                            self.transformLayer.transform(self.region.u)
-                        self.region.ellipsoid_center = \
-                            self.region.u.mean(axis=0)
                     st.it += stop_at
                     total += stop_at
                     self.Lmin = float(Li_a[-1])

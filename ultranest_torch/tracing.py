@@ -27,8 +27,10 @@ and cover its wall:
 Inside them: ``*/wait``, the host blocked on the device
 (:func:`ultranest_torch.parallel.launch.wait_ready`); ``fetch/parse``
 and ``fetch/diagnose`` (the population walks' diagnostics);
-``launch/capture``, CUDA graph captures; and ``rebuild/layer``,
-``rebuild/radius`` (the bootstrapped radius, kernel K2),
+``launch/capture``, CUDA graph captures; ``replay/chained``, a
+dispatch whose rows replace one live point more than once, and
+``replay/serial``, such a dispatch resolved row by row; and
+``rebuild/layer``, ``rebuild/radius`` (the bootstrapped radius, kernel K2),
 ``rebuild/ellipsoid`` (with the new region's acceptance) and
 ``rebuild/tregion``, also under ``classic/rebuild`` and
 ``prepare/rebuild``. Two keys overlap the spans and are never summed
