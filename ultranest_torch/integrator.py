@@ -44,6 +44,7 @@ the bootstrap radius rounds are sharded over the ranks, everything else
 is identical on every rank.
 """
 
+import contextlib
 import csv
 import json
 import math
@@ -1558,10 +1559,14 @@ class ReactiveNestedSampler:
         """
         ndraw = _next_pow2(max(ndraw, 16))
         if self.fused_sampler is not None:
-            # single fused device dispatch: draw + filter + transform + L
-            u, v, logl, nc, ndrawn = self.fused_sampler(
-                self.region, Lmin, ndraw, tregion=self.tregion,
-                method=METHOD_CYCLE[self._fused_method])
+            # single fused device dispatch: draw + filter + transform + L;
+            # in an improvement pass booked as 'improve/draw'
+            spans = self._segment_phase_s
+            with spans.count('draw') if spans.innermost == 'improve' \
+                    else contextlib.nullcontext():
+                u, v, logl, nc, ndrawn = self.fused_sampler(
+                    self.region, Lmin, ndraw, tregion=self.tregion,
+                    method=METHOD_CYCLE[self._fused_method])
             if len(u) == 0 or nc < max(1, ndrawn // 200):
                 # proposal strategy starved: rotate to the next one
                 self._fused_method = (self._fused_method + 1) \
@@ -2756,8 +2761,9 @@ class ReactiveNestedSampler:
         uivlf = log(opts['update_interval_volume_fraction'])
         # 'prepare' (open since the run started) ends with the first
         # region; each run of iterations outside the segment loop is one
-        # 'classic' span
+        # 'classic' span, or in a pass after the first one 'improve' span
         spans = self._segment_phase_s
+        outside = 'improve' if opts['improvement_it'] else 'classic'
 
         while True:
             # device segment fast path: consume whole dispatches of
@@ -2770,7 +2776,7 @@ class ReactiveNestedSampler:
             if visit is None:
                 break
             if spans.innermost is None:
-                spans.open('classic')
+                spans.open(outside)
             rootid, node, (_, active_rootids, active_values,
                            active_node_ids) = visit
             assert not isinstance(rootid, float)
@@ -2905,14 +2911,16 @@ class ReactiveNestedSampler:
 
         minimal_widths = opts['minimal_widths']
         target_min_num_children = opts['target_min_num_children']
+        spans = self._segment_phase_s
 
         if len(st.region_sequence) > 0:
             Lmin, nlive, nclusters, Lhi_seq = st.region_sequence[-1]
             nnodes_needed = self.cluster_num_live_points * nclusters
             if nlive < nnodes_needed:
-                Llo_new, _, plan = self._expand_nodes_before(
-                    Lmin, nnodes_needed,
-                    opts['update_interval_ncall'] or nlive)
+                with spans.count('widen'):
+                    Llo_new, _, plan = self._expand_nodes_before(
+                        Lmin, nnodes_needed,
+                        opts['update_interval_ncall'] or nlive)
                 target_min_num_children.update(plan)
                 minimal_widths.append((Llo_new, Lhi_seq, nnodes_needed))
                 return -np.inf, np.inf
@@ -2923,10 +2931,11 @@ class ReactiveNestedSampler:
                              st.main_iterator.logZerr_bs)
 
         saved_logl = np.asarray(st.saved_logl)
-        Nlive_min, (Llo_KL, Lhi_KL), (Llo_ess, Lhi_ess) = \
-            self._find_strategy(saved_logl, st.main_iterator,
-                                dlogz=opts['dlogz'], dKL=opts['dKL'],
-                                min_ess=opts['min_ess'])
+        with spans.count('strategy'):
+            Nlive_min, (Llo_KL, Lhi_KL), (Llo_ess, Lhi_ess) = \
+                self._find_strategy(saved_logl, st.main_iterator,
+                                    dlogz=opts['dlogz'], dKL=opts['dKL'],
+                                    min_ess=opts['min_ess'])
         Llo = min(Llo_ess, Llo_KL)
         Lhi = max(Lhi_ess, Lhi_KL)
         # numerical safety when all likelihood values are nearly equal
@@ -2934,26 +2943,28 @@ class ReactiveNestedSampler:
 
         if Nlive_min > self.min_num_live_points:
             self.min_num_live_points = Nlive_min
-            self._widen_roots_beyond_initial_plateau(
-                self.min_num_live_points,
-                opts['widen_before_initial_plateau_num_warn'],
-                opts['widen_before_initial_plateau_num_max'])
+            with spans.count('widen'):
+                self._widen_roots_beyond_initial_plateau(
+                    self.min_num_live_points,
+                    opts['widen_before_initial_plateau_num_warn'],
+                    opts['widen_before_initial_plateau_num_max'])
             return Llo, Lhi
 
         if Llo <= Lhi:
-            parents, parent_weights = find_nodes_before(self.root, Llo)
-            _, width = count_tree_between(self.root.children, Llo, Lhi)
-            nnodes_needed = width * 2
-            if self.log:
-                self.logger.info(
-                    'Widening from %d to %d live points before L=%.1g...',
-                    len(parents), nnodes_needed, Llo)
-            Llo = -np.inf if len(parents) == 0 \
-                else min(n.value for n in parents)
-            self.pointstore.reset()
-            target_min_num_children.update(self._widen_nodes(
-                parents, parent_weights, nnodes_needed,
-                opts['update_interval_ncall']))
+            with spans.count('widen'):
+                parents, parent_weights = find_nodes_before(self.root, Llo)
+                _, width = count_tree_between(self.root.children, Llo, Lhi)
+                nnodes_needed = width * 2
+                if self.log:
+                    self.logger.info(
+                        'Widening from %d to %d live points before '
+                        'L=%.1g...', len(parents), nnodes_needed, Llo)
+                Llo = -np.inf if len(parents) == 0 \
+                    else min(n.value for n in parents)
+                self.pointstore.reset()
+                target_min_num_children.update(self._widen_nodes(
+                    parents, parent_weights, nnodes_needed,
+                    opts['update_interval_ncall']))
             minimal_widths.append((Llo, Lhi, nnodes_needed))
             return Llo, Lhi
 

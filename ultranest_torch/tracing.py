@@ -22,7 +22,12 @@ and cover its wall:
   rebuilds it makes;
 - ``results`` (``results/combine``, ``results/replay``): the results
   of a pass, without writing the chain files;
-- ``plan``: deciding on another pass, and the chains' check at the end.
+- ``plan``: deciding on another pass, and the chains' check at the end;
+- ``improve``: in a pass after the first (an improvement pass, which
+  widens the tree where the reactive strategy asks for more live
+  points), each unbroken run of the per-point iterations, in the place
+  that ``classic`` has in the first pass (its region rebuilds are
+  ``improve/rebuild``).
 
 Inside them: ``*/wait``, the host blocked on the device
 (:func:`ultranest_torch.parallel.launch.wait_ready`); ``fetch/parse``
@@ -32,15 +37,22 @@ dispatch whose rows replace one live point more than once, and
 ``replay/serial``, such a dispatch resolved row by row; and
 ``rebuild/layer``, ``rebuild/radius`` (the bootstrapped radius, kernel K2),
 ``rebuild/ellipsoid`` (with the new region's acceptance) and
-``rebuild/tregion``, also under ``classic/rebuild`` and
-``prepare/rebuild``. Two keys overlap the spans and are never summed
+``rebuild/tregion``, also under ``classic/rebuild``,
+``prepare/rebuild`` and ``improve/rebuild``; ``improve/draw``, each
+batch of candidates that the per-point iterations of an improvement
+pass ask of the fused region sampler (the dispatch, the wait, which is
+``improve/draw/wait``, and the copy back; a first pass's batches keep
+``classic/wait``); ``plan/strategy``, the reactive strategy's verdict
+(``_find_strategy``), and ``plan/widen``, widening the tree for the
+next pass (``_expand_nodes_before``, ``_widen_nodes`` with the search
+for their parents, or ``_widen_roots_beyond_initial_plateau``). Two keys overlap the spans and are never summed
 with them: ``segment``, one for each visit of the segment loop, and
 ``gc``, Python's garbage collector.
 
 Each span costs one clock read at each edge. While torch's profiler
 records (checked once when a run starts), the spans ``prepare``,
-``classic``, ``segment``, ``rebuild``, ``results`` and ``plan``, and
-their children ``*/rebuild``, ``results/combine`` and
+``classic``, ``improve``, ``segment``, ``rebuild``, ``results`` and
+``plan``, and their children ``*/rebuild``, ``results/combine`` and
 ``results/replay``, are also ``torch.profiler.record_function`` ranges
 named by their keys, on the profiler's timeline beside the device's
 work; and ``gc`` is counted from ``gc.callbacks``. The other spans are
