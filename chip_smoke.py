@@ -5,7 +5,7 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
 
 1. checks for a CUDA device (exit 1 without one) and prints the card's
    name and power limit as ``nvidia-smi`` reports them;
-2. builds the eight CUDA kernels with nvcc (one compiler per source,
+2. builds the nine CUDA kernels with nvcc (one compiler per source,
    all started together) and prints the build time;
 3. holds each kernel against its plain torch version on the card, at
    the shapes its paths give it (K1 also at d 40, its path for d > 32,
@@ -21,7 +21,11 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    above one block and at an odd P, in each of its forms (one block or
    a grid; rank counting or radix selection); K7, the random walk's
    acceptance and next proposal, and its prologue, bit for bit with
-   rows outside the cube, on its faces and NaN), times them with CUDA
+   rows outside the cube, on its faces and NaN; K8, the transform
+   layer's radius graphs, its labels equal to its plain version's and
+   to label propagation's and its centred points within 1e-5, at the
+   rebuilds' shapes, with the rebuild's whole route timed beside the
+   host path it replaces), times them with CUDA
    events (the kernel also on the device alone, its calls queued behind
    a spin kernel; K4 to K7 also among 50 calls in a CUDA graph, beside
    an empty kernel's time there, the floor of a launch), and prints
@@ -182,6 +186,11 @@ KERNEL_NOTES = {
                     'ultranest_tpu/popfused.py:849'),
     'rwalk_accept': ('ultranest_torch/csrc/rwalk_accept.cu',
                      'ultranest_tpu/popfused.py:1612'),
+    # the transform layer's radius graphs: XLA and host code in the JAX
+    # package (connected_components, label_propagation_components,
+    # subtract_nearby), one kernel here
+    'radius_graph': ('ultranest_torch/csrc/radius_graph.cu',
+                     'ultranest_tpu/ops/cluster.py:37'),
 }
 # the paths beside the spec problems, the async engine and the mesh's
 # asymgauss50 whose spec walks must run (as CUDA graphs, K4 and K5
@@ -280,6 +289,9 @@ MEMBER_SHAPES = ((512, 4096, 2), (512, 131072, 2), (512, 4096, 16),
 # MLFriends.compute_maxradiussq), two words of bits
 BOOTSTRAP_SHAPES = ((400, 30, 2), (100, 30, 2), (200, 30, 8), (2048, 30, 8),
                     (400, 50, 2))
+# K8's shapes (N, d): the rebuilds' of eggbox2d.live800, of 400 live
+# points, the widest of an improvement pass, and d 8
+GRAPH_SHAPES = ((800, 2), (400, 2), (864, 2), (400, 8))
 
 
 def member_inputs(rng, npad, m, d):
@@ -378,6 +390,80 @@ def check_bootstrap_radius(kernels, rng, n, nrounds, d):
               n, len(masks), d, got, ms, dev, plain, bms, by, old_bms,
               host_ms, host))
     return 0.0, ms, plain, bms, by, dev
+
+
+def graph_inputs(rng, n, d):
+    """(u, t, r2) for K8: *n* points in 18 blobs of the unit cube (an
+    eggbox's live points late in a run), whitened per axis into t, and
+    twice t's largest nearest-neighbour distance, squared."""
+    import torch
+    from ultranest_torch.ops.pairwise import pairwise_sqdist
+    centres = rng.uniform(0.1, 0.9, size=(18, d))
+    u = (centres[rng.randint(18, size=n)]
+         + rng.normal(0, 0.01, size=(n, d))).clip(1e-3, 1 - 1e-3)
+    t = (u - u.mean(axis=0)) / u.std(axis=0)
+    tt = torch.as_tensor(t, dtype=torch.float32)
+    d2 = pairwise_sqdist(tt, tt)
+    d2.fill_diagonal_(float('inf'))
+    return u, t, 4 * float(d2.min(dim=1).values.max())
+
+
+def graph_bound(n, d, centre=True):
+    """Bound of K8: the t-space distances of the pairs j < i and, with
+    the centring, the u-space distances of all pairs, each 3 d operations
+    and a compare; the points read once, labels and centred points
+    written once."""
+    pairs = n * (n - 1) // 2 + (n * n if centre else 0)
+    values = n * d * (3 if centre else 1) + n
+    return bound(pairs * (3 * d + 1), 4 * values)
+
+
+def check_radius_graph(kernels, rng, n, d):
+    """K8 against its plain version (labels equal, centred points within
+    1e-5 relative) and label propagation on the card (labels equal),
+    timed; then the rebuild's whole route (one copy there, K8, one fetch
+    back) beside the host path it replaces on the card. Returns (max
+    |centred - plain|, kernel ms, plain ms, bound ms, what bounds it,
+    device ms)."""
+    import torch
+    from ultranest_torch.evaluate.bench_membership import cuda_ms
+    from ultranest_torch.ops import cluster, pairwise
+    u, t, r2 = graph_inputs(rng, n, d)
+    tt = torch.as_tensor(t, dtype=torch.float32, device='cuda')
+    uu = torch.as_tensor(u, dtype=torch.float32, device='cuda')
+    out = kernels.radius_graph(tt, uu, r2)
+    torch.cuda.synchronize()
+    labels, centred = kernels.radius_graph_parts(out, n)
+    want_labels, want_centred = kernels.radius_graph_parts(
+        kernels.radius_graph_plain(tt, uu, r2), n)
+    assert torch.equal(labels, want_labels), ('radius_graph labels', n, d)
+    assert np.array_equal(labels.cpu().numpy(),
+                          cluster.label_propagation_components(
+                              t, r2, device='cuda')), \
+        ('radius_graph labels against label propagation', n, d)
+    err = float((centred - want_centred).abs().max())
+    assert torch.allclose(centred, want_centred, rtol=1e-5, atol=1e-6), \
+        ('radius_graph centred', n, d, err)
+    ms = cuda_ms(lambda: kernels.radius_graph(tt, uu, r2), 50)
+    dev = queued_ms([lambda: kernels.radius_graph(tt, uu, r2)] * 50)
+    plain = cuda_ms(lambda: kernels.radius_graph_plain(tt, uu, r2), 5)
+    bms, by = graph_bound(n, d)
+    route = []
+    for fn in (lambda: cluster.radius_graphs(t, r2, u, device='cuda'),
+               lambda: (cluster.connected_components(t, r2, device='cpu'),
+                        pairwise.subtract_nearby(u, r2, device='cpu'))):
+        fn()
+        t0 = time.perf_counter()
+        for _ in range(20):
+            fn()
+        route.append((time.perf_counter() - t0) * 50)
+    print('K8 radius_graph N=%d d=%d: %d components, labels equal to plain '
+          'and to label propagation, centred within %.3g of plain; kernel '
+          '%.4f ms, device %.4f ms, plain %.4f ms, bound %.6f ms (%s); the '
+          'route (copy, K8, fetch) %.4f ms a call, the host path it '
+          'replaces %.4f ms' % (n, d, len(torch.unique(labels)), err, ms,
+                                dev, plain, bms, by, *route))
+    return err, ms, plain, bms, by, dev
 
 
 def queued_ms(fns):
@@ -3417,6 +3503,10 @@ def main(argv=()):
         'TF32 must stay off for the whitening matmuls'
 
     from ultranest_torch.ops import kernels
+    # the kernels whose launches are summed over the paths: the region
+    # path's, K8 of the region rebuilds, the population walks'
+    path_kernels = kernels.REGION_KERNELS + ('radius_graph',) + \
+        kernels.POPULATION_KERNELS
     t0 = time.time()
     so = kernels.build()
     print('built %s in %.2f s' % (so.rsplit('/', 1)[-1], time.time() - t0))
@@ -3442,6 +3532,9 @@ def main(argv=()):
     shapes['consume_scan'] = [check_consume_scan(kernels, rng, *shape)
                               for shape in SCAN_SHAPES]
     errs['consume_scan'] = 0.0
+    shapes['radius_graph'] = [check_radius_graph(kernels, rng, *shape)
+                              for shape in GRAPH_SHAPES]
+    errs['radius_graph'] = max(res[0] for res in shapes['radius_graph'])
     registers = {name: regs for name, regs, _ in
                  ptxas_summary(kernels.BUILD_LOG)}
     floor = check_launch_floor()[1]
@@ -3485,8 +3578,17 @@ def main(argv=()):
     print('eggbox phases (s):', json.dumps(run['phases_s']))
     print('eggbox segment exits:', json.dumps(run['segment_exits']))
     print('eggbox kernel launches:', json.dumps(run['launches']))
+    graphs = sum(v for k, v in run['phases_s'].items()
+                 if k.endswith('/graph#'))
+    assert graphs == run['launches'].get('radius_graph', 0) > 0 and not any(
+        k.endswith('/graph_host#') for k in run['phases_s']), \
+        ('eggbox rebuilds not all through K8', graphs)
+    print('eggbox K8: %d launches, one a transform layer (%.4f s under '
+          '*/layer/graph)' % (graphs, sum(
+              v for k, v in run['phases_s'].items()
+              if k.endswith('/graph'))))
     path_launches['eggbox'] = run['launches']
-    for name in kernels.REGION_KERNELS:
+    for name in kernels.REGION_KERNELS + ('radius_graph',):
         launches[name] = run['launches'][name]
 
     eggbox_region = eggbox_sampler[0].region
@@ -3550,7 +3652,7 @@ def main(argv=()):
     print_population_run(run)
     check_walk_path('gauss100_hard', walks.summary(), run['launches'],
                     ('spec',))
-    for k in kernels.REGION_KERNELS + kernels.POPULATION_KERNELS:
+    for k in path_kernels:
         launches[k] += run['launches'].get(k, 0)
 
     engines, engine_kept = {}, {}
@@ -3579,7 +3681,7 @@ def main(argv=()):
               json.dumps(run['segment_exits']))
         print('engine %s kernel launches:' % name,
               json.dumps(run['launches']))
-        for k in kernels.REGION_KERNELS + kernels.POPULATION_KERNELS:
+        for k in path_kernels:
             launches[k] += run['launches'].get(k, 0)
     ratio = engines['async']['ncall_per_iter'] / \
         engines['sync8']['ncall_per_iter']
@@ -3635,7 +3737,7 @@ def main(argv=()):
             out = run_fn(*args)
         traffic[name] = cap.calls
         path_launches[name] = out['launches']
-        for k in kernels.REGION_KERNELS + kernels.POPULATION_KERNELS:
+        for k in path_kernels:
             launches[k] += out['launches'].get(k, 0)
         check_walk_path(name, walks.summary(), out['launches'],
                         ('spec',) if name in SPEC_PATHS else ())
@@ -3680,7 +3782,7 @@ def main(argv=()):
             name = 'mesh_%s_rank%d' % (run, r['rank'])
             traffic[name] = calls[run]
             path_launches[name] = m['launches']
-            for k in kernels.REGION_KERNELS + kernels.POPULATION_KERNELS:
+            for k in path_kernels:
                 launches[k] += m['launches'].get(k, 0)
             check_walk_path(name, m['spec_walks'], m['launches'],
                             ('spec',) if run == 'asymgauss50' else ())
@@ -3761,7 +3863,7 @@ def main(argv=()):
                     for r in probes.rows])))
     print('chip_smoke: every phase passed in %.1f s' % (time.time() - t_start))
 
-    # no single PyTorch call computes any of the eight functions, so none
+    # no single PyTorch call computes any of the nine functions, so none
     # has a library yardstick (library_ms null); K7's launches are its
     # steps' and its prologues'
     launches['rwalk_accept'] += launches.pop('rwalk_propose')

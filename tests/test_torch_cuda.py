@@ -14,7 +14,7 @@ import numpy as np
 import pytest
 import torch
 
-from ultranest_torch import segmentops
+from ultranest_torch import segmentops, tracing
 from ultranest_torch.ops import cluster, kernels, pairwise
 from ultranest_torch.ops.bootstrap import make_bootstrap_masks, radius_inputs
 
@@ -671,6 +671,134 @@ def test_label_propagation_on_card(cuda, n, d):
     want = cluster.connected_components(pts, r2, device=cuda)
     np.testing.assert_array_equal(got, want)
     assert 1 <= len(np.unique(got)) < n
+
+
+def _graph_points(n, d, seed=0):
+    """(u, t, r2): *n* points of dimension *d* in 18 blobs of the unit
+    cube, whitened per axis into t, and the MLFriends-like radius of t
+    (its largest nearest-neighbour distance, doubled): the blobs are the
+    components."""
+    rng = np.random.RandomState(seed + n + d)
+    centres = rng.uniform(0.1, 0.9, size=(18, d))
+    u = (centres[rng.randint(18, size=n)]
+         + rng.normal(0, 0.01, size=(n, d))).clip(1e-3, 1 - 1e-3)
+    t = (u - u.mean(axis=0)) / u.std(axis=0) if n > 1 else u
+    tt = torch.as_tensor(t, dtype=torch.float32)
+    d2 = pairwise.pairwise_sqdist(tt, tt)
+    d2.fill_diagonal_(float('inf'))
+    return u, t, 4 * float(d2.min(dim=1).values.max()) if n > 1 else 1.0
+
+
+def _graph_against_routes(cuda, u, t, r2, monkeypatch):
+    """K8 on (u, t, r2) against its plain version, label propagation on
+    the card (labels equal) and subtract_nearby's torch route on the card
+    (1e-5 relative); labels alone, and a second call bit-equal."""
+    n = len(t)
+    tt = torch.as_tensor(t, dtype=torch.float32, device=cuda)
+    uu = torch.as_tensor(u, dtype=torch.float32, device=cuda)
+    kernels.reset_counts()
+    out = kernels.radius_graph(tt, uu, r2)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES['radius_graph'] == 1
+    assert sum(kernels.PLAIN_CALLS.values()) == 0
+    labels, centred = kernels.radius_graph_parts(out, n)
+    want_labels, want_centred = kernels.radius_graph_parts(
+        kernels.radius_graph_plain(tt, uu, r2), n)
+    assert torch.equal(labels, want_labels)
+    np.testing.assert_array_equal(
+        labels.cpu().numpy(),
+        cluster.label_propagation_components(t, r2, device=cuda))
+    np.testing.assert_allclose(centred.cpu().numpy(),
+                               want_centred.cpu().numpy(), rtol=1e-5,
+                               atol=1e-6)
+    monkeypatch.setattr(pairwise, 'HOST_WORK_THRESHOLD', 0)
+    np.testing.assert_allclose(
+        centred.cpu().numpy(), pairwise.subtract_nearby(u, r2, device=cuda),
+        rtol=1e-5, atol=1e-6)
+    monkeypatch.undo()
+    alone = kernels.radius_graph(tt, None, r2)
+    torch.cuda.synchronize()
+    assert torch.equal(alone, labels)
+    again = kernels.radius_graph(tt, uu, r2)
+    torch.cuda.synchronize()
+    assert torch.equal(again, out)
+    assert kernels.LAUNCHES['radius_graph'] == 3
+    return labels
+
+
+# the rebuilds' shapes (400 and 800 live points, 864 the widest of an
+# improvement pass, d 8), then the edges: one point, one block, the cap
+# at d 32 and at d 8
+@pytest.mark.parametrize('n,d', [(400, 2), (800, 2), (864, 2), (400, 8),
+                                 (1, 2), (33, 5), (384, 32), (1536, 8)])
+def test_radius_graph_equals_plain_and_the_card_routes(cuda, n, d,
+                                                       monkeypatch):
+    u, t, r2 = _graph_points(n, d)
+    labels = _graph_against_routes(cuda, u, t, r2, monkeypatch)
+    if n >= 400:
+        assert 10 <= len(torch.unique(labels)) <= 18
+    # a radius equal to a pair's distance (the nearest neighbour's of a
+    # middle point): that pair is adjacent (<=)
+    if n > 1:
+        tt = torch.as_tensor(t, dtype=torch.float32)
+        d2 = pairwise.pairwise_sqdist(tt, tt)
+        d2.fill_diagonal_(float('inf'))
+        r2b = float(d2.min(dim=1).values.median())
+        _graph_against_routes(cuda, u, t, r2b, monkeypatch)
+
+
+@pytest.mark.parametrize('d', [2, 8])
+def test_radius_graph_cap_and_beyond(cuda, d):
+    """At the cap the rebuild's route takes K8, one point beyond it the
+    host path; both agree with label propagation and the centring."""
+    cap = kernels.MAX_GRAPH_ELEMS // d
+    for n, route in ((cap, 'graph'), (cap + 1, 'graph_host')):
+        u, t, r2 = _graph_points(n, d, seed=1)
+        kernels.reset_counts()
+        spans = tracing.Spans()
+        with spans.running():
+            labels, centred = cluster.radius_graphs(t, r2, u, device=cuda)
+        torch.cuda.synchronize()
+        assert spans[route + '#'] == 1
+        assert kernels.LAUNCHES['radius_graph'] == (route == 'graph')
+        np.testing.assert_array_equal(
+            labels, cluster.label_propagation_components(t, r2, device=cuda))
+        np.testing.assert_allclose(
+            centred, pairwise.subtract_nearby(u, r2, device=cuda),
+            rtol=1e-5, atol=1e-6)
+
+
+def test_eggbox_rebuilds_take_k8(cuda):
+    """Every transform layer of an eggbox run on the card comes from K8:
+    one launch and one ``layer/graph`` a ``create_new``, no host graph."""
+    from ultranest_torch import ReactiveNestedSampler, mlfriends
+    from ultranest_torch.models.problems import eggbox
+    prob = eggbox()
+    s = ReactiveNestedSampler(
+        prob.param_names, prob.loglike, transform=prob.transform,
+        vectorized=True, seed=5, torch_loglike=prob.torch_loglike,
+        torch_transform=prob.torch_transform, device=cuda,
+        ndraw_min=4096, ndraw_max=32768)
+    made = []
+    create_new = mlfriends.LocalAffineLayer.create_new
+
+    def counted(self, *a, **k):
+        made.append(len(a[0]))
+        return create_new(self, *a, **k)
+    mlfriends.LocalAffineLayer.create_new = counted
+    try:
+        kernels.reset_counts()
+        res = s.run(min_num_live_points=400, viz_callback=False,
+                    show_status=False, max_num_improvement_loops=0,
+                    min_ess=0, dlogz=0.5, frac_remain=0.1)
+    finally:
+        mlfriends.LocalAffineLayer.create_new = create_new
+    spans = s._segment_phase_s
+    graph = sum(v for k, v in spans.items() if k.endswith('/graph#'))
+    assert made and graph == len(made) == kernels.LAUNCHES['radius_graph']
+    assert not any(k.endswith('graph_host#') for k in spans)
+    assert sum(kernels.PLAIN_CALLS.values()) == 0
+    assert abs(res['logz'] - 235.856) < max(4 * res['logzerr'], 1.0)
 
 
 def test_deadline_raises_behind_a_spin_kernel(cuda):

@@ -19,6 +19,12 @@ plain torch version; these tests hold those against the reference:
   per-word minima merged on the uint bits; K1: the valid rows squeezed
   out, G lanes a candidate, the chunked vote) against the plain versions
   exactly and against the reference; K1's group-size function;
+* a numpy model of what K8 does beyond its plain version (the
+  union-find with path halving that hooks the larger root under the
+  smaller, its edges queued 32 at a time and united in any order; the
+  neighbourhood sums per lane, then a butterfly over the warp) against
+  the plain version and against the reference's connected components;
+  K8's cap against the instantiations and staging of its source;
 * the port's own copies of the host C sources against the reference's,
   and that no module of the port names a path of the JAX package.
 
@@ -35,6 +41,7 @@ import pytest
 import torch
 
 from ultranest_tpu.ops.bootstrap import _radius_kernel
+from ultranest_tpu.ops.cluster import connected_components
 from ultranest_tpu.ops.pallas_kernels import (bootstrap_radius_pallas,
                                               radius_member_pallas)
 from ultranest_tpu.segmentops import consume_scan as jax_consume_scan
@@ -174,6 +181,154 @@ def test_wrappers_route_cpu_to_plain_and_refuse_other_devices():
                              torch.zeros(3))
     assert sum(kernels.LAUNCHES.values()) == 0
 
+
+
+def test_radius_graph_routes_cpu_to_plain_and_refuses_other_devices():
+    kernels.reset_counts()
+    tp = torch.zeros((4, 2))
+    out = kernels.radius_graph(tp, tp, 1.0)
+    assert kernels.PLAIN_CALLS['radius_graph'] == 1
+    labels, centred = kernels.radius_graph_parts(out, 4)
+    assert labels.tolist() == [0, 0, 0, 0] and not centred.any()
+    assert sum(kernels.LAUNCHES.values()) == 0
+    meta = torch.zeros((4, 2), device='meta')
+    with pytest.raises(ValueError):
+        kernels.radius_graph(meta, None, 1.0)
+    with pytest.raises(ValueError):
+        kernels.radius_graph(tp, meta, 1.0)
+    assert kernels.radius_graph_fits(kernels.MAX_GRAPH_ELEMS // 2, 2)
+    assert not kernels.radius_graph_fits(kernels.MAX_GRAPH_ELEMS // 2 + 1, 2)
+    assert not kernels.radius_graph_fits(1, kernels.MAX_GRAPH_DIM + 1)
+    assert not kernels.radius_graph_fits(0, 2)
+
+
+# an H100's shared memory a block may opt into
+_H100_SMEM_OPTIN = 227 * 1024
+
+
+def test_radius_graph_cap_matches_its_source():
+    """The route's cap fits K8 as ``csrc/radius_graph.cu`` builds it: d up
+    to its largest instantiation (the C entry's refusal beyond it), and
+    both point sets at the cap staged beside the warps' edge queues
+    within the card's shared memory."""
+    with open(os.path.join(os.path.dirname(kernels.__file__), os.pardir,
+                           'csrc', 'radius_graph.cu')) as f:
+        src = f.read()
+    max_dim = int(re.search(r'constexpr int kMaxDim = (\d+);', src)[1])
+    warps = int(re.search(r'constexpr int kWarps = (\d+);', src)[1])
+    dims = {int(x) for x in re.findall(r'launch_d<(\d+)>', src)}
+    assert max(dims) == max_dim == kernels.MAX_GRAPH_DIM
+    assert 'd > kMaxDim' in src
+    queue = 4 * warps * int(re.search(r'queue\[kWarps\]\[(\d+)\]', src)[1])
+    assert 2 * 4 * kernels.MAX_GRAPH_ELEMS + queue <= _H100_SMEM_OPTIN
+
+
+# ------------------------------------------------------ K8's model -----
+
+def _f32_within(x, r2):
+    """The kernel's adjacency: float32 squared distances summed axis by
+    axis from direct differences, <= r2 in float32."""
+    x = np.asarray(x, np.float32)
+    d2 = np.zeros((len(x), len(x)), np.float32)
+    for k in range(x.shape[1]):
+        diff = x[:, k, None] - x[None, :, k]
+        d2 = d2 + diff * diff
+    return d2 <= np.float32(r2)
+
+
+def _k8_model(tpoints, upoints, r2, rng):
+    """numpy model of ``csrc/radius_graph.cu``: rows in the order *rng*
+    draws, each row's edges j < i queued by 32-column chunks, flushed 32
+    at a time and at the row's end, each flush's unions in an order *rng*
+    draws; labels by find after all unions. The centred points: each
+    lane's float32 sums over its columns j = lane, lane + 32, ..., a
+    butterfly over the 32 lanes, then u - sum / max(count, 1)."""
+    n = len(tpoints)
+    adj_t = _f32_within(tpoints, r2)
+    parent = list(range(n))
+
+    def find(x):
+        while True:
+            y = parent[x]
+            if y == x:
+                return x
+            z = parent[y]
+            if z == y:
+                return y
+            parent[x] = z
+            x = z
+
+    def unite(a, b):
+        while True:
+            a, b = find(a), find(b)
+            if a == b:
+                return
+            a, b = max(a, b), min(a, b)
+            if parent[a] == a:
+                parent[a] = b
+                return
+
+    def flush(i, js):
+        for j in rng.permutation(js):
+            unite(i, int(j))
+
+    for i in rng.permutation(n):
+        queue = []
+        for j0 in range(0, n, 32):
+            queue += [j for j in range(j0, min(j0 + 32, n))
+                      if j < i and adj_t[i, j]]
+            if len(queue) >= 32:
+                flush(i, queue[len(queue) - 32:])
+                queue = queue[:len(queue) - 32]
+        flush(i, queue)
+    labels = np.array([find(i) for i in range(n)])
+    u = np.asarray(upoints, np.float32)
+    adj_u = _f32_within(u, r2)
+    acc = np.zeros((n, 32, u.shape[1]), np.float32)
+    cnt = np.zeros((n, 32), np.int64)
+    for j in range(n):
+        acc[adj_u[:, j], j % 32] += u[j]
+        cnt[adj_u[:, j], j % 32] += 1
+    for off in (16, 8, 4, 2, 1):
+        lanes = np.arange(32) ^ off
+        acc = acc + acc[:, lanes]
+        cnt = cnt + cnt[:, lanes]
+    mean = acc[:, 0] / np.maximum(cnt[:, 0], 1).astype(np.float32)[:, None]
+    return labels, u - mean
+
+
+@pytest.mark.parametrize('n,d,nblobs', [(400, 2, 18), (150, 3, 4),
+                                        (97, 8, 1), (70, 2, 70)])
+def test_radius_graph_model(n, d, nblobs):
+    """The kernel's union-find gives the smallest member index of each
+    component whatever order the unions run in, equal to the plain
+    version's labels and the reference's components; its summation order
+    gives the plain version's centred points within 1e-5 relative."""
+    rng = np.random.RandomState(n + d)
+    centres = rng.uniform(0.1, 0.9, size=(nblobs, d))
+    u = (centres[rng.randint(nblobs, size=n)]
+         + rng.normal(0, 0.01, size=(n, d))).clip(1e-3, 1 - 1e-3)
+    t = ((u - u.mean(axis=0)) / u.std(axis=0)).astype(np.float32)
+    d2 = ((t[:, None].astype(float) - t[None]) ** 2).sum(axis=2)
+    np.fill_diagonal(d2, np.inf)
+    # off every pair by 1e-5 relative: there the reference's float64
+    # distances may decide a pair otherwise than float32 ones, as allowed
+    r2 = 4 * d2.min(axis=1).max()
+    while (np.abs(d2 - r2) <= 1e-5 * r2).any():
+        r2 *= 1.0001
+    r2 = float(np.float32(r2))
+    out = kernels.radius_graph(torch.as_tensor(t),
+                               torch.as_tensor(u.astype(np.float32)), r2)
+    labels, centred = kernels.radius_graph_parts(out, n)
+    for seed in range(3):
+        got_labels, got_centred = _k8_model(t, u, r2,
+                                            np.random.RandomState(seed))
+        np.testing.assert_array_equal(got_labels, labels.numpy())
+        np.testing.assert_allclose(got_centred, centred.numpy(), rtol=1e-5,
+                                   atol=1e-6)
+    ref = connected_components(t, r2)
+    np.testing.assert_array_equal(labels.numpy(), ref)
+    assert 1 <= len(np.unique(ref)) <= nblobs
 
 # ------------------------------------------- K3's one-warp bookkeeping -----
 

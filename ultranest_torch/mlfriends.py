@@ -15,16 +15,19 @@ Counterpart of ``ultranest_tpu/mlfriends.py`` (itself a rebuild of
 upstream ``ultranest/mlfriends.pyx``), with the same class API plus a
 required ``device``: regions are built with ``device=`` and layers'
 ``create_new`` takes one. The bootstrapped radius runs in CUDA kernel K2
-on that device (:mod:`ultranest_torch.ops.bootstrap`); neighbour queries
-and clustering run on the host when small and as torch on that device
-otherwise (:mod:`ultranest_torch.ops`). Host code holds the small d x d
-linear algebra and the RNG-facing sampling policy.
+on that device (:mod:`ultranest_torch.ops.bootstrap`); a rebuild's
+clustering and local centring run in CUDA kernel K8 on a CUDA device
+(:func:`ultranest_torch.ops.cluster.radius_graphs`); other neighbour
+queries, and the clustering elsewhere, run on the host when small and as
+torch on that device otherwise (:mod:`ultranest_torch.ops`). Host code
+holds the small d x d linear algebra, the renumbering of the clusters
+and the RNG-facing sampling policy.
 """
 
 import numpy as np
 
 from .ops.bootstrap import bootstrap_radius_enlargement, make_bootstrap_masks
-from .ops.cluster import connected_components
+from .ops.cluster import radius_graphs
 from .ops.pairwise import (count_nearby, find_nearby,  # noqa: F401
                            compute_maxradiussq, compute_mean_pair_distance,
                            subtract_nearby)
@@ -42,17 +45,20 @@ int_dtype = np.int64
 
 
 def update_clusters(upoints, tpoints, maxradiussq, clusterids=None, *,
-                    device):
+                    device, local=False):
     """Cluster *upoints* by friends-of-friends connectivity in t-space.
 
     Two points share a cluster iff they are linked through pairs within
     sqrt(maxradiussq). Components are found by
-    (:func:`ultranest_torch.ops.cluster.connected_components`); cluster ids
-    are then renumbered 1..k, re-using the previous assignment *clusterids*
+    :func:`ultranest_torch.ops.cluster.radius_graphs` (kernel K8 on a
+    CUDA *device*, else ``connected_components``); cluster ids are then
+    renumbered 1..k, re-using the previous assignment *clusterids*
     where possible (the component containing the first point previously
     labelled ``k`` receives label ``k`` again), matching the reference
     policy (upstream ``upstream mlfriends.pyx:275-384``). Large point sets
-    build their radius graph on *device*.
+    build their radius graph on *device*. With *local*, the third value
+    is the local centring of ``LocalAffineLayer`` instead, from the same
+    call (:func:`subtract_nearby`'s result).
 
     Returns
     -------
@@ -60,7 +66,8 @@ def update_clusters(upoints, tpoints, maxradiussq, clusterids=None, *,
     new_clusterids: int array (N,)
     overlapped_points: array (N, d)
         upoints with their cluster means subtracted (single-member clusters
-        are centered on the global mean).
+        are centered on the global mean); with *local*, each of upoints
+        minus the mean of the upoints within the radius of it.
     """
     upoints = np.asarray(upoints)
     n = len(upoints)
@@ -68,13 +75,17 @@ def update_clusters(upoints, tpoints, maxradiussq, clusterids=None, *,
     if maxradiussq is None or maxradiussq >= 1e50:
         # ellipsoid-only regions use the 1e300 radius sentinel: every pair
         # is connected, so skip the O(N^2) graph — one cluster, uncentered
-        return 1, np.ones(n, dtype=int_dtype), upoints
+        return 1, np.ones(n, dtype=int_dtype), (
+            subtract_nearby(upoints, maxradiussq, device=device) if local
+            else upoints)
     if clusterids is None:
         clusterids = np.zeros(n, dtype=int_dtype)
     else:
         clusterids = np.asarray(clusterids)[:n]
 
-    labels = connected_components(tpoints, maxradiussq, device=device)
+    labels, centred = radius_graphs(tpoints, maxradiussq,
+                                    upoints if local else None,
+                                    device=device)
     components = np.unique(labels)
 
     new_ids = np.zeros(n, dtype=int_dtype)
@@ -100,7 +111,9 @@ def update_clusters(upoints, tpoints, maxradiussq, clusterids=None, *,
         assigned.add(comp)
     nclusters = k
 
-    if nclusters == 1:
+    if local:
+        overlapped_points = centred
+    elif nclusters == 1:
         overlapped_points = upoints
     else:
         overlapped_points = np.empty_like(upoints)
@@ -344,20 +357,20 @@ class LocalAffineLayer(AffineLayer):
     """Affine layer learned from locally (MLradius) co-centered points.
 
     The default layer: each point has the mean of its radius-neighbourhood
-    subtracted (a host matmul, or torch on *device* for large sets), giving
-    a local covariance.
+    subtracted, giving a local covariance; on a CUDA *device* kernel K8
+    computes that and the clusters in one call, elsewhere a host matmul
+    (or torch on *device* for large sets) does.
     """
 
     def create_new(self, upoints, maxradiussq, minvol=0.0, *, device):
         """Cluster points and optimize on locally co-centered points."""
         uwpoints = self.wrap(upoints)
         tpoints = self.transform(upoints)
-        nclusters, clusteridxs, _ = update_clusters(
-            uwpoints, tpoints, maxradiussq, self.clusterids, device=device)
+        nclusters, clusteridxs, local_overlapped_uwpoints = update_clusters(
+            uwpoints, tpoints, maxradiussq, self.clusterids, device=device,
+            local=True)
         s = self.__class__(nclusters=nclusters, wrapped_dims=self.wrapped_dims,
                            clusterids=clusteridxs)
-        local_overlapped_uwpoints = subtract_nearby(uwpoints, maxradiussq,
-                                                    device=device)
         s.optimize(upoints, local_overlapped_uwpoints, minvol=minvol)
         return s
 

@@ -11,15 +11,24 @@ small sets and from torch direct-difference distances on the caller's
 device otherwise; the labelling is scipy's union-find on the host.
 :func:`label_propagation_components` labels the same graph on the
 device instead, by pointer-jumping label propagation.
+:func:`radius_graphs` serves a region rebuild's transform layer: on a
+CUDA device, for live sets within kernel K8's cap, the cluster labels
+and the local centring come from K8 in one call; elsewhere from
+:func:`connected_components` and
+:func:`ultranest_torch.ops.pairwise.subtract_nearby` as before.
 """
 
 import numpy as np
 import torch
 
+from .. import tracing
 from ..parallel.launch import fetch_with_deadline
-from .pairwise import _np_sqdist, _small, _torch, pairwise_sqdist
+from . import kernels
+from .pairwise import (_np_sqdist, _small, _torch, pairwise_sqdist,
+                       subtract_nearby)
 
-__all__ = ['connected_components', 'label_propagation_components']
+__all__ = ['connected_components', 'label_propagation_components',
+           'radius_graphs']
 
 
 def _adjacency(tpoints, radiussq, device):
@@ -88,3 +97,66 @@ def label_propagation_components(tpoints, radiussq, *, device):
         if not fetch_with_deadline(changed):
             break
     return labels.cpu().numpy().astype(np.int64)
+
+
+def _radius_graphs_k8(tpoints, radiussq, upoints, device):
+    """K8 on *device*: both point sets in one copy there, the labels and
+    the centred points back in one blocking copy, as the rebuild reads
+    K2's radius."""
+    n, d = tpoints.shape
+    nd = n * d
+    flat = np.empty(nd if upoints is None else 2 * nd, dtype=np.float32)
+    flat[:nd] = tpoints.reshape(-1)
+    if upoints is not None:
+        flat[nd:] = upoints.reshape(-1)
+    packed = torch.as_tensor(flat).to(device, non_blocking=True)
+    out = kernels.radius_graph(
+        packed[:nd].view(n, d),
+        None if upoints is None else packed[nd:].view(n, d),
+        np.float32(radiussq)).cpu().numpy()
+    labels, centred = kernels.radius_graph_parts(out, n)
+    return (labels.astype(np.int64),
+            None if centred is None else centred.astype(float))
+
+
+def _k8_serves(device, n, d):
+    """Whether K8 takes *n* points of dimension *d* on *device*."""
+    return device.type == 'cuda' and kernels.radius_graph_fits(n, d)
+
+
+def radius_graphs(tpoints, radiussq, upoints=None, *, device):
+    """The cluster labels of *tpoints* and, given *upoints*, the local
+    centring of *upoints*, at the squared radius *radiussq*.
+
+    On a CUDA *device*, for a live set that :func:`kernels.radius_graph_fits`,
+    kernel K8 computes both in one call (booked as ``graph`` under the
+    innermost open span of the run in progress: ``rebuild/layer/graph``);
+    otherwise :func:`connected_components` and :func:`subtract_nearby`
+    do (booked as ``graph_host``). K8's result comes back in one
+    blocking copy, as K2's radius does in the same rebuild: region
+    rebuilds stay on the sampler's device whatever the dispatch watchdog
+    decides (it swaps the samplers only). The two agree but for pairs within
+    float32 rounding of the radius, which the host's float64 distances
+    may decide the other way, and in the last bits of the centred points.
+
+    Returns
+    -------
+    labels: int array (N,)
+        the smallest member index of each point's component
+    centred: float array (N, d) or None
+        each of *upoints* minus the mean of the *upoints* within the
+        radius of it (None without *upoints*)
+    """
+    tpoints = np.asarray(tpoints, dtype=np.float32)
+    if upoints is not None:
+        upoints = np.asarray(upoints, dtype=np.float32)
+    n, d = tpoints.shape
+    device = torch.device(device)
+    if _k8_serves(device, n, d):
+        with tracing.count('graph'):
+            return _radius_graphs_k8(tpoints, radiussq, upoints, device)
+    with tracing.count('graph_host'):
+        labels = connected_components(tpoints, radiussq, device=device)
+        centred = None if upoints is None else subtract_nearby(
+            upoints, radiussq, device=device)
+    return labels, centred

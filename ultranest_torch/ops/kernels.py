@@ -3,7 +3,7 @@
 Hand-written CUDA kernels of the region-rejection path
 ------------------------------------------------------
 
-Eight kernels, sources in ``ultranest_torch/csrc/``:
+Nine kernels, sources in ``ultranest_torch/csrc/``:
 
 * K1 :func:`radius_member` (``csrc/radius_member.cu``) replaces the
   Pallas ``_member_kernel`` (``ultranest_tpu/ops/pallas_kernels.py``);
@@ -27,7 +27,12 @@ Eight kernels, sources in ``ultranest_torch/csrc/``:
 * K7 :func:`rwalk_accept` (``csrc/rwalk_accept.cu``) is a random-walk
   step after the likelihood, its acceptance and the next step's
   proposal (``:1612-1621``); :func:`rwalk_propose` launches the same
-  kernel for step 0's proposal.
+  kernel for step 0's proposal;
+* K8 :func:`radius_graph` (``csrc/radius_graph.cu``) is the transform
+  layer's two radius graphs of a region rebuild, the clustering and the
+  local centring, which the JAX package builds with XLA and on the host
+  (``ultranest_tpu/ops/cluster.py:37-118``,
+  ``ultranest_tpu/ops/pairwise.py:243``).
 
 Each source file says what bounds its kernel on an H100 and what its
 design does about it. K1, K1t and K2 share ``csrc/member_core.cuh``: the
@@ -73,7 +78,9 @@ from ..native import build_dir
 
 __all__ = ['radius_member', 'radius_member_t', 'bootstrap_radius',
            'consume_scan', 'spec_propose', 'spec_update', 'sync_update',
-           'rwalk_accept', 'rwalk_propose', 'radius_member_plain',
+           'rwalk_accept', 'rwalk_propose', 'radius_graph',
+           'radius_graph_plain', 'radius_graph_parts', 'radius_graph_fits',
+           'radius_member_plain',
            'radius_member_t_plain',
            'bootstrap_radius_plain', 'consume_scan_plain',
            'spec_propose_plain', 'spec_update_plain', 'sync_update_plain',
@@ -86,9 +93,12 @@ __all__ = ['radius_member', 'radius_member_t', 'bootstrap_radius',
 
 KERNELS = ('radius_member', 'radius_member_t', 'bootstrap_radius',
            'consume_scan', 'spec_propose', 'spec_update', 'sync_update',
-           'rwalk_accept')
-# the kernels the region-rejection path launches (K1t runs only in the
-# membership shootout, ultranest_torch.evaluate.bench_membership)
+           'rwalk_accept', 'radius_graph')
+# the kernels the region-rejection path launches, whose plain versions
+# serve it on the CPU (K1t runs only in the membership shootout,
+# ultranest_torch.evaluate.bench_membership; K8, which the region
+# rebuilds launch on a card, leaves the CPU to the host path:
+# ops.cluster.radius_graphs)
 REGION_KERNELS = ('radius_member', 'bootstrap_radius', 'consume_scan')
 # the rounds of the population walks: K4 and K5 of the spec and async
 # walks (popfused.spec_walk), K4 and K6 of the sync walk
@@ -98,7 +108,7 @@ POPULATION_KERNELS = ('spec_propose', 'spec_update', 'sync_update',
                       'rwalk_accept', 'rwalk_propose')
 SOURCES = ('radius_member.cu', 'radius_member_t.cu', 'bootstrap_radius.cu',
            'consume_scan.cu', 'spec_propose.cu', 'spec_update.cu',
-           'sync_update.cu', 'rwalk_accept.cu')
+           'sync_update.cu', 'rwalk_accept.cu', 'radius_graph.cu')
 # headers the sources include: hashed with them, so that an edit rebuilds
 HEADERS = ('member_core.cuh', 'member_kernel.cuh', 'chord.cuh')
 NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
@@ -112,6 +122,12 @@ MAX_SCAN_NPAD = 32768
 MAX_MEMBER_DIM = 4096
 _MEMBER_THREADS = 256
 _MEMBER_CAND_BYTES = 128 * 1024
+# the largest live set K8 takes: every block stages both point sets,
+# 8 N d bytes, in shared memory (96 KB at the cap), and a row's
+# coordinates and sums sit in registers up to d 32, the largest
+# instantiation of csrc/radius_graph.cu (its kMaxDim)
+MAX_GRAPH_ELEMS = 12288
+MAX_GRAPH_DIM = 32
 # threads a K1 or K1t launch aims for (a quarter of what the card holds at once:
 # timed on an H100 at M 4096 to 131072, each lane testing 8 rows at a time)
 _MEMBER_TARGET_THREADS = 1 << 16
@@ -213,10 +229,12 @@ def _lib():
             lib.un_spec_update.argtypes = [vp] * 7 + [ci] * 4 + [vp] * 13
             lib.un_sync_update.argtypes = [vp] * 7 + [ci] * 5 + [vp] * 16
             lib.un_rwalk_accept.argtypes = [vp] * 6 + [ci] * 2 + [vp] * 5
+            lib.un_radius_graph.argtypes = [vp, vp, ci, ci, cf, vp, vp, vp]
             for fn in (lib.un_radius_member, lib.un_radius_member_t,
                        lib.un_bootstrap_radius, lib.un_consume_scan,
                        lib.un_spec_propose, lib.un_spec_update,
-                       lib.un_sync_update, lib.un_rwalk_accept):
+                       lib.un_sync_update, lib.un_rwalk_accept,
+                       lib.un_radius_graph):
                 fn.restype = ci
             _LIB = lib
     return _LIB
@@ -1036,3 +1054,103 @@ def rwalk_propose(up, state, m, scale):
         PLAIN_CALLS['rwalk_propose'] += 1
         return rwalk_propose_plain(up, state, m, scale)
     _rwalk_call('rwalk_propose', None, None, up, None, state, m, scale)
+
+
+# ---------------------------------------------------------------- K8 -----
+
+def radius_graph_fits(n, d):
+    """Whether K8 takes a live set of *n* points of dimension *d*."""
+    return n >= 1 and 1 <= d <= MAX_GRAPH_DIM and n * d <= MAX_GRAPH_ELEMS
+
+
+def radius_graph_parts(out, n):
+    """``(labels (n,), centred (n, d) float32 or None)``: views of K8's
+    packed result *out*, a torch tensor or its numpy copy alike."""
+    labels, rest = out[:n], out[n:]
+    if len(rest) == 0:
+        return labels, None
+    f32 = torch.float32 if torch.is_tensor(rest) else 'float32'
+    return labels, rest.view(f32).reshape(n, -1)
+
+
+def radius_graph_plain(tpoints, upoints, r2):
+    """Plain torch K8: int32 ``(n + n d,)``, or ``(n,)`` without
+    *upoints* (:func:`radius_graph_parts` splits it).
+
+    The labels: each point's smallest component member in the graph of
+    the *tpoints* whose squared distance (summed axis by axis from direct
+    differences) is <= r2 in float32, found by label propagation with
+    pointer jumping. The centred points: each of *upoints* minus the
+    mean of the *upoints* within r2 of it, itself included, with counts
+    at least 1.
+    """
+    r2 = torch.tensor(r2, dtype=torch.float32).item()
+    n = tpoints.shape[0]
+
+    def within(pts):
+        d2 = torch.zeros((n, n), dtype=torch.float32, device=pts.device)
+        for k in range(pts.shape[1]):
+            diff = pts[:, k, None] - pts[None, :, k]
+            d2 = d2 + diff * diff
+        return d2 <= r2
+
+    adj = within(tpoints) | torch.eye(n, dtype=torch.bool,
+                                      device=tpoints.device)
+    labels = torch.arange(n, device=tpoints.device)
+    while True:
+        new = torch.where(adj, labels[None, :], n).amin(dim=1)
+        new = torch.minimum(new, labels[new])
+        if torch.equal(new, labels):
+            break
+        labels = new
+    labels = labels.to(torch.int32)
+    if upoints is None:
+        return labels
+    near = within(upoints).float()
+    counts = near.sum(dim=1).clamp(min=1)
+    centred = upoints - (near @ upoints) / counts[:, None]
+    return torch.cat([labels, centred.reshape(-1).view(torch.int32)])
+
+
+def radius_graph(tpoints, upoints, r2):
+    """K8: the transform layer's radius graphs (:func:`radius_graph_plain`).
+
+    Parameters
+    ----------
+    tpoints: (N, d) float32
+        live points in whitened space: the cluster graph
+    upoints: (N, d) float32 or None
+        the same points in the (wrapped) unit cube, to be centred on
+        their neighbourhood's mean; None for the labels alone
+    r2: float
+        squared radius, compared in float32
+
+    Returns
+    -------
+    int32 ``(N + N d,)`` (``(N,)`` without *upoints*): the labels, the
+    smallest member index of each point's component, then the centred
+    points' float32 bits, row by row (:func:`radius_graph_parts`)
+
+    On the card two kernels on the current stream (parent array, then the
+    graphs; ``csrc/radius_graph.cu`` says how), for
+    :func:`radius_graph_fits` sizes only. One call counts one launch.
+    """
+    if _on_cpu(tpoints, *([] if upoints is None else [upoints])):
+        PLAIN_CALLS['radius_graph'] += 1
+        return radius_graph_plain(tpoints, upoints, r2)
+    _check(tpoints, 'tpoints', torch.float32, 2)
+    n, d = tpoints.shape
+    if upoints is not None:
+        _check_shape(upoints, 'upoints', torch.float32, (n, d))
+    if not radius_graph_fits(n, d):
+        raise ValueError('radius_graph takes 1 <= n, 1 <= d <= %d and '
+                         'n d <= %d, got n %d, d %d'
+                         % (MAX_GRAPH_DIM, MAX_GRAPH_ELEMS, n, d))
+    out = torch.empty(n if upoints is None else n * (1 + d),
+                      dtype=torch.int32, device=tpoints.device)
+    # the parent array and the blocks' tick, set by the first kernel
+    scratch = torch.empty(n + 1, dtype=torch.int32, device=tpoints.device)
+    _launch('radius_graph', _lib().un_radius_graph, tpoints.data_ptr(),
+            None if upoints is None else upoints.data_ptr(), n, d,
+            ctypes.c_float(r2), scratch.data_ptr(), out.data_ptr())
+    return out

@@ -38,7 +38,11 @@ dispatch whose rows replace one live point more than once, and
 ``rebuild/layer``, ``rebuild/radius`` (the bootstrapped radius, kernel K2),
 ``rebuild/ellipsoid`` (with the new region's acceptance) and
 ``rebuild/tregion``, also under ``classic/rebuild``,
-``prepare/rebuild`` and ``improve/rebuild``; ``improve/draw``, each
+``prepare/rebuild`` and ``improve/rebuild``; inside ``layer``,
+``graph`` where kernel K8 built the clusters and the local centring
+(:func:`ultranest_torch.ops.cluster.radius_graphs`) and
+``graph_host`` where the host path did;
+``improve/draw``, each
 batch of candidates that the per-point iterations of an improvement
 pass ask of the fused region sampler (the dispatch, the wait, which is
 ``improve/draw/wait``, and the copy back; a first pass's batches keep
