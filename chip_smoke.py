@@ -609,7 +609,8 @@ def spec_round_inputs(rng, P, D, d, nsteps=SPEC_NSTEPS):
     from ultranest_torch import popfused
     from ultranest_torch.ops import kernels
     f32 = np.float32
-    st = popfused._spec_state(P, d, 'cuda')
+    walk = popfused._SpecWalk(P, D, d, nsteps, 8, P, 'cuda')
+    st = walk.state
     u = rng.uniform(0.05, 0.95, size=(P, d)).astype(f32)
     u[::7, 0] = 0.0
     v = (rng.normal(size=(P, d)) * 0.1).astype(f32)
@@ -625,11 +626,11 @@ def spec_round_inputs(rng, P, D, d, nsteps=SPEC_NSTEPS):
     st['step'].copy_(torch.as_tensor(step))
     st['done'].copy_(torch.as_tensor(rng.uniform(size=P) < 0.2))
     st['it'].fill_(3)
-    xibank = torch.as_tensor(rng.uniform(size=(8, P, D)).astype(f32),
-                             device='cuda')
+    xibank = walk.xibank.copy_(torch.as_tensor(
+        rng.uniform(size=(8, P, D)).astype(f32)))
     dirbank = (rng.normal(size=(nsteps, P, d)) * 0.1).astype(f32)
     dirbank[:, ::3, 0] = 0.0
-    dirbank = torch.as_tensor(dirbank, device='cuda')
+    dirbank = walk.dirbank.copy_(torch.as_tensor(dirbank))
     Lp = torch.as_tensor(rng.normal(size=P * D).astype(f32), device='cuda')
     tin = torch.as_tensor(rng.uniform(size=P * D) < 0.9, device='cuda')
     Lmin = torch.tensor(float(np.quantile(Lp.cpu().numpy(), 0.75)),
@@ -830,7 +831,10 @@ def sync_round_inputs(rng, P, d, kind, nsteps=16):
     max_it = {'mid': NEVER, 'boundary': 1}.get(kind, 8)
     if kind == 'boundary':
         nsteps = MID_DISPATCH_STEPS
-    st = popfused._sync_state(P, d, nsteps, 'cuda')
+    # a sync walk's state and directions; the bank rows are this
+    # function's own
+    walk = popfused._SyncWalk(P, d, nsteps, 1, 'cuda')
+    st = walk.state
     u = rng.uniform(0.05, 0.95, size=(P, d)).astype(f32)
     u[::7, 0] = 0.0
     v = (rng.normal(size=(P, d)) * 0.1).astype(f32)
@@ -854,7 +858,7 @@ def sync_round_inputs(rng, P, d, kind, nsteps=16):
                             device='cuda')
     dirbank = (rng.normal(size=(nsteps, P, d)) * 0.1).astype(f32)
     dirbank[:, ::3, 0] = 0.0
-    dirbank = torch.as_tensor(dirbank, device='cuda')
+    dirbank = walk.dirbank.copy_(torch.as_tensor(dirbank))
     Lp = rng.normal(size=P).astype(f32)
     if kind == 'all_accept':
         Lp[:] = 5.0
@@ -1020,7 +1024,7 @@ def rwalk_accept_bound(P, d, tin, Lev, up, Lmin, proposal=True):
     return bound(ops, nbytes)
 
 
-def rwalk_propose_bound(P, d):
+def rwalk_prologue_bound(P, d):
     """Bound of K7's prologue: the point and the products read, the
     proposal written, a multiply and an add a coordinate."""
     return bound(2 * P * d, 12 * P * d + 4)
@@ -1038,9 +1042,10 @@ def check_rwalk_kernel(kernels, rng, P, d, registers=None, floor=None):
     from ultranest_torch.evaluate.bench_membership import cuda_ms
     Lev, tin, up, Lmin, st, m, scale = rwalk_round_inputs(rng, P, d)
     mine, plain = up.clone(), up.clone()
-    kernels.rwalk_propose(mine, st, m, scale)
-    kernels.rwalk_propose_plain(plain, st, m, scale)
-    assert values_equal(mine, plain), ('rwalk_propose disagrees', P, d)
+    kernels.rwalk_accept(None, None, mine, None, st, m, scale)
+    kernels.rwalk_accept_plain(None, None, plain, None, st, m, scale)
+    assert values_equal(mine, plain), ('rwalk_accept\'s prologue disagrees',
+                                       P, d)
     for t in (tin, None):
         for nxt in (m, None):
             mine = {k: x.clone() for k, x in st.items()}
@@ -1056,7 +1061,7 @@ def check_rwalk_kernel(kernels, rng, P, d, registers=None, floor=None):
             assert not bad, ('rwalk_accept disagrees', P, d, t is None,
                              nxt is None, bad)
     bms, by = rwalk_accept_bound(P, d, tin, Lev, up, Lmin)
-    pbms = rwalk_propose_bound(P, d)[0]
+    pbms = rwalk_prologue_bound(P, d)[0]
     # timed on copies: a step moves the walkers on and rewrites up
     a = (Lev, tin, up.clone(), Lmin, {k: x.clone() for k, x in st.items()},
          m, scale)
@@ -1064,8 +1069,8 @@ def check_rwalk_kernel(kernels, rng, P, d, registers=None, floor=None):
     dev = queued_ms([lambda: kernels.rwalk_accept(*a)] * 50)
     gms = graph_ms(lambda: kernels.rwalk_accept(*a))
     plain_ms = cuda_ms(lambda: kernels.rwalk_accept_plain(*a), 5)
-    p = (up.clone(), st, m, scale)
-    pgms = graph_ms(lambda: kernels.rwalk_propose(*p))
+    p = (None, None, up.clone(), None, st, m, scale)
+    pgms = graph_ms(lambda: kernels.rwalk_accept(*p))
     print('K7 rwalk_accept P=%d d=%d: the prologue and the step (with its '
           'next proposal and without) bit-equal to plain (with and without '
           'the filter); the step with its proposal: kernel %.4f ms, device '
@@ -1079,20 +1084,19 @@ def check_rwalk_kernel(kernels, rng, P, d, registers=None, floor=None):
     return (0.0, ms, plain_ms, bms, by, dev, gms, pgms, pbms)
 
 
-# the kernels each walk launches, by walk, every round
+# the kernels each walk launches, by walk, every round (the random walk's
+# K7 once more a dispatch, for its prologue)
 WALK_KERNELS = dict(spec=('spec_propose', 'spec_update'),
                     sync=('spec_propose', 'sync_update'),
                     rwalk=('rwalk_accept',))
-# and once a dispatch: K7's prologue
-WALK_PROLOGUES = dict(rwalk=('rwalk_propose',))
 
 
 class Walks:
     """Keeps the ``stats`` of every population walk made inside the block
     (``popfused.spec_walk``: the spec and async walks; ``sync_walk``;
     ``rwalk_walk``) and books each kernel's launches by shape: K4 and K5
-    of a spec walk under "P,D,d", K4 of a sync walk under "P,1,d", K6,
-    K7 and K7's prologue under "P,d"; and the sync walks' step
+    of a spec walk under "P,D,d", K4 of a sync walk under "P,1,d", K6
+    and K7 (its prologue included) under "P,d"; and the sync walks' step
     boundaries (``nsteps`` a walk) under K6's shape."""
 
     def __enter__(self):
@@ -1117,7 +1121,7 @@ class Walks:
                         banks['tbank'].shape[0]
                 else:
                     P, D = banks['eps'].shape[1], None
-                booked = WALK_KERNELS[kind] + WALK_PROLOGUES.get(kind, ())
+                booked = WALK_KERNELS[kind]
                 seen = {k: kernels.LAUNCHES[k] for k in booked}
                 try:
                     out = orig(*args, **kw)
@@ -1181,13 +1185,11 @@ def check_walk_path(name, walks, launched, required=()):
     for kind in required:
         w = kinds.get(kind, dict(graph=0, rounds=0))
         assert w['graph'] > 0, ('no %s walk ran as graphs' % kind, name)
+        # the random walk's K7 launches once more a walk, its prologue
+        prologues = w['graph'] if kind == 'rwalk' else 0
         for k in WALK_KERNELS[kind]:
-            assert launched.get(k, 0) >= w['rounds'] > 0, \
+            assert launched.get(k, 0) >= w['rounds'] + prologues > 0, \
                 ('%s not launched on the %s walks' % (k, kind), name,
-                 launched)
-        for k in WALK_PROLOGUES.get(kind, ()):
-            assert launched.get(k, 0) >= w['graph'], \
-                ('%s not launched on every %s walk' % (k, kind), name,
                  launched)
     if walks['launches_by_shape']:
         WALK_LAUNCHES[name] = walks['launches_by_shape']
@@ -1389,33 +1391,27 @@ def engine_graph_nodes(kernels, kind, banks, live_u, live_L, axes, Lmin,
     a sync round must be K4, the likelihood's kernels and one K6; the
     random walk its products, K7's prologue and, a step, the likelihood's
     kernels and K7, nothing else. Returns the counts by part."""
-    import torch
     from ultranest_torch import popfused
     from ultranest_torch.evaluate.graph_nodes import \
         graph_kernel_names as names
-    dev = live_u.device
-
-    def scalar(x):
-        return popfused._set_scalar(torch.empty((), dtype=torch.float32,
-                                                device=dev), x)
+    dev, d = live_u.device, live_u.shape[1]
 
     def count(nodes, kernel):
         return sum(kernel in n for n in nodes)
-    Lmin_t, d = scalar(Lmin), live_u.shape[1]
     if kind == 'sync':
-        tbank = banks['tbank']
-        nsteps, max_it, P = tbank.shape
-        rows = tbank.reshape(nsteps * max_it, P, 1).contiguous()
-        dirbank = popfused._direction_bank(banks, live_u, axes, scale)
-        st = popfused._sync_state(P, d, nsteps, dev)
-        popfused._sync_init(st, banks, live_u, live_L, dirbank)
-
-        def body():
-            popfused._sync_round(rows, evaluate, Lmin_t, dirbank, max_it, st)
-        body()                  # the likelihood's first call, eagerly
+        nsteps, max_it, P = banks['tbank'].shape
+        walk = popfused._SyncWalk(P, d, nsteps, max_it, dev)
+    else:
+        nsteps, P, _ = banks['eps'].shape
+        walk = popfused._RwalkWalk(P, d, nsteps, dev)
+    walk.load(banks, live_u, live_L, axes, Lmin, scale, evaluate)
+    walk.init()
+    walk.round()                # the likelihood's first calls, eagerly
+    if kind == 'sync':
+        st = walk.state
         up = kernels.spec_propose(st['u'], st['v'], st['tl'], st['tr'],
-                                  rows, st['row'])[3]
-        round_nodes = names(body, dev)
+                                  walk.tbank, st['row'])[3]
+        round_nodes = names(walk.round, dev)
         like = names(lambda: evaluate(up), dev)
         out = dict(round=len(round_nodes), likelihood=len(like),
                    K4=count(round_nodes, 'spec_propose_kernel'),
@@ -1426,20 +1422,10 @@ def engine_graph_nodes(kernels, kind, banks, live_u, live_L, axes, Lmin,
             ('a sync round is not K4, the likelihood and one K6', out,
              round_nodes)
         return out
-    eps = banks['eps']
-    nsteps, P, _ = eps.shape
-    st = popfused._rwalk_state(P, d, dev)
-    popfused._rwalk_init(st, banks, live_u, live_L)
-    m = torch.empty((nsteps, P, d), device=dev)
-    up = torch.empty((P, d), device=dev)
-    scale_t = scalar(scale)
-
-    def walk():
-        popfused._rwalk_steps(eps, axes, scale_t, evaluate, Lmin_t, st, m, up)
-    walk()                      # the first calls, eagerly
-    walk_nodes = names(walk, dev)
-    products = names(lambda: popfused._rwalk_products(eps, axes, m), dev)
-    like = names(lambda: evaluate(up), dev)
+    walk_nodes = names(walk.round, dev)
+    products = names(lambda: popfused._rwalk_products(walk.eps, walk.axes,
+                                                      walk.m), dev)
+    like = names(lambda: evaluate(walk.up), dev)
     k7 = count(walk_nodes, 'rwalk_step_kernel')
     out = dict(walk=len(walk_nodes), products=len(products),
                likelihood=len(like), K7=k7, steps=nsteps,
@@ -1454,9 +1440,9 @@ def engine_graph_nodes(kernels, kind, banks, live_u, live_L, axes, Lmin,
 def check_engine_traffic(kernels, name, kept):
     """One real dispatch of a sync or random-walk engine run, kept by
     :class:`DispatchKeeper`: run from the host loop with K4 and K6 (or
-    K7 and its prologue), each call held against the plain versions bit
-    for bit; then as CUDA graphs (a first run captures, a second
-    replays), whose outputs must be the host loop's bits; then the
+    K7, its prologue included), each call held against the plain
+    versions bit for bit; then as CUDA graphs (a first run captures, a
+    second replays), whose outputs must be the host loop's bits; then the
     kernel nodes of its round or step (:func:`engine_graph_nodes`).
     Prints rounds and wall per round of both; returns them."""
     import torch
@@ -1472,7 +1458,7 @@ def check_engine_traffic(kernels, name, kept):
     args = (banks, kept['live_u'], kept['live_L'], kept['axes'],
             kept['Lmin'], _f32(kept['scale']))
     calls = collections.Counter()
-    wrapped = ('spec_propose', 'sync_update', 'rwalk_accept', 'rwalk_propose')
+    wrapped = ('spec_propose', 'sync_update', 'rwalk_accept')
     orig = {k: getattr(kernels, k) for k in wrapped}
 
     def propose(*a):
@@ -1507,16 +1493,9 @@ def check_engine_traffic(kernels, name, kept):
         assert not bad, ('rwalk_accept disagrees on real traffic', name,
                          calls['rwalk_accept'], bad)
         calls['rwalk_accept'] += 1
-
-    def rwalk_propose(up, st, m, scale):
-        up_plain = up.clone()
-        orig['rwalk_propose'](up, st, m, scale)
-        kernels.rwalk_propose_plain(up_plain, st, m, scale)
-        assert values_equal(up, up_plain), \
-            ('rwalk_propose disagrees on real traffic', name)
-        calls['rwalk_propose'] += 1
+        calls['prologue'] += Lev is None
     checks = dict(spec_propose=propose, sync_update=sync_update,
-                  rwalk_accept=rwalk_accept, rwalk_propose=rwalk_propose)
+                  rwalk_accept=rwalk_accept)
     for k in wrapped:
         setattr(kernels, k, checks[k])
     host = {}
@@ -1526,10 +1505,11 @@ def check_engine_traffic(kernels, name, kept):
     finally:
         for k, f in orig.items():
             setattr(kernels, k, f)
+    # the random walk's K7 once more, for its prologue
+    prologues = int(kind == 'rwalk')
     for k in WALK_KERNELS[kind]:
-        assert calls[k] == host['rounds'], (k, dict(calls), host)
-    for k in WALK_PROLOGUES.get(kind, ()):
-        assert calls[k] == 1, (k, dict(calls))
+        assert calls[k] == host['rounds'] + prologues, (k, dict(calls), host)
+    assert calls['prologue'] == prologues, dict(calls)
     t0 = time.perf_counter()
     walk(*args, lambda r: ev(r, treg))
     torch.cuda.synchronize()
@@ -1556,8 +1536,7 @@ def check_engine_traffic(kernels, name, kept):
           'every output bit-equal to the host loop, %.4f ms a round replayed '
           '(%d replays), first run %.3f s with %d captures in %.3f s; kernel '
           'nodes in a captured graph: %s' % (
-              name, P, d, host['rounds'], ' and '.join(
-                  WALK_KERNELS[kind] + WALK_PROLOGUES.get(kind, ())),
+              name, P, d, host['rounds'], ' and '.join(WALK_KERNELS[kind]),
               calls[WALK_KERNELS[kind][-1]], 1e3 * host_s / host['rounds'],
               1e3 * rep_wall / rep['rounds'], rep['replays'], cap_wall,
               cap['captures'], cap['capture_s'], json.dumps(nodes)))
@@ -3438,19 +3417,12 @@ def walk_gaps(kernels, walk_launches, boundaries):
         b = rwalk_accept_bound(P, d, tin, Lev, up, Lmin)[0]
         g = graph_ms(lambda: kernels.rwalk_accept(Lev, tin, up, Lmin, st, m,
                                                   scale))
+        # the prologues among the launches are charged as steps
         gap['rwalk_accept'] += n * (g - b)
-        print('K7 at P=%d d=%d, %d launches on the paths (%s): a step with '
-              'its next proposal in a graph %.4f ms (bound %.6f)' % (
-                  P, d, n, paths_of('rwalk_accept', key), g, b))
-    for key, n in sorted(shapes['rwalk_propose'].items()):
-        P, d = (int(x) for x in key.split(','))
-        _, _, up, _, st, m, scale = rwalk_round_inputs(rng, P, d)
-        b = rwalk_propose_bound(P, d)[0]
-        g = graph_ms(lambda: kernels.rwalk_propose(up, st, m, scale))
-        gap['rwalk_propose'] += n * (g - b)
-        print('K7 prologue at P=%d d=%d, %d launches on the paths (%s): in a '
+        print('K7 at P=%d d=%d, %d launches on the paths (%s), its '
+              'prologues included: a step with its next proposal in a '
               'graph %.4f ms (bound %.6f)' % (
-                  P, d, n, paths_of('rwalk_propose', key), g, b))
+                  P, d, n, paths_of('rwalk_accept', key), g, b))
     return gap
 
 
@@ -3463,9 +3435,6 @@ def print_ranking(real, spec=None):
     gap = {k: sum(r['calls'] * (r['device_ms'] - r['bound_ms'])
                   for r in paths.values()) for k, paths in real.items()}
     gap.update(spec or {})
-    # K7's launches are its steps' and its prologues'
-    gap['rwalk_accept'] = gap.get('rwalk_accept', 0.0) + \
-        gap.pop('rwalk_propose', 0.0)
     gap['radius_member_t'] = 0.0
     print('ranking by launches x (device ms - bound ms) over the sampler '
           'paths: ' + ', '.join(
@@ -3866,7 +3835,6 @@ def main(argv=()):
     # no single PyTorch call computes any of the nine functions, so none
     # has a library yardstick (library_ms null); K7's launches are its
     # steps' and its prologues'
-    launches['rwalk_accept'] += launches.pop('rwalk_propose')
     print(json.dumps({'kernels': [
         dict(name=name, route='cuda', source=KERNEL_NOTES[name][0],
              replaces=KERNEL_NOTES[name][1], launches=launches[name],

@@ -879,7 +879,8 @@ def _spec_round_inputs(cuda, P, D, d, nsteps=6, seed=0):
     from ultranest_torch import popfused
     rng = np.random.RandomState(seed + P + D + d)
     f32 = np.float32
-    st = popfused._spec_state(P, d, cuda)
+    walk = popfused._SpecWalk(P, D, d, nsteps, 5, P, cuda)
+    st = walk.state
     u = rng.uniform(0.05, 0.95, size=(P, d)).astype(f32)
     u[::7, 0] = 0.0
     u[3::7, -1] = 1.0
@@ -895,15 +896,15 @@ def _spec_round_inputs(cuda, P, D, d, nsteps=6, seed=0):
     st['step'].copy_(torch.as_tensor(rng.randint(0, nsteps, size=P)))
     st['done'].copy_(torch.as_tensor(rng.uniform(size=P) < 0.2))
     st['it'].fill_(2)
-    xibank = torch.as_tensor(rng.uniform(size=(5, P, D)).astype(f32),
-                             device=cuda)
+    xibank = walk.xibank.copy_(torch.as_tensor(
+        rng.uniform(size=(5, P, D)).astype(f32)))
     dirbank = (rng.normal(size=(nsteps, P, d)) * 0.1).astype(f32)
     dirbank[:, ::3, 1 % d] = 0.0
     dirbank[:, 1::3, 0] = -0.0
-    dirbank = torch.as_tensor(dirbank, device=cuda)
+    dirbank = walk.dirbank.copy_(torch.as_tensor(dirbank))
     Lp = torch.as_tensor(rng.normal(size=P * D).astype(f32), device=cuda)
     tin = torch.as_tensor(rng.uniform(size=P * D) < 0.8, device=cuda)
-    Lmin = torch.tensor(0.9, dtype=torch.float32, device=cuda)
+    Lmin = walk.Lmin.fill_(0.9)
     return st, xibank, dirbank, Lp, tin, Lmin
 
 
@@ -1224,12 +1225,19 @@ def test_round_overhead_replays_the_host_loops_rounds(cuda):
     st['it'].zero_()
     st['done'].zero_()
     st['step'].zero_()
-    xibank = torch.rand((8, P, D), device=cuda)
-    want = {k: t.clone() for k, t in st.items()}
+    # the same rounds from the host, on a walk started from st
+    walk = popfused._SpecWalk(P, D, d, 40, 8, P, cuda)
+    walk.xibank.copy_(torch.rand((8, P, D), device=cuda))
+    walk.dirbank.copy_(dirbank)
+    walk.Lmin.copy_(Lmin)
+    walk.evaluate = lambda rows: (Lp, None)
+    walk.start = st
+    walk.init()
     for _ in range(8):
-        popfused._spec_round(xibank, lambda rows: (Lp, None), Lmin, dirbank,
-                             want)
-    a = popfused.round_overhead(st, xibank, dirbank, Lmin, Lp, trials=3)
+        walk.round()
+    want = walk.state
+    a = popfused.round_overhead(st, walk.xibank, dirbank, Lmin, Lp,
+                                trials=3)
     torch.cuda.synchronize()
     assert 0 < a < 1e-3
     for k in want:
@@ -1275,7 +1283,8 @@ def _sync_round_inputs(cuda, P, d, kind, nsteps=5, max_it=6, seed=0):
     from ultranest_torch import popfused
     rng = np.random.RandomState(seed + P + d)
     f32 = np.float32
-    st = popfused._sync_state(P, d, nsteps, cuda)
+    walk = popfused._SyncWalk(P, d, nsteps, max_it, cuda)
+    st = walk.state
     u = rng.uniform(0.05, 0.95, size=(P, d)).astype(f32)
     u[::7, 0] = 0.0
     u[3::7, -1] = 1.0
@@ -1299,12 +1308,12 @@ def _sync_round_inputs(cuda, P, d, kind, nsteps=5, max_it=6, seed=0):
     st['flag'].fill_(kind == 'finished')
     st['accs'][:s].copy_(torch.as_tensor(rng.uniform(size=s).astype(f32)))
     st['widths'][:s].copy_(torch.as_tensor(rng.uniform(size=s).astype(f32)))
-    tbank = torch.as_tensor(rng.uniform(size=(nsteps * max_it, P, 1))
-                            .astype(f32), device=cuda)
+    tbank = walk.tbank.copy_(torch.as_tensor(
+        rng.uniform(size=(nsteps * max_it, P, 1)).astype(f32)))
     dirbank = (rng.normal(size=(nsteps, P, d)) * 0.1).astype(f32)
     dirbank[:, ::3, 1 % d] = 0.0
     dirbank[:, 1::3, 0] = -0.0
-    dirbank = torch.as_tensor(dirbank, device=cuda)
+    dirbank = walk.dirbank.copy_(torch.as_tensor(dirbank))
     Lp = rng.normal(size=P).astype(f32)
     if kind == 'all_accept':
         Lp[:] = 5.0
@@ -1312,8 +1321,8 @@ def _sync_round_inputs(cuda, P, d, kind, nsteps=5, max_it=6, seed=0):
         Lp[:] = -5.0
     Lp = torch.as_tensor(Lp, device=cuda)
     tin = torch.as_tensor(rng.uniform(size=P) < 0.8, device=cuda)
-    Lmin = torch.tensor(0.3, dtype=torch.float32, device=cuda)
-    return st, tbank, dirbank, Lp, tin, Lmin, max_it
+    Lmin = walk.Lmin.fill_(0.3)
+    return st, tbank, dirbank, Lp, tin, Lmin, max_it, walk
 
 
 SYNC_KINDS = ('mid', 'last_it', 'all_accept', 'all_rejected', 'last_step',
@@ -1355,7 +1364,7 @@ def test_sync_kernels_equal_plain(cuda, P, d):
     each one launch."""
     forms = _sync_forms(P)
     for kind in SYNC_KINDS:
-        st, tbank, dirbank, Lp, tin, Lmin, max_it = _sync_round_inputs(
+        st, tbank, dirbank, Lp, tin, Lmin, max_it, _ = _sync_round_inputs(
             cuda, P, d, kind)
         prop = (st['u'], st['v'], st['tl'], st['tr'], tbank, st['row'])
         kernels.reset_counts()
@@ -1395,7 +1404,7 @@ def _median_state(cuda, w, nsteps=5, max_it=6):
     done, its final brackets of widths *w* (tl +0; a -0 width from tr
     -0)."""
     P = len(w)
-    st, tbank, dirbank, Lp, tin, Lmin, _ = _sync_round_inputs(
+    st, tbank, dirbank, Lp, tin, Lmin, _, _ = _sync_round_inputs(
         cuda, P, 3, 'all_accept', nsteps=nsteps, max_it=max_it)
     w = np.asarray(w, dtype=np.float32)
     st['done'].fill_(True)
@@ -1452,17 +1461,16 @@ def test_sync_round_is_one_kernel_node(cuda):
     one launch)."""
     from ultranest_torch import popfused
     for P, d in ((64, 2), (128, 8), (4096, 50)):
-        st, tbank, dirbank, Lp, tin, Lmin, max_it = _sync_round_inputs(
-            cuda, P, d, 'mid')
+        st, tbank, dirbank, Lp, tin, Lmin, max_it, walk = \
+            _sync_round_inputs(cuda, P, d, 'mid')
         ts, tlc, trc, _ = kernels.spec_propose(
             st['u'], st['v'], st['tl'], st['tr'], tbank, st['row'])
         for form in _sync_forms(P):
             nodes = _kernel_nodes(lambda: kernels._sync_update_cuda(
                 Lp, tin, ts, tlc, trc, Lmin, dirbank, max_it, st, form))
             assert len(nodes) == 1 and 'sync_update' in nodes[0], nodes
-        nodes = _kernel_nodes(lambda: popfused._sync_round(
-            tbank, lambda r: (r[:, 0] * 1.0, None), Lmin, dirbank, max_it,
-            st))
+        walk.evaluate = lambda r: (r[:, 0] * 1.0, None)
+        nodes = _kernel_nodes(walk.round)
         assert sum('sync_update' in n for n in nodes) == 1, nodes
         assert sum('spec_propose' in n for n in nodes) == 1, nodes
 
@@ -1513,10 +1521,10 @@ def test_rwalk_accept_equals_plain(cuda, P, d):
     scale = torch.tensor(0.3, dtype=torch.float32, device=cuda)
     kernels.reset_counts()
     mine, plain = up.clone(), up.clone()
-    kernels.rwalk_propose(mine, st, m, scale)
-    kernels.rwalk_propose_plain(plain, st, m, scale)
+    kernels.rwalk_accept(None, None, mine, None, st, m, scale)
+    kernels.rwalk_accept_plain(None, None, plain, None, st, m, scale)
     assert _same_bits(mine, plain)
-    assert kernels.LAUNCHES == collections.Counter(rwalk_propose=1)
+    assert kernels.LAUNCHES == collections.Counter(rwalk_accept=1)
     for t in (tin, None):
         for nxt in (m, None):
             kernels.reset_counts()
@@ -1603,10 +1611,10 @@ def test_engine_graph_walk_equals_host_loop(cuda, engine):
     torch.cuda.synchronize()
     names = ('spec_propose', 'sync_update') if engine == 'sync' \
         else ('rwalk_accept',)
+    # K7 once more a dispatch, for its prologue
+    prologue = int(engine == 'rwalk')
     for k in names:
-        assert kernels.LAUNCHES[k] == host['rounds']
-    # K7's prologue: once a dispatch
-    assert kernels.LAUNCHES['rwalk_propose'] == (engine == 'rwalk')
+        assert kernels.LAUNCHES[k] == host['rounds'] + prologue
     assert sum(kernels.PLAIN_CALLS.values()) == 0
     if engine == 'sync':
         old = _old_sync_walk(*args, scale, ev)
@@ -1635,11 +1643,10 @@ def test_engine_graph_walk_equals_host_loop(cuda, engine):
             warm = 1
         else:
             assert stats['replays'] == 1 and stats['reads'] == 0
-            warm = stats['rounds']
+            warm = stats['rounds'] + prologue
         for k in names:
-            assert kernels.LAUNCHES[k] == stats['rounds'] + (n == 0) * warm
-        assert kernels.LAUNCHES['rwalk_propose'] == \
-            (engine == 'rwalk') * (1 + (n == 0))
+            assert kernels.LAUNCHES[k] == \
+                stats['rounds'] + prologue + (n == 0) * warm
     assert sum(kernels.PLAIN_CALLS.values()) == 0
 
 
@@ -1703,13 +1710,15 @@ def test_engine_dispatch_syncs_only_at_its_flag_reads(cuda, engine):
         assert _same_bits(a, b), engine
     names = ('spec_propose', 'sync_update') if engine == 'sync' \
         else ('rwalk_accept',)
+    # K7 once more, for its prologue
+    prologue = int(engine == 'rwalk')
     for k in names:
-        assert kernels.LAUNCHES[k] == stats['rounds']
+        assert kernels.LAUNCHES[k] == stats['rounds'] + prologue
     if engine == 'sync':
         assert stats['reads'] == stats['rounds'] // \
             popfused.SYNC_CHECK_EVERY - 1
     else:
-        assert stats['reads'] == 0 and kernels.LAUNCHES['rwalk_propose'] == 1
+        assert stats['reads'] == 0
 
 
 def test_rwalk_step_is_the_likelihood_and_k7(cuda):
@@ -1720,20 +1729,15 @@ def test_rwalk_step_is_the_likelihood_and_k7(cuda):
     args, ev = _engine_walk_inputs(cuda, 'rwalk', nsteps=6)
     banks, live_u, live_L, axes, Lmin = args
     nsteps, P, d = banks['eps'].shape
-    st = popfused._rwalk_state(P, d, cuda)
-    popfused._rwalk_init(st, banks, live_u, live_L)
-    m = torch.empty((nsteps, P, d), device=cuda)
-    up = torch.empty((P, d), device=cuda)
-    scale = torch.tensor(0.3, device=cuda)
-
-    def steps():
-        popfused._rwalk_steps(banks['eps'], axes, scale, ev, Lmin, st, m, up)
-    steps()                         # first calls outside the capture
+    rwalk = popfused._RwalkWalk(P, d, nsteps, cuda)
+    rwalk.load(banks, live_u, live_L, axes, Lmin, 0.3, ev)
+    rwalk.init()
+    rwalk.round()                   # first calls outside the capture
     torch.cuda.synchronize()
-    walk = _kernel_nodes(steps)
+    walk = _kernel_nodes(rwalk.round)
     products = _kernel_nodes(
-        lambda: popfused._rwalk_products(banks['eps'], axes, m))
-    like = _kernel_nodes(lambda: ev(up))
+        lambda: popfused._rwalk_products(rwalk.eps, rwalk.axes, rwalk.m))
+    like = _kernel_nodes(lambda: ev(rwalk.up))
     assert sum('rwalk_step_kernel' in n for n in walk) == nsteps + 1, walk
     assert len(walk) == len(products) + 1 + nsteps * (len(like) + 1), \
         (walk, products, like)

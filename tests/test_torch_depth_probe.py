@@ -9,7 +9,8 @@ on the CPU.
   configured depth, divided by the depth. It never tries a CUDA graph.
 * ``round_overhead``, the helper that measures A, runs rounds with the
   likelihood replaced by a constant, and leaves the walk's state as the
-  real rounds (``popfused._spec_round``) with that likelihood leave it.
+  real rounds (the spec walk's, ``popfused._SpecWalk.round``) with that
+  likelihood leave it.
 
 The card's side (the probe as a captured graph's replay, the same depth
 on two calls, A from a captured chunk) is in ``tests/test_torch_cuda.py``.
@@ -115,9 +116,12 @@ def test_probe_is_not_run_where_it_is_off():
 
 
 def _walk_state(P, D, d, nsteps, seed):
+    """A spec walk mid-dispatch on the CPU, with its bank, directions,
+    threshold and a constant likelihood."""
     rng = np.random.RandomState(seed)
     f32 = np.float32
-    st = tpop._spec_state(P, d, 'cpu')
+    walk = tpop._SpecWalk(P, D, d, nsteps, 8, P, 'cpu')
+    st = walk.state
     st['u'].copy_(torch.as_tensor(rng.uniform(0.05, 0.95, (P, d)).astype(f32)))
     st['v'].copy_(torch.as_tensor((0.1 * rng.normal(size=(P, d))).astype(f32)))
     tl, tr = tpop._cube_intersection(st['u'], st['v'])
@@ -125,12 +129,14 @@ def _walk_state(P, D, d, nsteps, seed):
     st['tr'].copy_(tr)
     st['step'].copy_(torch.as_tensor(rng.randint(0, nsteps, P)))
     st['done'].copy_(torch.as_tensor(rng.uniform(size=P) < 0.1))
-    xibank = torch.as_tensor(rng.uniform(size=(8, P, D)).astype(f32))
-    dirbank = torch.as_tensor((0.1 * rng.normal(size=(nsteps, P, d)))
-                              .astype(f32))
+    walk.xibank.copy_(torch.as_tensor(rng.uniform(size=(8, P, D))
+                                      .astype(f32)))
+    walk.dirbank.copy_(torch.as_tensor((0.1 * rng.normal(size=(nsteps, P, d)))
+                                       .astype(f32)))
     Lconst = torch.as_tensor(rng.normal(size=P * D).astype(f32))
-    Lmin = torch.quantile(Lconst, 0.75)
-    return st, xibank, dirbank, Lmin, Lconst
+    walk.Lmin.copy_(torch.quantile(Lconst, 0.75))
+    walk.evaluate = lambda rows: (Lconst, None)
+    return walk, Lconst
 
 
 @pytest.mark.parametrize('P,D,d,rounds', [(64, 8, 5, 1), (64, 8, 5, 8),
@@ -138,13 +144,13 @@ def _walk_state(P, D, d, nsteps, seed):
 def test_round_overhead_leaves_the_state_of_real_rounds(P, D, d, rounds):
     """The rounds A is measured on are the walk's rounds with the
     likelihood replaced by a constant."""
-    st, xibank, dirbank, Lmin, Lconst = _walk_state(P, D, d, 5, P + d)
-    want = {k: t.clone() for k, t in st.items()}
+    walk, Lconst = _walk_state(P, D, d, 5, P + d)
+    st = {k: t.clone() for k, t in walk.state.items()}
     for _ in range(rounds):
-        tpop._spec_round(xibank, lambda rows: (Lconst, None), Lmin, dirbank,
-                         want)
-    a = tpop.round_overhead(st, xibank, dirbank, Lmin, Lconst, rounds=rounds,
-                            trials=3)
+        walk.round()
+    want = walk.state
+    a = tpop.round_overhead(st, walk.xibank, walk.dirbank, walk.Lmin, Lconst,
+                            rounds=rounds, trials=3)
     assert 0 < a < 1.0
     for k in want:
         assert _same_bits(st[k], want[k]), k

@@ -22,7 +22,6 @@ The likelihood is an L1 distance on the first two coordinates: at most
 one addition, so no summation order or fused multiply-add changes its
 values.
 """
-import collections
 
 import jax
 import jax.numpy as jnp
@@ -34,6 +33,7 @@ import ultranest_tpu.popfused as jpop
 from ultranest_torch import convert, popfused
 from ultranest_torch.ops import kernels
 from ultranest_torch.ops.pairwise import pad_rows, round_up
+from torch_port_helpers import StandInGraphs
 
 P, NSTEPS = 64, 8
 CENTER = (0.5, 0.45)
@@ -162,13 +162,13 @@ def test_plain_kernels_equal_the_round_body(D, d, treg_on):
     g = torch.Generator().manual_seed(D * 100 + d)
     rounds = 40
     banks = popfused.draw_spec_banks(g, P, D, NSTEPS, rounds, nlive, d)
-    dirbank = popfused._direction_bank(banks, live_u, torch.as_tensor(axes),
-                                       1.0)
     treg = torch.as_tensor(_treg(d, True)) if treg_on else None
     ev = _evaluator(treg, d)
     Lmin = float(np.sort(L0)[nlive // 3])
-    st = popfused._spec_state(P, d, 'cpu')
-    popfused._spec_init(st, banks, live_u, live_L, dirbank)
+    walk = popfused._SpecWalk(P, D, d, NSTEPS, rounds, P, 'cpu')
+    walk.load(banks, live_u, live_L, torch.as_tensor(axes), Lmin, 1.0, ev)
+    walk.init()
+    st, dirbank = walk.state, walk.dirbank
     old = (st['u'].clone(), st['L'].clone(), st['v'].clone(),
            st['tl'].clone(), st['tr'].clone(), st['step'].clone(),
            st['done'].clone(), torch.zeros(()),
@@ -418,30 +418,6 @@ def test_propose_plain_reads_the_counters_round():
 # the graph loop, with a stand-in for the CUDA graph
 
 
-class _StandIn:
-    def __init__(self, body, flag, n):
-        self.body, self.flag, self.n = body, flag, n
-
-    def replay(self):
-        for _ in range(self.n):
-            self.body()
-        self.flag()
-
-
-class _StandInGraphs(popfused.SpecGraphs):
-    """SpecGraphs whose "graphs" run the round body on the host."""
-
-    def capture(self, entry, sizes, body, flag):
-        body()          # the warm-up round
-        flag()
-        for n in sizes:
-            entry.graphs[n] = (_StandIn(body, flag, n),
-                               collections.Counter(spec_propose=n,
-                                                   spec_update=n))
-        self.captured = list(sizes)
-        return 0.0
-
-
 def _walk_inputs(d=2, D=4, max_rounds=8 * 5 + 3, seed=2):
     u, L, axes = _state(d, seed)
     nlive = len(u)
@@ -464,7 +440,7 @@ def test_graph_loop_reads_and_rounds(finishing):
     host, graph = {}, {}
     want = popfused.spec_walk(banks, live_u, live_L, nlive, axes, Lmin, 1.0,
                               ev, NSTEPS, stats=host)
-    graphs = _StandInGraphs('stand-in')
+    graphs = StandInGraphs('stand-in')
     kernels.reset_counts()
     got = popfused.spec_walk(banks, live_u, live_L, nlive, axes, Lmin, 1.0,
                              ev, NSTEPS, stats=graph, graphs=graphs)
@@ -476,15 +452,34 @@ def test_graph_loop_reads_and_rounds(finishing):
     # through the plain versions (CPU tensors)
     assert kernels.LAUNCHES['spec_propose'] == graph['rounds']
     assert kernels.PLAIN_CALLS['spec_propose'] == graph['rounds'] + 1
+    # a CPU flag is read at once, whether the rounds ran as graphs or not
+    assert graph['reads'] == host['reads']
+    assert graph['rounds'] == host['rounds']
     if finishing:
         assert graph['rounds'] < R and graph['rounds'] % every == 0
-        assert graph['reads'] == graph['rounds'] // every - 1
+        assert graph['reads'] == graph['rounds'] // every
         assert graph['replays'] == graph['rounds'] // every
     else:
         assert graph['rounds'] == R
-        # the last read waits behind the rounds below the cap
-        assert graph['reads'] == -(-R // every) - 1
+        assert graph['reads'] == -(-R // every)
         assert graph['replays'] == R // every + R % every
+    # read one chunk behind, as on a card: one more chunk of rounds runs
+    # past the flag, as exact no-ops, and one read fewer waits
+    D, d = banks['xibank'].shape[2], live_u.shape[1]
+    walk = popfused._SpecWalk(P, D, d, NSTEPS, R, P, 'cpu')
+    walk.load(banks, live_u, live_L, axes, Lmin, 1.0, ev)
+    walk.init()
+    reads, rounds = popfused._drive_rounds(walk.run_rounds, R, every, 1)
+    for k, w in zip(('u', 'L', 'done', 'ncr', 'nur'),
+                    (0, 1, 2, 4, 5)):
+        _assert_bits(walk.state[k], want[w])
+    if finishing:
+        assert rounds == host['rounds'] + every
+        assert reads == rounds // every - 1
+    else:
+        assert rounds == R
+        # the last read waits behind the rounds below the cap
+        assert reads == -(-R // every) - 1
     # a second dispatch replays without capturing
     again = {}
     popfused.spec_walk(banks, live_u, live_L, nlive, axes, Lmin, 1.0, ev,
@@ -502,7 +497,7 @@ def test_graph_loop_exact_walk_reads_every_round():
     args = (banks, live_u, live_L, nlive, axes, float(L.min()), 1.0, ev,
             NSTEPS)
     want = popfused.spec_walk(*args, target_done=P // 2, stats=host)
-    graphs = _StandInGraphs('stand-in')
+    graphs = StandInGraphs('stand-in')
     got = popfused.spec_walk(*args, target_done=P // 2, stats=graph,
                              graphs=graphs)
     for a, b in zip(got, want):
@@ -538,5 +533,5 @@ def test_sampler_walks_on_the_cpu_run_no_graph():
     assert getattr(port, '_graphs', None) is None
     with pytest.raises(ValueError, match='CUDA'):
         popfused.SpecGraphs('f').capture(
-            popfused._SpecGraphEntry(P, 1, 2, NSTEPS, 8, 'cpu'), [8],
+            popfused._SpecWalk(P, 1, 2, NSTEPS, 8, P, 'cpu'), [8],
             None, None)

@@ -31,6 +31,7 @@ import torch
 from ultranest_torch import popfused
 from ultranest_torch.ops import kernels
 from ultranest_torch.ops.pairwise import pad_rows, round_up
+from torch_port_helpers import StandInGraphs
 
 NSTEPS = 6
 CENTER = np.array([0.5, 0.45, 0.55, 0.6, 0.4, 0.5, 0.52, 0.47])
@@ -198,29 +199,29 @@ def test_sync_walk_equals_the_old_host_loop(P, d, filtered, kind, max_it):
         assert (Lf == live_L[idx0]).any()
 
 
-def _sync_state_after(P, d, max_it, rounds, seed=3):
+def _sync_walk_after(P, d, max_it, rounds, seed=3):
+    """A sync walk on the CPU started, then *rounds* rounds run."""
     banks, live_u, live_L, axes, L = _inputs(P, d, seed, max_it=max_it)
-    dirbank = popfused._direction_bank(banks, live_u, axes, 0.8)
-    tbank = banks['tbank'].reshape(NSTEPS * max_it, P, 1)
-    st = popfused._sync_state(P, d, NSTEPS, 'cpu')
-    popfused._sync_init(st, banks, live_u, live_L, dirbank)
-    Lmin = torch.tensor(float(np.sort(L)[len(L) // 3]))
-    ev = _evaluator(True)
+    walk = popfused._SyncWalk(P, d, NSTEPS, max_it, 'cpu')
+    walk.load(banks, live_u, live_L, axes, float(np.sort(L)[len(L) // 3]),
+              0.8, _evaluator(True))
+    walk.init()
     for _ in range(rounds):
-        popfused._sync_round(tbank, ev, Lmin, dirbank, max_it, st)
-    return st, (tbank, ev, Lmin, dirbank, max_it)
+        walk.round()
+    return walk
 
 
 def test_rounds_after_the_flag_change_nothing():
     P, d, max_it = 64, 5, 4
-    st, args = _sync_state_after(P, d, max_it, NSTEPS * max_it)
+    walk = _sync_walk_after(P, d, max_it, NSTEPS * max_it)
+    st = walk.state
     # every step ran within the cap: the flag is up, the bank row is the
     # last one
     assert bool(st['flag']) and int(st['s']) == NSTEPS
     assert int(st['row']) == NSTEPS * max_it - 1
     before = {k: t.clone() for k, t in st.items()}
     for _ in range(5):
-        popfused._sync_round(*args, st)
+        walk.round()
     for k in kernels.SYNC_STATE:
         _assert_bits(st[k], before[k])
 
@@ -230,16 +231,17 @@ def test_step_boundary_renews_every_walker():
     the next direction, the bracket its full chord, nobody done, the
     step's fraction and median written, the bank row at the next step."""
     P, d, max_it = 65, 2, 16
-    st, (tbank, ev, Lmin, dirbank, _) = _sync_state_after(P, d, max_it, 0)
+    walk = _sync_walk_after(P, d, max_it, 0)
+    st = walk.state
     n = 0
     while int(st['s']) == 0:
         un_before = st['un'].clone()
         done_before = st['done'].clone()
-        popfused._sync_round(tbank, ev, Lmin, dirbank, max_it, st)
+        walk.round()
         n += 1
     assert int(st['row']) == max_it and int(st['it']) == 0
     assert not st['done'].any() and not bool(st['flag'])
-    _assert_bits(st['v'], dirbank[1])
+    _assert_bits(st['v'], walk.dirbank[1])
     tl, tr = kernels.cube_intersection(st['u'], st['v'])
     _assert_bits(st['tl'], tl)
     _assert_bits(st['tr'], tr)
@@ -304,7 +306,8 @@ def test_rwalk_walk_equals_the_old_scan(P, d, filtered, scale):
     assert done.all() and nu is nc and 0 < float(acc_rate) < 1
     assert stats == dict(reads=0, rounds=banks['eps'].shape[0],
                          graph=False, replays=0, captures=0, capture_s=0.0)
-    assert kernels.PLAIN_CALLS['rwalk_accept'] == banks['eps'].shape[0]
+    # a call a step and one for K7's prologue
+    assert kernels.PLAIN_CALLS['rwalk_accept'] == banks['eps'].shape[0] + 1
 
 
 def test_rwalk_accept_plain_at_the_edges():
@@ -349,35 +352,6 @@ def test_rwalk_accept_plain_at_the_edges():
 # the graph drivers, the CUDA graph replaced by a stand-in
 
 
-class _StandIn:
-    def __init__(self, body, flag, n):
-        self.body, self.flag, self.n = body, flag, n
-
-    def replay(self):
-        for _ in range(self.n):
-            self.body()
-        self.flag()
-
-
-class _StandInGraphs(popfused.SpecGraphs):
-    """SpecGraphs whose "graphs" run the round body on the host; each
-    replay books the kernels the body ran on the CPU, as launches."""
-
-    def capture(self, entry, sizes, body, flag):
-        body()          # the warm-up round
-        flag()
-        for n in sizes:
-            before = collections.Counter(kernels.PLAIN_CALLS)
-            body()
-            launched = collections.Counter(kernels.PLAIN_CALLS)
-            launched.subtract(before)
-            # a stand-in capture runs one round: n rounds launch n times
-            entry.graphs[n] = (_StandIn(body, flag, n), collections.Counter(
-                {k: n * c for k, c in launched.items() if c}))
-        self.captured = list(sizes)
-        return 0.0
-
-
 @pytest.mark.parametrize('finishing', [False, True])
 def test_sync_graph_loop_reads_and_rounds(finishing):
     P, d, max_it = 64, 2, 13
@@ -394,7 +368,7 @@ def test_sync_graph_loop_reads_and_rounds(finishing):
     host, graph = {}, {}
     want = popfused.sync_walk(banks, live_u, live_L, axes, Lmin, 0.8, ev,
                               stats=host)
-    graphs = _StandInGraphs('stand-in')
+    graphs = StandInGraphs('stand-in')
     kernels.reset_counts()
     got = popfused.sync_walk(banks, live_u, live_L, axes, Lmin, 0.8, ev,
                              stats=graph, graphs=graphs)
@@ -404,17 +378,36 @@ def test_sync_graph_loop_reads_and_rounds(finishing):
     assert graphs.captured == [every, 1]
     assert kernels.LAUNCHES['spec_propose'] == \
         kernels.LAUNCHES['sync_update'] == graph['rounds']
+    # a CPU flag is read at once, whether the rounds ran as graphs or not
+    assert graph['reads'] == host['reads']
+    assert graph['rounds'] == host['rounds']
     if finishing:
-        # read one chunk behind: the flag's chunk and one more ran
         assert graph['rounds'] < R and graph['rounds'] % every == 0
-        assert graph['reads'] == graph['rounds'] // every - 1
+        assert graph['reads'] == graph['rounds'] // every
         assert graph['replays'] == graph['rounds'] // every
-        assert graph['rounds'] - host['rounds'] == every
     else:
-        assert graph['rounds'] == host['rounds'] == R
-        assert graph['reads'] == -(-R // every) - 1
+        assert graph['rounds'] == R
+        assert graph['reads'] == -(-R // every)
         assert graph['replays'] == R // every + R % every
         assert float(got[-1]) == 0.0
+    # read one chunk behind, as on a card: the flag's chunk and one more
+    # run, the rounds past the flag as exact no-ops, and one read fewer
+    # waits
+    walk = popfused._SyncWalk(P, d, NSTEPS, max_it, 'cpu')
+    walk.load(banks, live_u, live_L, axes, Lmin, 0.8, ev)
+    walk.init()
+    reads, rounds = popfused._drive_rounds(walk.run_rounds, R, every, 1)
+    for k, w in zip(('un', 'Ln', 'nc'), (0, 1, 4)):
+        _assert_bits(walk.state[k], want[w])
+    _assert_bits(walk.state['widths'].mean(), want[-2])
+    _assert_bits(walk.state['accs'].mean(), want[-1])
+    if finishing:
+        assert rounds < R and rounds % every == 0
+        assert reads == rounds // every - 1
+        assert rounds - host['rounds'] == every
+    else:
+        assert rounds == R
+        assert reads == -(-R // every) - 1
     again = {}
     popfused.sync_walk(banks, live_u, live_L, axes, Lmin, 0.8, ev,
                        stats=again, graphs=graphs)
@@ -429,7 +422,7 @@ def test_rwalk_graph_is_the_whole_walk():
     Lmin = float(np.sort(L)[len(L) // 3])
     ev = _evaluator(True)
     want = popfused.rwalk_walk(banks, live_u, live_L, axes, Lmin, 0.3, ev)
-    graphs = _StandInGraphs('stand-in')
+    graphs = StandInGraphs('stand-in')
     kernels.reset_counts()
     stats = {}
     got = popfused.rwalk_walk(banks, live_u, live_L, axes, Lmin, 0.3, ev,
@@ -440,8 +433,8 @@ def test_rwalk_graph_is_the_whole_walk():
     assert stats['graph'] and stats['replays'] == 1 and \
         stats['captures'] == 1
     assert stats['reads'] == 0 and stats['rounds'] == nsteps
-    # one replay launches every step's K7
-    assert kernels.LAUNCHES['rwalk_accept'] == nsteps
+    # one replay launches every step's K7 and K7's prologue
+    assert kernels.LAUNCHES['rwalk_accept'] == nsteps + 1
     again = {}
     popfused.rwalk_walk(banks, live_u, live_L, axes, Lmin, 0.3, ev,
                         stats=again, graphs=graphs)
@@ -501,7 +494,7 @@ def _boundary_widths(w):
     and tl +0)."""
     w = np.asarray(w, dtype=np.float32)
     P, d = len(w), 2
-    st = popfused._sync_state(P, d, 2, 'cpu')
+    st = popfused._SyncWalk(P, d, 2, 4, 'cpu').state
     st['done'].fill_(True)
     tr = torch.as_tensor(w)
     st['tr'].copy_(tr)
@@ -613,11 +606,11 @@ def test_rwalk_fused_step_equals_the_old_operators(step, P, d, filtered,
     if step == 'prologue':
         mine = up.clone()
         before = {k: x.clone() for k, x in st.items()}
-        kernels.rwalk_propose(mine, st, m, scale_t)
+        kernels.rwalk_accept(None, None, mine, None, st, m, scale_t)
         _assert_bits(mine, u + float(np.float32(scale)) * (eps @ axes.T))
         for k in kernels.RWALK_STATE:
             _assert_bits(st[k], before[k])
-        assert kernels.PLAIN_CALLS == collections.Counter(rwalk_propose=1)
+        assert kernels.PLAIN_CALLS == collections.Counter(rwalk_accept=1)
         return
     want = _old_rwalk_step(Lev, tin, up, Lmin, u, L, st['nacc'], st['nc'],
                            None if step == 'last' else eps @ axes.T,
@@ -633,16 +626,23 @@ def test_rwalk_fused_step_equals_the_old_operators(step, P, d, filtered,
     assert 3 < int(st['nacc']) < 3 + P
 
 
-def test_rwalk_walk_proposes_once_a_dispatch():
-    """A walk runs K7's prologue once and K7 once a step; a walk of no
-    steps runs neither."""
+def test_rwalk_walk_proposes_once_a_dispatch(monkeypatch):
+    """A walk runs K7's prologue (K7 with no likelihoods) once, first,
+    and K7 once a step; a walk of no steps runs neither."""
     banks, live_u, live_L, axes, L = _rwalk_inputs(64, 3, 9, nsteps=5)
     Lmin = float(np.sort(L)[len(L) // 3])
+    prologue = []
+    accept = kernels.rwalk_accept
+
+    def booked(Lev, *args):
+        prologue.append(Lev is None)
+        return accept(Lev, *args)
+    monkeypatch.setattr(kernels, 'rwalk_accept', booked)
     kernels.reset_counts()
     popfused.rwalk_walk(banks, live_u, live_L, axes, Lmin, 0.4,
                         _evaluator(False))
-    assert kernels.PLAIN_CALLS == collections.Counter(rwalk_propose=1,
-                                                      rwalk_accept=5)
+    assert kernels.PLAIN_CALLS == collections.Counter(rwalk_accept=6)
+    assert prologue == [True] + [False] * 5
     banks['eps'] = banks['eps'][:0]
     kernels.reset_counts()
     uf, Lf = popfused.rwalk_walk(banks, live_u, live_L, axes, Lmin, 0.4,

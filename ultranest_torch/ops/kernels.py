@@ -26,8 +26,8 @@ Nine kernels, sources in ``ultranest_torch/csrc/``:
   (``ultranest_tpu/popfused.py:849-870``);
 * K7 :func:`rwalk_accept` (``csrc/rwalk_accept.cu``) is a random-walk
   step after the likelihood, its acceptance and the next step's
-  proposal (``:1612-1621``); :func:`rwalk_propose` launches the same
-  kernel for step 0's proposal;
+  proposal (``:1612-1621``); with no likelihoods it is the walk's
+  prologue, step 0's proposal;
 * K8 :func:`radius_graph` (``csrc/radius_graph.cu``) is the transform
   layer's two radius graphs of a region rebuild, the clustering and the
   local centring, which the JAX package builds with XLA and on the host
@@ -78,13 +78,13 @@ from ..native import build_dir
 
 __all__ = ['radius_member', 'radius_member_t', 'bootstrap_radius',
            'consume_scan', 'spec_propose', 'spec_update', 'sync_update',
-           'rwalk_accept', 'rwalk_propose', 'radius_graph',
+           'rwalk_accept', 'radius_graph',
            'radius_graph_plain', 'radius_graph_parts', 'radius_graph_fits',
            'radius_member_plain',
            'radius_member_t_plain',
            'bootstrap_radius_plain', 'consume_scan_plain',
            'spec_propose_plain', 'spec_update_plain', 'sync_update_plain',
-           'rwalk_accept_plain', 'rwalk_propose_plain', 'cube_intersection',
+           'rwalk_accept_plain', 'cube_intersection',
            'SPEC_STATE',
            'SYNC_STATE', 'RWALK_STATE', 'build', 'LAUNCHES', 'PLAIN_CALLS',
            'CAPTURED',
@@ -102,10 +102,10 @@ KERNELS = ('radius_member', 'radius_member_t', 'bootstrap_radius',
 REGION_KERNELS = ('radius_member', 'bootstrap_radius', 'consume_scan')
 # the rounds of the population walks: K4 and K5 of the spec and async
 # walks (popfused.spec_walk), K4 and K6 of the sync walk
-# (popfused.sync_walk), K7 of the random walk and, once a dispatch, its
-# prologue (popfused.rwalk_walk; the same kernel, counted apart)
+# (popfused.sync_walk), K7 of the random walk, its prologue included
+# (popfused.rwalk_walk)
 POPULATION_KERNELS = ('spec_propose', 'spec_update', 'sync_update',
-                      'rwalk_accept', 'rwalk_propose')
+                      'rwalk_accept')
 SOURCES = ('radius_member.cu', 'radius_member_t.cu', 'bootstrap_radius.cu',
            'consume_scan.cu', 'spec_propose.cu', 'spec_update.cu',
            'sync_update.cu', 'rwalk_accept.cu', 'radius_graph.cu')
@@ -959,55 +959,22 @@ RWALK_STATE = ('u', 'L', 'nacc', 'nc')
 
 def rwalk_accept_plain(Lev, tin, up, Lmin, state, m=None, scale=None):
     """Plain torch K7: accept each walker's proposal *up* that lies inside
-    the unit cube above *Lmin*, then, given the next step's products *m*,
-    write the next proposal ``u + scale * m`` into *up*
-    (``csrc/rwalk_accept.cu`` states the step). Returns None."""
+    the unit cube above *Lmin* (nothing where *Lev* is None: K7's
+    prologue), then, given the next step's products *m*, write the next
+    proposal ``u + scale * m`` into *up*, a multiply and an add as torch
+    rounds them (``csrc/rwalk_accept.cu`` states the step). Returns
+    None."""
     st = state
-    inside = ((up > 0) & (up < 1)).all(dim=1)
-    Lp = torch.where(inside, Lev, -math.inf)
-    acc = inside & (Lp > Lmin)
-    st['u'].copy_(torch.where(acc[:, None], up, st['u']))
-    st['L'].copy_(torch.where(acc, Lp, st['L']))
-    st['nacc'].add_(acc.sum())
-    st['nc'].add_((inside if tin is None else inside & tin).sum())
-    if m is not None:
-        rwalk_propose_plain(up, st, m, scale)
-
-
-def rwalk_propose_plain(up, state, m, scale):
-    """Plain torch prologue of K7: the proposal ``u + scale * m`` from
-    the *state*'s point into *up*, a multiply and an add as torch rounds
-    them."""
-    up.copy_(state['u'] + scale * m)
-
-
-def _rwalk_call(name, Lev, tin, up, Lmin, state, m, scale):
-    st = state
-    P, d = up.shape
-    if d < 1 or P * d >= 2**31:
-        raise ValueError('%s takes 1 <= d and fewer than 2**31 row values, '
-                         'got up %s' % (name, tuple(up.shape)))
-    _check_shape(up, 'up', torch.float32, (P, d))
     if Lev is not None:
-        _check_shape(Lev, 'Lev', torch.float32, (P,))
-        _check_shape(Lmin, 'Lmin', torch.float32, ())
-        if tin is not None:
-            _on_cpu(Lev, tin)
-            _check_shape(tin, 'tin', torch.bool, (P,))
+        inside = ((up > 0) & (up < 1)).all(dim=1)
+        Lp = torch.where(inside, Lev, -math.inf)
+        acc = inside & (Lp > Lmin)
+        st['u'].copy_(torch.where(acc[:, None], up, st['u']))
+        st['L'].copy_(torch.where(acc, Lp, st['L']))
+        st['nacc'].add_(acc.sum())
+        st['nc'].add_((inside if tin is None else inside & tin).sum())
     if m is not None:
-        _on_cpu(up, m, scale)
-        _check_shape(m, 'm', torch.float32, (P, d))
-        _check_shape(scale, 'scale', torch.float32, ())
-    _check_shape(st['u'], 'u', torch.float32, (P, d))
-    _check_shape(st['L'], 'L', torch.float32, (P,))
-    for k in ('nacc', 'nc'):
-        _check_shape(st[k], k, torch.int64, ())
-
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-    _launch(name, _lib().un_rwalk_accept, ptr(Lev), ptr(tin), up.data_ptr(),
-            ptr(Lmin), ptr(m), ptr(scale), P, d,
-            *(st[k].data_ptr() for k in RWALK_STATE))
+        up.copy_(st['u'] + scale * m)
 
 
 def rwalk_accept(Lev, tin, up, Lmin, state, m=None, scale=None):
@@ -1016,8 +983,10 @@ def rwalk_accept(Lev, tin, up, Lmin, state, m=None, scale=None):
 
     Parameters
     ----------
-    Lev: (P,) float32
-        likelihoods of the proposed rows
+    Lev: (P,) float32 or None
+        likelihoods of the proposed rows; None for K7's prologue, which
+        accepts nothing and writes step 0's proposal (*tin* and *Lmin*
+        unused, the state left alone)
     tin: (P,) bool or None
         rows the p-space filter let through (None: every inside row
         billed)
@@ -1036,24 +1005,35 @@ def rwalk_accept(Lev, tin, up, Lmin, state, m=None, scale=None):
     On the card one launch; the int64 counts are summed in it.
     """
     st = state
-    if _on_cpu(Lev, up, Lmin, *(st[k] for k in RWALK_STATE)):
+    given = [t for t in (Lev, Lmin) if t is not None]
+    if _on_cpu(*given, up, *(st[k] for k in RWALK_STATE)):
         PLAIN_CALLS['rwalk_accept'] += 1
         return rwalk_accept_plain(Lev, tin, up, Lmin, st, m, scale)
-    _rwalk_call('rwalk_accept', Lev, tin, up, Lmin, st, m, scale)
+    P, d = up.shape
+    if d < 1 or P * d >= 2**31:
+        raise ValueError('rwalk_accept takes 1 <= d and fewer than 2**31 '
+                         'row values, got up %s' % (tuple(up.shape),))
+    _check_shape(up, 'up', torch.float32, (P, d))
+    if Lev is not None:
+        _check_shape(Lev, 'Lev', torch.float32, (P,))
+        _check_shape(Lmin, 'Lmin', torch.float32, ())
+        if tin is not None:
+            _on_cpu(Lev, tin)
+            _check_shape(tin, 'tin', torch.bool, (P,))
+    if m is not None:
+        _on_cpu(up, m, scale)
+        _check_shape(m, 'm', torch.float32, (P, d))
+        _check_shape(scale, 'scale', torch.float32, ())
+    _check_shape(st['u'], 'u', torch.float32, (P, d))
+    _check_shape(st['L'], 'L', torch.float32, (P,))
+    for k in ('nacc', 'nc'):
+        _check_shape(st[k], k, torch.int64, ())
 
-
-def rwalk_propose(up, state, m, scale):
-    """K7's prologue: step 0's proposal ``u + scale * m`` from the
-    *state*'s point (:data:`RWALK_STATE`, left alone) into *up*
-    (:func:`rwalk_propose_plain`).
-
-    On the card one launch of K7's kernel with nothing to accept, counted
-    as ``rwalk_propose``.
-    """
-    if _on_cpu(up, m, scale, *(state[k] for k in RWALK_STATE)):
-        PLAIN_CALLS['rwalk_propose'] += 1
-        return rwalk_propose_plain(up, state, m, scale)
-    _rwalk_call('rwalk_propose', None, None, up, None, state, m, scale)
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+    _launch('rwalk_accept', _lib().un_rwalk_accept, ptr(Lev), ptr(tin),
+            up.data_ptr(), ptr(Lmin), ptr(m), ptr(scale), P, d,
+            *(st[k].data_ptr() for k in RWALK_STATE))
 
 
 # ---------------------------------------------------------------- K8 -----

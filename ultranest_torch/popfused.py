@@ -34,7 +34,7 @@ around the user's likelihood:
   is one graph, replayed once.
 
 On the CPU, and for a likelihood that cannot be captured, the same
-rounds run from a host loop (:func:`_drive_rounds`). The spec, async and
+rounds run from a host loop (:func:`_drive_walk`). The spec, async and
 sync walks read the loop's "finished" flag once a chunk, through a
 pinned copy and a CUDA event, one check behind the rounds already
 queued (the card never waits for that read); the random walk has a
@@ -242,17 +242,6 @@ def _direction_bank(banks, live_u, axes, scale, out=None):
     return dirbank.mul_(scale)
 
 
-def _finish_flag(handle):
-    """Wait for a :func:`~ultranest_torch.parallel.launch.start_fetch` of
-    a 0-d bool tensor; returns a Python bool.
-
-    The wait carries the dispatch deadline (raises
-    :class:`~ultranest_torch.parallel.launch.DeviceLostError`): the walk
-    blocks here before it reaches any result fetch.
-    """
-    return bool(finish_fetch(handle))
-
-
 def _drive_rounds(run, max_rounds, every, lag):
     """Host loop standing in for the reference's ``lax.while_loop``:
     ``run(n)`` runs the next *n* rounds and returns the loop's 0-d bool
@@ -263,6 +252,9 @@ def _drive_rounds(run, max_rounds, every, lag):
     rounds ran. Unless *every* is 1 and *lag* 0, rounds run past the
     flag and must be exact no-ops. Returns ``(reads, rounds)``: the
     blocking host reads made and the rounds run, no-op rounds included.
+    A read carries the dispatch deadline (raises
+    :class:`~ultranest_torch.parallel.launch.DeviceLostError`): the walk
+    blocks there before it reaches any result fetch.
     """
     flags = []
     reads = 0
@@ -275,49 +267,104 @@ def _drive_rounds(run, max_rounds, every, lag):
         flags.append(start_fetch(flag if flag.is_cuda else flag.clone()))
         if len(flags) > lag:
             reads += 1
-            if _finish_flag(flags.pop(0)):
+            if bool(finish_fetch(flags.pop(0))):
                 break
     return reads, it
 
 
-def _spec_state(P, d, dev):
-    """Zeroed buffers of the spec walk's state (:data:`kernels.SPEC_STATE`
-    and ``widths``, the running float sum of the accepted widths)."""
-    def f32(*shape):
-        return torch.zeros(shape, dtype=torch.float32, device=dev)
-
-    def i64(*shape):
-        return torch.zeros(shape, dtype=torch.int64, device=dev)
-    return dict(u=f32(P, d), L=f32(P), v=f32(P, d), tl=f32(P), tr=f32(P),
-                step=i64(P), done=torch.zeros(P, dtype=torch.bool, device=dev),
-                wbuf=f32(P), ncr=i64(), nur=i64(), nw=i64(), it=i64(),
-                widths=f32())
+def _f32_buffer(dev, *shape):
+    return torch.zeros(shape, dtype=torch.float32, device=dev)
 
 
-def _spec_init(st, banks, live_u, live_L, dirbank):
-    """Start a dispatch: each walker at its live point ``idx0``, on its
-    first direction and full chord; counters and round at 0."""
-    idx0 = banks['idx0']
-    st['u'].copy_(live_u[idx0])
-    st['L'].copy_(live_L[idx0])
-    st['v'].copy_(dirbank[0])
-    tl, tr = _cube_intersection(st['u'], st['v'])
-    st['tl'].copy_(tl)
-    st['tr'].copy_(tr)
-    for k in ('step', 'done', 'wbuf', 'ncr', 'nur', 'nw', 'it', 'widths'):
-        st[k].zero_()
+def _i64_buffer(dev, *shape):
+    return torch.zeros(shape, dtype=torch.int64, device=dev)
 
 
-def _spec_round(xibank, evaluate, Lmin, dirbank, st):
-    """One round: K4 proposes every walker's D candidates, the likelihood
-    evaluates them, K5 updates the state; the accepted widths are summed
-    as the reference sums them, one round at a time."""
-    ts, tlc, trc, up = kernels.spec_propose(st['u'], st['v'], st['tl'],
-                                            st['tr'], xibank, st['it'])
-    Lp, tin = evaluate(up)
-    kernels.spec_update(Lp.reshape(-1).contiguous(), tin, ts, tlc, trc, Lmin,
-                        dirbank, st)
-    st['widths'].add_(st['wbuf'].sum())
+def _set_scalar(buf, x):
+    """Write float or 0-d tensor *x* into the 0-d buffer *buf*, on the
+    device, without a host copy."""
+    if torch.is_tensor(x):
+        buf.copy_(x)
+    else:
+        buf.fill_(x)
+    return buf
+
+
+class _Walk:
+    """A population walk's buffers, which stay put between dispatches:
+    its banks, directions, threshold, :attr:`state` and 0-d bool
+    "finished" :attr:`flag`; its captured graphs (rounds -> (graph,
+    kernel launches of one replay)) and their memory pool.
+
+    A subclass gives the walk's steps: its ``load`` copies a dispatch's
+    inputs in (through this class's :meth:`load`), :meth:`init` starts
+    the dispatch, ``round`` runs one round and :meth:`finished` writes
+    the flag; and its round cap :attr:`max_rounds`, the rounds :attr:`every`
+    between two reads of the flag (None: a fixed trip count, the flag
+    unread) and whether the first round whose flag is up must be the
+    last (:attr:`exact`). :func:`_drive_walk` runs the rounds.
+    """
+
+    every = None
+    exact = False
+    max_rounds = 1
+
+    def __init__(self, flag):
+        self.flag = flag
+        self.graphs = {}
+        self.pool = None
+        self.state = {}
+        self.start = {}
+
+    def load(self, banks, live_u, live_L, Lmin, evaluate, v=None):
+        """What every walk copies in: the threshold, the likelihood and
+        the start, each walker at its live point ``idx0`` (``u``, ``L``)
+        and, given its first direction *v*, on *v*'s full chord through
+        the cube (``v``, ``tl``, ``tr``)."""
+        idx0 = banks['idx0']
+        self.start = dict(u=live_u[idx0], L=live_L[idx0])
+        if v is not None:
+            tl, tr = _cube_intersection(self.start['u'], v)
+            self.start.update(v=v, tl=tl, tr=tr)
+        _set_scalar(self.Lmin, Lmin)
+        self.evaluate = evaluate
+
+    def init(self):
+        """Start a dispatch: the state's tensors named in :attr:`start`
+        from there, the others zero."""
+        for k, t in self.state.items():
+            if k in self.start:
+                t.copy_(self.start[k])
+            else:
+                t.zero_()
+
+    def finished(self):
+        """Write :attr:`flag` (a no-op where the round writes it)."""
+
+    def run_rounds(self, n):
+        """The next *n* rounds from the host; returns the flag."""
+        for _ in range(n):
+            self.round_body()
+        self.finished()
+        return self.flag
+
+    def round_body(self):
+        """A round run from the host (``evaluate.profile_run`` splits the
+        host's time a round by this name)."""
+        self.round()
+
+    def replay_rounds(self, n, info):
+        """The next *n* rounds as replays: a whole chunk's graph once, or
+        below the cap the one-round graph *n* times. Each replay adds its
+        graph's launches to ``kernels.LAUNCHES`` and counts in
+        ``info['replays']``. Returns the flag."""
+        chunk = self.every or self.max_rounds
+        g, launched = self.graphs[n if n == chunk else 1]
+        for _ in range(1 if n == chunk else n):
+            g.replay()
+            kernels.LAUNCHES.update(launched)
+            info['replays'] += 1
+        return self.flag
 
 
 class SpecGraphs:
@@ -332,11 +379,10 @@ class SpecGraphs:
     flag reads; a one-round graph serves the rounds below the cap that a
     chunk would pass and the exact walk that reads every round. The
     random walk's whole dispatch is one graph. A graph reads and writes
-    only buffers that stay put (the banks, the threshold, the state and
-    the flag: :class:`_SpecGraphEntry`, :class:`_SyncGraphEntry`,
-    :class:`_RwalkGraphEntry`), so a dispatch copies its inputs in and
-    replays. The caller's likelihood must read only tensors that stay
-    put too: :meth:`static` keeps such copies.
+    only buffers that stay put (the walk's :class:`_Walk`: the banks,
+    the threshold, the state and the flag), so a dispatch copies its
+    inputs in and replays. The caller's likelihood must read only
+    tensors that stay put too: :meth:`static` keeps such copies.
 
     Entries are keyed by the walk and its shapes (spec: P, D, d, nsteps,
     the round cap and the finishing target; sync: P, d, nsteps and
@@ -381,16 +427,13 @@ class SpecGraphs:
             self._entries.popitem(last=False)
         return e
 
-    def drop(self, key):
-        self._entries.pop(key, None)
-
     def capture(self, entry, sizes, body, flag):
         """Warm up one round on a side stream, then capture a graph of
-        *n* rounds and the flag for each *n* in *sizes*. Returns the
-        seconds it took, or None where the capture failed (then the
-        stream and the allocator are as before, and :attr:`failed`
-        says why). Booked as ``capture`` in the sampler's run in
-        progress (:mod:`ultranest_torch.tracing`)."""
+        *n* rounds and the flag for each *n* in *sizes* into *entry* (a
+        :class:`_Walk`). Returns the seconds it took, or None where the
+        capture failed (then the stream and the allocator are as before,
+        and :attr:`failed` says why). Booked as ``capture`` in the
+        sampler's run in progress (:mod:`ultranest_torch.tracing`)."""
         with tracing.count('capture'):
             return self._capture(entry, sizes, body, flag)
 
@@ -444,92 +487,57 @@ class SpecGraphs:
         return time.perf_counter() - t0
 
 
-class _GraphEntry:
-    """A captured walk's graphs (rounds -> (graph, kernel launches of one
-    replay)), its memory pool and its 0-d bool "finished" *flag*; the
-    subclasses add the buffers the walk reads and writes."""
-
-    def __init__(self, flag):
-        self.flag = flag
-        self.graphs = {}
-        self.pool = None
+def _walk_of(graphs, key, make):
+    """The walk of *key* from *graphs* (made by ``make()`` where it has
+    none), or without *graphs* a fresh one."""
+    if graphs is None:
+        return make()
+    return graphs.entry(key + (graphs.tag,), make)
 
 
-def _f32_buffer(dev, *shape):
-    return torch.zeros(shape, dtype=torch.float32, device=dev)
+def _drive_walk(walk, graphs):
+    """Run the rounds of a loaded *walk* (:class:`_Walk`) from its start;
+    returns the dispatch's stats: ``reads`` (blocking host reads of the
+    flag), ``rounds`` (rounds run, no-op rounds included), ``graph``
+    (whether the rounds ran as graphs), ``replays``, ``captures`` and
+    ``capture_s`` (graphs captured in this call, and the seconds that
+    took).
 
-
-class _SpecGraphEntry(_GraphEntry):
-    """The buffers a captured spec walk reads and writes."""
-
-    def __init__(self, P, D, d, nsteps, max_rounds, dev):
-        super().__init__(torch.zeros((), dtype=torch.bool, device=dev))
-        self.xibank = _f32_buffer(dev, max_rounds, P, D)
-        self.dirbank = _f32_buffer(dev, nsteps, P, d)
-        self.Lmin = _f32_buffer(dev)
-        self.state = _spec_state(P, d, dev)
-
-
-class _SyncGraphEntry(_GraphEntry):
-    """The buffers a captured sync walk reads and writes: the slice
-    positions as bank rows (``nsteps * max_it``, P, 1), the directions,
-    the threshold and the state, whose flag K6 writes."""
-
-    def __init__(self, P, d, nsteps, max_it, dev):
-        state = _sync_state(P, d, nsteps, dev)
-        super().__init__(state['flag'])
-        self.tbank = _f32_buffer(dev, nsteps * max_it, P, 1)
-        self.dirbank = _f32_buffer(dev, nsteps, P, d)
-        self.Lmin = _f32_buffer(dev)
-        self.state = state
-
-
-class _RwalkGraphEntry(_GraphEntry):
-    """The buffers a captured random walk reads and writes: the noise,
-    the region axes, the scale, the threshold, the state, every step's
-    products and the proposal."""
-
-    def __init__(self, P, d, nsteps, dev):
-        super().__init__(torch.zeros((), dtype=torch.bool, device=dev))
-        self.eps = _f32_buffer(dev, nsteps, P, d)
-        self.axes = _f32_buffer(dev, d, d)
-        self.scale = _f32_buffer(dev)
-        self.Lmin = _f32_buffer(dev)
-        self.state = _rwalk_state(P, d, dev)
-        self.m = _f32_buffer(dev, nsteps, P, d)
-        self.up = _f32_buffer(dev, P, d)
-
-
-def _graphs_ready(graphs, key, entry, sizes, body, flag, init, info):
-    """Capture the graphs of *sizes* rounds that *entry* lacks (the state
-    set by *init* first), then *init* the dispatch. Returns False where a
-    capture failed: the entry is dropped and the walk runs its host
-    loop. Books the captures in *info*."""
-    missing = [n for n in sizes if n not in entry.graphs]
+    With *graphs* (a :class:`SpecGraphs` none of whose captures failed)
+    the rounds run as replays of the walk's graphs, those it lacks
+    captured first: a chunk of :attr:`_Walk.every` rounds and, where the
+    round cap is no multiple of it, one round. Without, or where a
+    capture fails, they run from the host, the same kernels on the same
+    buffers: both give the same bits. The flag is read once a chunk
+    (:func:`_drive_rounds`): where it is read on a card and the walk
+    need not be exact, one read behind the rounds queued (the card never
+    waits for that read), else at once.
+    """
+    info = dict(graph=False, replays=0, captures=0, capture_s=0.0)
+    chunk = walk.every or walk.max_rounds
+    sizes = [chunk] + ([1] if walk.max_rounds % chunk else [])
+    graphed = graphs is not None and graphs.failed is None
+    missing = [n for n in sizes if n not in walk.graphs] if graphed else []
     if missing:
-        init()
-        took = graphs.capture(entry, missing, body, flag)
-        if took is None:
-            graphs.drop(key)
-            return False
-        info.update(captures=len(missing), capture_s=took)
-    init()
-    return True
-
-
-def _replay_rounds(entry, every, info):
-    """``run(n)`` of :func:`_drive_rounds` over *entry*'s graphs: a chunk
-    of *every* rounds as one replay, or the rounds below the cap one at
-    a time; each replay adds its graph's launches to
-    ``kernels.LAUNCHES``."""
-    def run(n):
-        g, launched = entry.graphs[n if n == every else 1]
-        for _ in range(1 if n == every else n):
-            g.replay()
-            kernels.LAUNCHES.update(launched)
-            info['replays'] += 1
-        return entry.flag
-    return run
+        walk.init()
+        took = graphs.capture(walk, missing, walk.round, walk.finished)
+        graphed = took is not None
+        if graphed:
+            info.update(captures=len(missing), capture_s=took)
+        else:
+            walk.graphs.clear()
+    walk.init()
+    if graphed:
+        info['graph'] = True
+        run = functools.partial(walk.replay_rounds, info=info)
+    else:
+        run = walk.run_rounds
+    if walk.every is None:
+        run(walk.max_rounds)
+        return dict(reads=0, rounds=walk.max_rounds, **info)
+    lag = 1 if walk.flag.is_cuda and not walk.exact else 0
+    reads, rounds = _drive_rounds(run, walk.max_rounds, walk.every, lag)
+    return dict(reads=reads, rounds=rounds, **info)
 
 
 # spin cycles (torch.cuda._sleep) that keep the card busy while the host
@@ -594,17 +602,12 @@ def graph_call_seconds(fn, device, calls=4, reps=8, trials=5, graphs=None):
     """
     dev = torch.device(device)
     graphs = graphs or SpecGraphs(getattr(fn, '__qualname__', repr(fn)))
-    entry = _GraphEntry(torch.zeros((), device=dev))
+    entry = _Walk(torch.zeros((), device=dev))
     if graphs.capture(entry, [calls], fn, lambda: None) is None:
         return None
     graph = entry.graphs[calls][0]
     return min(_replay_seconds(graph, dev, reps)
                for _ in range(trials)) / calls
-
-
-def _copy_state(dst, src):
-    for k, t in src.items():
-        dst[k].copy_(t)
 
 
 def round_overhead(st, xibank, dirbank, Lmin, Lconst,
@@ -619,48 +622,38 @@ def round_overhead(st, xibank, dirbank, Lmin, Lconst,
     is captured as the walk captures it (:class:`SpecGraphs`) and its
     replays are timed on the device alone, the best of *trials*, each
     from the state *st* as given; on the CPU the host clock times the
-    same rounds. *st* (a :func:`spec_walk` state: the keys of
-    :data:`kernels.SPEC_STATE` and ``widths``) is left as *rounds* real
-    rounds whose likelihood gave *Lconst* leave it.
+    same rounds run from the host. *st* (a :func:`spec_walk` state: the
+    keys of :data:`kernels.SPEC_STATE` and ``widths``) is left as
+    *rounds* real rounds whose likelihood gave *Lconst* leave it.
     """
     max_rounds, P, D = xibank.shape
     nsteps, _, d = dirbank.shape
     dev = st['u'].device
-    first = {k: t.clone() for k, t in st.items()}
-
-    def evaluate(rows):
-        return Lconst, None
-    if dev.type != 'cuda':
-        best = math.inf
-        for _ in range(trials):
-            _copy_state(st, first)
-            t0 = time.perf_counter()
-            for _ in range(rounds):
-                _spec_round(xibank, evaluate, Lmin, dirbank, st)
-            best = min(best, time.perf_counter() - t0)
-        return best / rounds
-    entry = _SpecGraphEntry(P, D, d, nsteps, max_rounds, dev)
-    entry.xibank.copy_(xibank)
-    entry.dirbank.copy_(dirbank)
-    entry.Lmin.copy_(Lmin)
-    _copy_state(entry.state, first)
-
-    def body():
-        _spec_round(entry.xibank, evaluate, entry.Lmin, entry.dirbank,
-                    entry.state)
-
-    def flag():
-        entry.flag.copy_(entry.state['done'].sum() >= P)
-    graphs = SpecGraphs('a constant likelihood')
-    if graphs.capture(entry, [rounds], body, flag) is None:
-        raise RuntimeError('the round could not be captured: %s'
-                           % graphs.failed)
-    graph = entry.graphs[rounds][0]
+    walk = _SpecWalk(P, D, d, nsteps, max_rounds, P, dev)
+    walk.xibank.copy_(xibank)
+    walk.dirbank.copy_(dirbank)
+    _set_scalar(walk.Lmin, Lmin)
+    walk.evaluate = lambda rows: (Lconst, None)
+    walk.start = st
+    on_card = dev.type == 'cuda'
+    if on_card:
+        walk.init()
+        graphs = SpecGraphs('a constant likelihood')
+        if graphs.capture(walk, [rounds], walk.round, walk.finished) is None:
+            raise RuntimeError('the round could not be captured: %s'
+                               % graphs.failed)
     best = math.inf
     for _ in range(trials):
-        _copy_state(entry.state, first)
-        best = min(best, _replay_seconds(graph, dev, 1))
-    _copy_state(st, entry.state)
+        walk.init()
+        if on_card:
+            t = _replay_seconds(walk.graphs[rounds][0], dev, 1)
+        else:
+            t0 = time.perf_counter()
+            walk.run_rounds(rounds)
+            t = time.perf_counter() - t0
+        best = min(best, t)
+    for k, t in walk.state.items():
+        st[k].copy_(t)
     return best / rounds
 
 
@@ -682,7 +675,8 @@ def measure_round_overhead(P, D, d, nsteps, device='cuda', seed=0,
 
     def randn(*shape):
         return torch.randn(shape, generator=g, device=dev)
-    st = _spec_state(P, d, dev)
+    walk = _SpecWalk(P, D, d, nsteps, rounds, P, dev)
+    st = walk.state
     st['u'].copy_(0.05 + 0.9 * rand(P, d))
     st['v'].copy_(0.1 * randn(P, d))
     tl, tr = _cube_intersection(st['u'], st['v'])
@@ -690,18 +684,61 @@ def measure_round_overhead(P, D, d, nsteps, device='cuda', seed=0,
     st['tr'].copy_(tr)
     Lconst = randn(P * D)
     Lmin = torch.quantile(Lconst, 0.75)
-    return round_overhead(st, rand(rounds, P, D), 0.1 * randn(nsteps, P, d),
-                          Lmin, Lconst, rounds=rounds, trials=trials)
+    walk.xibank.copy_(rand(rounds, P, D))
+    walk.dirbank.copy_(0.1 * randn(nsteps, P, d))
+    return round_overhead(st, walk.xibank, walk.dirbank, Lmin, Lconst,
+                          rounds=rounds, trials=trials)
 
 
-def _set_scalar(buf, x):
-    """Write float or 0-d tensor *x* into the 0-d buffer *buf*, on the
-    device, without a host copy."""
-    if torch.is_tensor(x):
-        buf.copy_(x)
-    else:
-        buf.fill_(x)
-    return buf
+class _SpecWalk(_Walk):
+    """The spec (and async) walk: the D slice positions of every walker
+    in each round (``xibank``), the directions of every step
+    (``dirbank``), the threshold, the state (:data:`kernels.SPEC_STATE`
+    and ``widths``, the running float sum of the accepted widths); the
+    flag is "*target_done* walkers finished"."""
+
+    def __init__(self, P, D, d, nsteps, max_rounds, target_done, dev):
+        super().__init__(torch.zeros((), dtype=torch.bool, device=dev))
+        f32 = functools.partial(_f32_buffer, dev)
+        i64 = functools.partial(_i64_buffer, dev)
+        self.xibank = f32(max_rounds, P, D)
+        self.dirbank = f32(nsteps, P, d)
+        self.Lmin = f32()
+        self.state = dict(
+            u=f32(P, d), L=f32(P), v=f32(P, d), tl=f32(P), tr=f32(P),
+            step=i64(P), done=torch.zeros(P, dtype=torch.bool, device=dev),
+            wbuf=f32(P), ncr=i64(), nur=i64(), nw=i64(), it=i64(),
+            widths=f32())
+        self.target = target_done
+        self.max_rounds = max_rounds
+        # Only with every walker required to finish are extra rounds
+        # no-ops (every update is masked by ~done or anyhit)
+        self.exact = target_done < P
+        self.every = 1 if self.exact else SPEC_CHECK_EVERY
+
+    def load(self, banks, live_u, live_L, axes, Lmin, scale, evaluate):
+        """A dispatch's banks, threshold and likelihood; each walker
+        starts at its live point on its first direction and full chord,
+        counters and round at 0."""
+        self.xibank.copy_(banks['xibank'])
+        v = _direction_bank(banks, live_u, axes, scale, out=self.dirbank)[0]
+        super().load(banks, live_u, live_L, Lmin, evaluate, v)
+
+    def round(self):
+        """K4 proposes every walker's D candidates, the likelihood
+        evaluates them, K5 updates the state; the accepted widths are
+        summed as the reference sums them, one round at a time."""
+        st = self.state
+        ts, tlc, trc, up = kernels.spec_propose(st['u'], st['v'], st['tl'],
+                                                st['tr'], self.xibank,
+                                                st['it'])
+        Lp, tin = self.evaluate(up)
+        kernels.spec_update(Lp.reshape(-1).contiguous(), tin, ts, tlc, trc,
+                            self.Lmin, self.dirbank, st)
+        st['widths'].add_(st['wbuf'].sum())
+
+    def finished(self):
+        self.flag.copy_(self.state['done'].sum() >= self.target)
 
 
 def spec_walk(banks, live_u, live_L, nlive, axes, Lmin, scale, evaluate,
@@ -762,108 +799,71 @@ def spec_walk(banks, live_u, live_L, nlive, axes, Lmin, scale, evaluate,
     evaluation counts (0-d int64) and the mean slice width (0-d
     float32)
     """
-    xibank = banks['xibank']
-    max_rounds, P, D = xibank.shape
+    max_rounds, P, D = banks['xibank'].shape
     d = live_u.shape[1]
     dev = live_u.device
     if target_done is None:
         target_done = P
-    # Only with every walker required to finish are extra rounds no-ops
-    # (every update is masked by ~done or anyhit)
-    exact = target_done < P
-    every = 1 if exact else SPEC_CHECK_EVERY
-    info = dict(graph=False, replays=0, captures=0, capture_s=0.0)
-    entry = None
-    if graphs is not None and graphs.failed is None:
-        key = ('spec', P, D, d, nsteps, max_rounds, target_done, str(dev),
-               graphs.tag)
-        entry = graphs.entry(key, lambda: _SpecGraphEntry(
-            P, D, d, nsteps, max_rounds, dev))
-        entry.xibank.copy_(xibank)
-        dirbank = _direction_bank(banks, live_u, axes, scale,
-                                  out=entry.dirbank)
-        _set_scalar(entry.Lmin, Lmin)
-        st = entry.state
-
-        def body(e=entry):
-            _spec_round(e.xibank, evaluate, e.Lmin, e.dirbank, e.state)
-
-        def flag(e=entry):
-            e.flag.copy_(e.state['done'].sum() >= target_done)
-        sizes = [every] + ([1] if max_rounds % every and every > 1 else [])
-        if not _graphs_ready(graphs, key, entry, sizes, body, flag,
-                             lambda: _spec_init(st, banks, live_u, live_L,
-                                                dirbank), info):
-            entry = None
-    if entry is not None:
-        reads, rounds = _drive_rounds(_replay_rounds(entry, every, info),
-                                      max_rounds, every, 0 if exact else 1)
-        info['graph'] = True
-        # the next dispatch rewrites the entry's buffers
-        st = {k: t.clone() for k, t in entry.state.items()}
-    else:
-        dirbank = _direction_bank(banks, live_u, axes, scale)
-        Lmin_t = _set_scalar(torch.empty((), dtype=torch.float32,
-                                         device=dev), Lmin)
-        st = _spec_state(P, d, dev)
-        _spec_init(st, banks, live_u, live_L, dirbank)
-
-        def round_body():
-            _spec_round(xibank, evaluate, Lmin_t, dirbank, st)
-
-        def run(n):
-            for _ in range(n):
-                round_body()
-            return st['done'].sum() >= target_done
-        lag = 1 if not exact and dev.type == 'cuda' else 0
-        reads, rounds = _drive_rounds(run, max_rounds, every, lag)
+    walk = _walk_of(graphs, ('spec', P, D, d, nsteps, max_rounds,
+                             target_done, str(dev)),
+                    lambda: _SpecWalk(P, D, d, nsteps, max_rounds,
+                                      target_done, dev))
+    walk.load(banks, live_u, live_L, axes, Lmin, scale, evaluate)
+    ran = _drive_walk(walk, graphs)
     if stats is not None:
-        stats.update(reads=reads, rounds=rounds, **info)
-    width = st['widths'] / torch.clamp(st['nw'], min=1)
-    return (st['u'], st['L'], st['done'], banks['idx0'], st['ncr'],
-            st['nur'], width)
+        stats.update(ran)
+    # the next dispatch rewrites the walk's buffers
+    uf, Lf, done, nc, nuseful = (walk.state[k].clone()
+                                 for k in ('u', 'L', 'done', 'ncr', 'nur'))
+    width = walk.state['widths'] / torch.clamp(walk.state['nw'], min=1)
+    return uf, Lf, done, banks['idx0'], nc, nuseful, width
 
 
-def _sync_state(P, d, nsteps, dev):
-    """Zeroed buffers of the sync walk's state (:data:`kernels.SYNC_STATE`)."""
-    def i64():
-        return torch.zeros((), dtype=torch.int64, device=dev)
-    f32 = functools.partial(_f32_buffer, dev)
-    return dict(u=f32(P, d), v=f32(P, d), tl=f32(P), tr=f32(P),
-                un=f32(P, d), Ln=f32(P),
-                done=torch.zeros(P, dtype=torch.bool, device=dev), nc=i64(),
-                s=i64(), it=i64(), row=i64(),
-                flag=torch.zeros((), dtype=torch.bool, device=dev),
-                accs=f32(nsteps), widths=f32(nsteps),
-                tick=torch.zeros(2, dtype=torch.int64, device=dev))
+class _SyncWalk(_Walk):
+    """The sync walk: the slice positions as bank rows (``nsteps *
+    max_it``, P, 1), the directions, the threshold and the state
+    (:data:`kernels.SYNC_STATE`), whose flag ("every step ran") K6
+    writes."""
 
+    def __init__(self, P, d, nsteps, max_it, dev):
+        f32 = functools.partial(_f32_buffer, dev)
+        i64 = functools.partial(_i64_buffer, dev)
+        state = dict(
+            u=f32(P, d), v=f32(P, d), tl=f32(P), tr=f32(P), un=f32(P, d),
+            Ln=f32(P), done=torch.zeros(P, dtype=torch.bool, device=dev),
+            nc=i64(), s=i64(), it=i64(), row=i64(),
+            flag=torch.zeros((), dtype=torch.bool, device=dev),
+            accs=f32(nsteps), widths=f32(nsteps), tick=i64(2))
+        super().__init__(state['flag'])
+        self.state = state
+        self.tbank = f32(nsteps * max_it, P, 1)
+        self.dirbank = f32(nsteps, P, d)
+        self.Lmin = f32()
+        self.max_it = max_it
+        self.max_rounds = nsteps * max_it
+        self.every = SYNC_CHECK_EVERY
 
-def _sync_init(st, banks, live_u, live_L, dirbank):
-    """Start a dispatch: each walker at its live point ``idx0``, on its
-    first direction and full chord, nothing done; counters, step,
-    iteration and bank row at 0."""
-    idx0 = banks['idx0']
-    st['u'].copy_(live_u[idx0])
-    st['un'].copy_(st['u'])
-    st['Ln'].copy_(live_L[idx0])
-    st['v'].copy_(dirbank[0])
-    tl, tr = _cube_intersection(st['u'], st['v'])
-    st['tl'].copy_(tl)
-    st['tr'].copy_(tr)
-    for k in ('done', 'nc', 's', 'it', 'row', 'flag', 'accs', 'widths'):
-        st[k].zero_()
+    def load(self, banks, live_u, live_L, axes, Lmin, scale, evaluate):
+        """A dispatch's banks, threshold and likelihood; each walker
+        starts at its live point on its first direction and full chord,
+        nothing done, counters, step, iteration and bank row at 0."""
+        self.tbank.copy_(banks['tbank'].reshape(self.tbank.shape))
+        v = _direction_bank(banks, live_u, axes, scale, out=self.dirbank)[0]
+        super().load(banks, live_u, live_L, Lmin, evaluate, v)
+        self.start.update(un=self.start['u'], Ln=self.start.pop('L'))
 
-
-def _sync_round(tbank, evaluate, Lmin, dirbank, max_it, st):
-    """One shrink iteration of every walker: K4 at depth 1 proposes each
-    walker's slice position from bank row ``st['row']`` of *tbank*
-    ((nsteps * max_it, P, 1)), the likelihood evaluates the rows, K6
-    updates the state and ends the step where it is over."""
-    ts, tlc, trc, up = kernels.spec_propose(st['u'], st['v'], st['tl'],
-                                            st['tr'], tbank, st['row'])
-    Lp, tin = evaluate(up)
-    kernels.sync_update(Lp.reshape(-1).contiguous(), tin, ts, tlc, trc, Lmin,
-                        dirbank, max_it, st)
+    def round(self):
+        """One shrink iteration of every walker: K4 at depth 1 proposes
+        each walker's slice position from bank row ``state['row']``, the
+        likelihood evaluates the rows, K6 updates the state and ends the
+        step where it is over."""
+        st = self.state
+        ts, tlc, trc, up = kernels.spec_propose(st['u'], st['v'], st['tl'],
+                                                st['tr'], self.tbank,
+                                                st['row'])
+        Lp, tin = self.evaluate(up)
+        kernels.sync_update(Lp.reshape(-1).contiguous(), tin, ts, tlc, trc,
+                            self.Lmin, self.dirbank, self.max_it, st)
 
 
 def sync_walk(banks, live_u, live_L, axes, Lmin, scale, evaluate,
@@ -899,79 +899,22 @@ def sync_walk(banks, live_u, live_L, axes, Lmin, scale, evaluate,
     median final bracket and ``acc_rate`` the mean over steps of the
     accepting fraction.
     """
-    tbank = banks['tbank']
-    nsteps, max_it, P = tbank.shape
+    nsteps, max_it, P = banks['tbank'].shape
     if max_it < 1:
         raise ValueError('sync_walk needs max_it >= 1, got %d' % max_it)
     d = live_u.shape[1]
     dev = live_u.device
-    max_rounds = nsteps * max_it
-    every = SYNC_CHECK_EVERY
-    info = dict(graph=False, replays=0, captures=0, capture_s=0.0)
-    entry = None
-    if graphs is not None and graphs.failed is None:
-        key = ('sync', P, d, nsteps, max_it, str(dev), graphs.tag)
-        entry = graphs.entry(key, lambda: _SyncGraphEntry(P, d, nsteps,
-                                                          max_it, dev))
-        entry.tbank.copy_(tbank.reshape(max_rounds, P, 1))
-        dirbank = _direction_bank(banks, live_u, axes, scale,
-                                  out=entry.dirbank)
-        _set_scalar(entry.Lmin, Lmin)
-        st = entry.state
-
-        def body(e=entry):
-            _sync_round(e.tbank, evaluate, e.Lmin, e.dirbank, max_it,
-                        e.state)
-        sizes = [every] + ([1] if max_rounds % every and every > 1 else [])
-        if not _graphs_ready(graphs, key, entry, sizes, body, lambda: None,
-                             lambda: _sync_init(st, banks, live_u, live_L,
-                                                dirbank), info):
-            entry = None
-    if entry is not None:
-        reads, rounds = _drive_rounds(_replay_rounds(entry, every, info),
-                                      max_rounds, every, 1)
-        info['graph'] = True
-        # the next dispatch rewrites the entry's buffers
-        st = {k: entry.state[k].clone() for k in ('un', 'Ln', 'nc')} | \
-            {k: entry.state[k].mean() for k in ('accs', 'widths')}
-    else:
-        dirbank = _direction_bank(banks, live_u, axes, scale)
-        Lmin_t = _set_scalar(torch.empty((), dtype=torch.float32,
-                                         device=dev), Lmin)
-        rows = tbank.reshape(max_rounds, P, 1).contiguous()
-        st = _sync_state(P, d, nsteps, dev)
-        _sync_init(st, banks, live_u, live_L, dirbank)
-
-        def run(n):
-            for _ in range(n):
-                _sync_round(rows, evaluate, Lmin_t, dirbank, max_it, st)
-            return st['flag']
-        reads, rounds = _drive_rounds(run, max_rounds, every,
-                                      1 if dev.type == 'cuda' else 0)
-        st.update(accs=st['accs'].mean(), widths=st['widths'].mean())
+    walk = _walk_of(graphs, ('sync', P, d, nsteps, max_it, str(dev)),
+                    lambda: _SyncWalk(P, d, nsteps, max_it, dev))
+    walk.load(banks, live_u, live_L, axes, Lmin, scale, evaluate)
+    ran = _drive_walk(walk, graphs)
     if stats is not None:
-        stats.update(reads=reads, rounds=rounds, **info)
+        stats.update(ran)
+    # the next dispatch rewrites the walk's buffers
+    uf, Lf, nc = (walk.state[k].clone() for k in ('un', 'Ln', 'nc'))
     done = torch.ones(P, dtype=torch.bool, device=dev)
-    return (st['un'], st['Ln'], done, banks['idx0'], st['nc'], st['nc'],
-            st['widths'], st['accs'])
-
-
-def _rwalk_state(P, d, dev):
-    """Zeroed buffers of the random walk's state
-    (:data:`kernels.RWALK_STATE`)."""
-    return dict(u=_f32_buffer(dev, P, d), L=_f32_buffer(dev, P),
-                nacc=torch.zeros((), dtype=torch.int64, device=dev),
-                nc=torch.zeros((), dtype=torch.int64, device=dev))
-
-
-def _rwalk_init(st, banks, live_u, live_L):
-    """Start a dispatch: each walker at its live point ``idx0``, the
-    counts at 0."""
-    idx0 = banks['idx0']
-    st['u'].copy_(live_u[idx0])
-    st['L'].copy_(live_L[idx0])
-    st['nacc'].zero_()
-    st['nc'].zero_()
+    return (uf, Lf, done, banks['idx0'], nc, nc,
+            walk.state['widths'].mean(), walk.state['accs'].mean())
 
 
 def _rwalk_products(eps, axes, out):
@@ -987,23 +930,50 @@ def _rwalk_products(eps, axes, out):
     return out
 
 
-def _rwalk_steps(eps, axes, scale, evaluate, Lmin, st, m, up):
-    """Every step of a random-walk dispatch: the products into *m*
-    (:func:`_rwalk_products`), K7's prologue (:func:`kernels.rwalk_propose`:
-    step 0's proposal ``u + scale * m[0]`` into *up*), then a step is the
-    likelihood of *up* and K7 (:func:`kernels.rwalk_accept`), which
-    accepts and writes the next step's proposal into *up*. *scale* is a
-    0-d float32 tensor."""
-    nsteps = eps.shape[0]
-    if nsteps == 0:
-        return
-    _rwalk_products(eps, axes, m)
-    kernels.rwalk_propose(up, st, m[0], scale)
-    for s in range(nsteps):
-        Lev, tin = evaluate(up)
-        nxt = m[s + 1] if s + 1 < nsteps else None
-        kernels.rwalk_accept(Lev.reshape(-1).contiguous(), tin, up, Lmin, st,
-                             nxt, scale)
+class _RwalkWalk(_Walk):
+    """The random walk: the noise, the region axes, the scale, the
+    threshold, the state (:data:`kernels.RWALK_STATE`), every step's
+    products and the proposal. Its one "round" is the whole walk, a
+    fixed trip count: nothing is read."""
+
+    def __init__(self, P, d, nsteps, dev):
+        super().__init__(torch.zeros((), dtype=torch.bool, device=dev))
+        f32 = functools.partial(_f32_buffer, dev)
+        self.eps = f32(nsteps, P, d)
+        self.axes = f32(d, d)
+        self.scale = f32()
+        self.Lmin = f32()
+        self.m = f32(nsteps, P, d)
+        self.up = f32(P, d)
+        self.state = dict(u=f32(P, d), L=f32(P), nacc=_i64_buffer(dev),
+                          nc=_i64_buffer(dev))
+
+    def load(self, banks, live_u, live_L, axes, Lmin, scale, evaluate):
+        """A dispatch's noise, axes, scale, threshold and likelihood;
+        each walker starts at its live point, the counts at 0."""
+        self.eps.copy_(banks['eps'])
+        self.axes.copy_(axes)
+        _set_scalar(self.scale, scale)
+        super().load(banks, live_u, live_L, Lmin, evaluate)
+
+    def round(self):
+        """Every step of the dispatch: the products into ``m``
+        (:func:`_rwalk_products`), K7's prologue (:func:`kernels.
+        rwalk_accept` with no likelihoods: step 0's proposal ``u + scale
+        * m[0]`` into ``up``), then a step is the likelihood of ``up``
+        and K7, which accepts and writes the next step's proposal into
+        ``up``."""
+        nsteps = self.eps.shape[0]
+        if nsteps == 0:
+            return
+        _rwalk_products(self.eps, self.axes, self.m)
+        kernels.rwalk_accept(None, None, self.up, None, self.state, self.m[0],
+                             self.scale)
+        for s in range(nsteps):
+            Lev, tin = self.evaluate(self.up)
+            nxt = self.m[s + 1] if s + 1 < nsteps else None
+            kernels.rwalk_accept(Lev.reshape(-1).contiguous(), tin, self.up,
+                                 self.Lmin, self.state, nxt, self.scale)
 
 
 def rwalk_walk(banks, live_u, live_L, axes, Lmin, scale, evaluate,
@@ -1015,7 +985,7 @@ def rwalk_walk(banks, live_u, live_L, axes, Lmin, scale, evaluate,
     proposals inside the unit cube above *Lmin* (K7,
     :func:`kernels.rwalk_accept`, which also writes the next step's
     proposal; the products run before the first step,
-    :func:`_rwalk_steps`). The loop has a fixed trip count, so the host
+    :class:`_RwalkWalk`). The loop has a fixed trip count, so the host
     reads nothing. The matmuls run in full float32 (TF32 stays off).
     With *graphs* on a card the whole walk is one CUDA graph
     (:class:`SpecGraphs`), replayed once; otherwise the steps run from
@@ -1026,50 +996,19 @@ def rwalk_walk(banks, live_u, live_L, axes, Lmin, scale, evaluate,
     True, ``nuseful == nc`` (0-d int64; proposals outside the cube are
     not billed) and the acceptance rate (0-d float32).
     """
-    eps = banks['eps']
-    nsteps, P, d = eps.shape
+    nsteps, P, d = banks['eps'].shape
     dev = live_u.device
-    info = dict(graph=False, replays=0, captures=0, capture_s=0.0)
-    entry = None
-    if graphs is not None and graphs.failed is None:
-        key = ('rwalk', P, d, nsteps, str(dev), graphs.tag)
-        entry = graphs.entry(key, lambda: _RwalkGraphEntry(P, d, nsteps,
-                                                           dev))
-        entry.eps.copy_(eps)
-        entry.axes.copy_(axes)
-        _set_scalar(entry.scale, scale)
-        _set_scalar(entry.Lmin, Lmin)
-        st = entry.state
-
-        def body(e=entry):
-            _rwalk_steps(e.eps, e.axes, e.scale, evaluate, e.Lmin, e.state,
-                         e.m, e.up)
-        if not _graphs_ready(graphs, key, entry, [1], body, lambda: None,
-                             lambda: _rwalk_init(st, banks, live_u, live_L),
-                             info):
-            entry = None
-    if entry is not None:
-        g, launched = entry.graphs[1]
-        g.replay()
-        kernels.LAUNCHES.update(launched)
-        info.update(graph=True, replays=1)
-        # the next dispatch rewrites the entry's buffers
-        st = {k: t.clone() for k, t in entry.state.items()}
-    else:
-        st = _rwalk_state(P, d, dev)
-        _rwalk_init(st, banks, live_u, live_L)
-
-        def scalar(x):
-            return _set_scalar(torch.empty((), dtype=torch.float32,
-                                           device=dev), x)
-        _rwalk_steps(eps, axes, scalar(scale), evaluate, scalar(Lmin), st,
-                     _f32_buffer(dev, nsteps, P, d), _f32_buffer(dev, P, d))
+    walk = _walk_of(graphs, ('rwalk', P, d, nsteps, str(dev)),
+                    lambda: _RwalkWalk(P, d, nsteps, dev))
+    walk.load(banks, live_u, live_L, axes, Lmin, scale, evaluate)
+    ran = _drive_walk(walk, graphs)
     if stats is not None:
-        stats.update(reads=0, rounds=nsteps, **info)
-    acc_rate = st['nacc'].to(torch.float32) / float(P * nsteps)
+        stats.update(ran, rounds=nsteps)
+    # the next dispatch rewrites the walk's buffers
+    uf, Lf, nc = (walk.state[k].clone() for k in ('u', 'L', 'nc'))
+    acc_rate = walk.state['nacc'].to(torch.float32) / float(P * nsteps)
     done = torch.ones(P, dtype=torch.bool, device=dev)
-    return st['u'], st['L'], done, banks['idx0'], st['nc'], st['nc'], \
-        acc_rate
+    return uf, Lf, done, banks['idx0'], nc, nc, acc_rate
 
 
 class FusedPopulationSliceSampler(GenericPopulationSampler):
