@@ -2,7 +2,9 @@
 eggbox fit on the segment path and a small spec-walk fit. The record
 keeps the segment loop's five phases, nests every span in its parent,
 covers ``run()``'s wall, and becomes ``torch.profiler`` ranges named by
-its keys only while the profiler records."""
+its keys only while the profiler records. The parts of a dispatch and
+of the per-point iterations (an eggbox fit with one improvement pass)
+sum to their span, and booking them changes no fit."""
 
 import gc
 import time
@@ -261,3 +263,149 @@ def test_spans_nest_switch_and_unwind():
     assert all(rec[k + '#'] == 1 for k in _seconds(rec))
     rec.reset()
     assert rec == {} and rec.ranges is False
+
+
+# the parts of 'launch' on each path and of the per-point iterations,
+# with the keys booked inside them that they leave out
+SPEC_LAUNCH = ('banks', 'load', 'rounds', 'tail')
+REGION_LAUNCH = ('geometry', 'draw', 'filter', 'tail')
+LAUNCH_INNER = ('wait', 'capture')
+LOOP = ('advice', 'tree', 'count', 'point', 'insert', 'coords')
+IMPROVE_INNER = ('draw', 'rebuild', 'wait')
+
+
+def _improving():
+    """The eggbox fit with one improvement pass: a segment pass, then the
+    per-point iterations of the pass that widens."""
+    prob = problems.eggbox()
+    kw = prob.sampler_kwargs(use_torch=True)
+    kw.update(ndraw_min=256, ndraw_max=4096)
+    s = ultranest_torch.ReactiveNestedSampler(seed=1, device='cpu', **kw)
+    s.fused_sampler.segment_enabled = True
+    return s, dict(RUN, max_num_improvement_loops=1, min_num_live_points=100,
+                   max_ncalls=200000)
+
+
+PARTS = dict(spec=_spec, improving=_improving)
+
+
+def _result(sampler):
+    return sampler.ncall, sampler.results['niter'], sampler.results['logz']
+
+
+@pytest.fixture(scope='module')
+def parted():
+    """fit -> (sampler, the advice calls' innermost spans, the fit's
+    ncall, niter and logZ with every booking patched out)."""
+    out = {}
+    for fit, make in PARTS.items():
+        with pytest.MonkeyPatch.context() as mp:
+            advice = []
+            real = ultranest_torch.ReactiveNestedSampler.\
+                _adaptive_strategy_advice
+
+            def counted(self, *args, **kw):
+                advice.append(self._segment_phase_s.innermost)
+                return real(self, *args, **kw)
+            mp.setattr(ultranest_torch.ReactiveNestedSampler,
+                       '_adaptive_strategy_advice', counted)
+            sampler, kw = make()
+            sampler.run(**kw)
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(tracing.Spans, 'book', lambda *a, **k: None)
+            mp.setattr(tracing, 'lap', lambda name: None)
+            bare, kw = make()
+            bare.run(**kw)
+            assert not any(k.endswith(('/wait', '/tail', '/advice'))
+                           for k in bare._segment_phase_s)
+        out[fit] = sampler, advice, _result(bare)
+    return out
+
+
+def _parts_within(rec, parent, parts, inner):
+    """The parts of *parent* and the keys booked inside them: each booked,
+    and together at most *parent* and at least 80% of it."""
+    for part in parts:
+        assert rec.get(parent + '/' + part + '#', 0) >= 1, (parent, part)
+    total = sum(rec.get(parent + '/' + k, 0.0) for k in parts + inner)
+    assert 0.8 * rec[parent] <= total <= rec[parent] + 1e-9, \
+        (parent, total, rec[parent])
+
+
+def test_a_spec_dispatch_books_its_parts(parted):
+    rec = parted['spec'][0]._segment_phase_s
+    assert rec['launch#'] >= 1
+    _parts_within(rec, 'launch', SPEC_LAUNCH, LAUNCH_INNER)
+    # one of each a dispatch ('load' also a segment's start); a
+    # segment's last dispatches are never fetched
+    assert rec['launch/banks#'] == rec['launch/rounds#'] == \
+        rec['launch/tail#'] >= rec['fetch/parse#']
+    # the walks outside a dispatch (the classic mode) book no part
+    assert not any(k.startswith(('classic/', 'prepare/')) and
+                   k.split('/')[1].rstrip('#') in SPEC_LAUNCH
+                   for k in rec)
+
+
+def test_a_region_dispatch_books_its_parts(parted):
+    rec = parted['improving'][0]._segment_phase_s
+    assert rec['launch#'] >= 1
+    _parts_within(rec, 'launch', REGION_LAUNCH, LAUNCH_INNER + ('load',))
+    assert rec['launch/geometry#'] == rec['launch/draw#'] == \
+        rec['launch/filter#'] == rec['launch/tail#'] >= rec['fetch/parse#']
+
+
+def test_the_improvement_pass_books_the_per_point_parts(parted):
+    sampler, advice = parted['improving'][:2]
+    rec = sampler._segment_phase_s
+    for key in ('improve/draw', 'improve/rebuild'):
+        assert rec.get(key + '#', 0) >= 1, key
+    _parts_within(rec, 'improve', LOOP, IMPROVE_INNER)
+    assert rec['improve/advice#'] == advice.count('improve')
+    assert sum(rec.get(span + '/advice#', 0) for span in
+               ('prepare', 'classic', 'improve')) == len(advice)
+    assert rec['improve/point#'] == rec['improve/insert#'] \
+        == rec['improve/coords#']
+
+
+def test_the_first_pass_books_the_per_point_parts(parted):
+    rec = parted['spec'][0]._segment_phase_s
+    _parts_within(rec, 'classic', LOOP, ('rebuild', 'wait', 'capture'))
+    assert rec['classic/advice#'] == parted['spec'][1].count('classic')
+
+
+@pytest.mark.parametrize('fit', sorted(PARTS))
+def test_booking_the_parts_changes_no_fit(parted, fit):
+    sampler, _, bare = parted[fit]
+    assert _result(sampler) == bare
+
+
+def test_laps_book_parts_less_what_was_booked_inside():
+    rec = tracing.Spans()
+    rec.reset()
+    tracing.lap('load')                        # no run in progress
+    with rec.running():
+        rec.open('launch', ranged=False)
+        tracing.lap('load')                    # no laps: nothing
+        assert 'launch/load' not in rec
+        with rec.laps():
+            time.sleep(0.01)
+            tracing.lap('load')
+            with rec.count('capture'):
+                time.sleep(0.02)
+            t0 = time.perf_counter()
+            time.sleep(0.02)
+            waited = time.perf_counter() - t0
+            tracing.book('wait', waited, 3)
+            time.sleep(0.01)
+            tracing.lap('rounds')
+        tracing.lap('tail')                    # the clock is gone
+        rec.close()
+    assert rec['launch/wait'] == waited and rec['launch/wait#'] == 3
+    assert rec['launch/load'] >= 0.01
+    # the capture and the booked wait are left out of the part
+    assert 0.01 <= rec['launch/rounds'] < rec['launch/capture'] + waited
+    assert 'launch/tail' not in rec
+    parts = sum(rec['launch/' + k]
+                for k in ('load', 'capture', 'wait', 'rounds'))
+    assert parts <= rec['launch'] < parts + 0.01
+    assert rec._mark is None

@@ -496,7 +496,9 @@ class FusedRegionSampler:
         self._pending = []        # classic prefetch superseded
 
     def segment_launch(self, region, tregion=None):
-        """Dispatch one chained draw+consume segment (does not wait)."""
+        """Dispatch one chained draw+consume segment (does not wait).
+        Books its parts in the run in progress (:func:`tracing.lap`):
+        ``geometry``, ``draw``, ``filter`` and ``tail``."""
         geo = region_geometry(region, self.x_dim, tregion, self.device)
         method = METHOD_CYCLE[self._seg_method_i % len(METHOD_CYCLE)]
         if geo['kind'] != 'mlfriends' and method == METHOD_POINTS:
@@ -508,10 +510,13 @@ class FusedRegionSampler:
                  < nlive).to(torch.int32)
         tpoints = (torch.where(tmask[:, None] != 0, live_u, 0.0)
                    - geo['ctr']) @ geo['T']
+        tracing.lap('geometry')
         self._seed_dispatch()
         u, mult_ok = self.draw(method, ndraw, geo, tpoints, tmask, nlive)
+        tracing.lap('draw')
         member, _, logl = filter_stage(u, mult_ok, geo, tpoints, tmask,
                                        self.transform, self.loglike)
+        tracing.lap('filter')
         u, logl, valid, nc = compact_segment(
             u, logl, member, Lmin0, max(64, nlive // 2),
             min(MAX_RETURN, ndraw))
@@ -520,6 +525,7 @@ class FusedRegionSampler:
         packed = pack_segment(u, logl, recs, nc.to(torch.float32),
                               valid.mean(), torch.zeros_like(Lmin0))
         self._seg_queue.append(start_fetch(packed))
+        tracing.lap('tail')
 
     def segment_fetch(self):
         """Wait for the oldest queued segment; returns parsed records."""

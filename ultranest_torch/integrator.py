@@ -105,6 +105,23 @@ __all__ = ['ReactiveNestedSampler', 'NestedSampler', 'read_file',
 int_t = np.int64
 
 
+# the parts of a per-point iteration (_explore_pass), booked under the
+# span they ran in (ultranest_torch.tracing)
+_LOOP_PARTS = ('advice', 'tree', 'count', 'point', 'insert', 'coords')
+_ADVICE, _TREE, _COUNT, _POINT, _INSERT, _COORDS = range(len(_LOOP_PARTS))
+
+
+def _book_loop_parts(spans, secs, counts, pending):
+    """Book the per-point iterations' part sums *secs* and *counts*,
+    with the running interval's *pending* seconds as ``tree``, under the
+    innermost open span of *spans*; clear the sums."""
+    secs[_TREE] += pending
+    for i, name in enumerate(_LOOP_PARTS):
+        if counts[i]:
+            spans.book(name, secs[i], counts[i])
+        secs[i], counts[i] = 0.0, 0
+
+
 def _next_pow2(n):
     """Smallest power of two >= n (batch-size bucketing)."""
     return 1 << (int(n) - 1).bit_length()
@@ -2578,12 +2595,17 @@ class ReactiveNestedSampler:
         spans.unwind()
         spans.open('segment', nests=False)
         spans.open('launch', ranged=False)
-        ss.segment_start(self.pointpile.getu(ex.active_node_ids),
-                         ex.active_node_values,
-                         ndraw=_next_pow2(max(int(st.ndraw), 16)))
+        # a dispatch books its parts (tracing.lap) while laps() runs; the
+        # segment's start is 'load'
+        with spans.laps():
+            ss.segment_start(self.pointpile.getu(ex.active_node_ids),
+                             ex.active_node_values,
+                             ndraw=_next_pow2(max(int(st.ndraw), 16)))
+            spans.lap('load')
         try:
-            for _ in range(depth):
-                ss.segment_launch(self.region, tregion=self.tregion)
+            with spans.laps():
+                for _ in range(depth):
+                    ss.segment_launch(self.region, tregion=self.tregion)
             spans.switch('fetch', ranged=False)
             while True:
                 rec = ss.segment_fetch()
@@ -2735,7 +2757,8 @@ class ReactiveNestedSampler:
                         self._segment_exits['width'] += 1
                         break
                 spans.switch('launch', ranged=False)
-                ss.segment_launch(self.region, tregion=self.tregion)
+                with spans.laps():
+                    ss.segment_launch(self.region, tregion=self.tregion)
                 spans.switch('fetch', ranged=False)
                 if self.log and time.time() > st.last_status + 0.2:
                     self._emit_status(st, self.Lmin, np.nan, np.nan,
@@ -2764,19 +2787,30 @@ class ReactiveNestedSampler:
         # 'classic' span, or in a pass after the first one 'improve' span
         spans = self._segment_phase_s
         outside = 'improve' if opts['improvement_it'] else 'classic'
+        # each iteration's parts (_LOOP_PARTS) summed here on one clock,
+        # from t on, and booked before the innermost span changes; the
+        # region rebuild is a span of its own
+        clock = time.perf_counter
+        part_s = [0.0] * len(_LOOP_PARTS)
+        part_n = [0] * len(_LOOP_PARTS)
+        t = clock()
 
         while True:
             # device segment fast path: consume whole dispatches of
             # iterations without touching the per-node machinery;
             # re-attempted periodically (entry conditions are O(nlive))
             if (st.it & 63) == 0 and self._segment_eligible(st, opts):
+                _book_loop_parts(spans, part_s, part_n, clock() - t)
                 if self._explore_segments(st, opts):
                     strategy_stale = True
+                t = clock()
             visit = st.explorer.next_node()
             if visit is None:
                 break
             if spans.innermost is None:
                 spans.open(outside)
+                t = clock()
+            part_n[_TREE] += 1
             rootid, node, (_, active_rootids, active_values,
                            active_node_ids) = visit
             assert not isinstance(rootid, float)
@@ -2785,24 +2819,37 @@ class ReactiveNestedSampler:
 
             if strategy_stale or not (Lmin <= Lhi) or \
                     not np.isfinite(Lhi) or (active_values == Lmin).all():
+                now = clock()
+                part_s[_TREE] += now - t
                 Llo, Lhi = self._adaptive_strategy_advice(
                     Lmin, active_values, st.main_iterator,
                     minimal_widths, opts['frac_remain'],
                     Lepsilon=opts['Lepsilon'])
                 strategy_stale = Lhi - Llo < max(opts['Lepsilon'], 0.01)
+                t = clock()
+                part_s[_ADVICE] += t - now
+                part_n[_ADVICE] += 1
 
             if self._should_node_be_expanded(
                     st.it, Llo, Lhi, st.minimal_widths_sequence,
                     target_min_num_children, node, active_values,
                     opts['max_ncalls'], opts['max_iters'],
                     self.live_points_healthy):
+                now = clock()
+                part_s[_TREE] += now - t
                 active_u, active_p = self._live_coords_if_needed(
                     st, Lmin, active_node_ids)
+                t = clock()
+                part_s[_COORDS] += t - now
+                part_n[_COORDS] += 1
                 region_fresh = self._refresh_region_if_due(
                     st, node.value, active_u, active_p, active_node_ids,
                     active_rootids, active_values, viz_callback, uivlf)
+                t = clock()
                 if spans.innermost == 'prepare' and self.region is not None:
+                    _book_loop_parts(spans, part_s, part_n, 0.0)
                     spans.switch('classic')
+                    t = clock()
 
                 if nlive < self.cluster_num_live_points * st.nclusters \
                         and opts['improvement_it'] \
@@ -2816,10 +2863,15 @@ class ReactiveNestedSampler:
                             self.cluster_num_live_points * st.nclusters)
                     break
 
+                inner = spans.inner_s
                 u, p, L = self._create_point(
                     Lmin=Lmin, ndraw=st.ndraw, active_u=active_u,
                     active_values=active_values)
                 child = self.pointpile.make_node(L, u, p)
+                # less its batches' draw and wait, booked under the span
+                now = clock()
+                part_s[_POINT] += now - t - (spans.inner_s - inner)
+                part_n[_POINT] += 1
                 st.main_iterator.Lmax = max(st.main_iterator.Lmax, L)
                 self._track_insertion_order(
                     st, L, nlive, active_values,
@@ -2832,6 +2884,9 @@ class ReactiveNestedSampler:
                     observe([int((active_values < L).sum())], nlive)
                 self._swap_into_region(node, child, u, active_p)
                 node.children.append(child)
+                t = clock()
+                part_s[_INSERT] += t - now
+                part_n[_INSERT] += 1
 
                 if self.log and (region_fresh
                                  or st.it % st.log_interval == 0
@@ -2845,8 +2900,13 @@ class ReactiveNestedSampler:
 
             st.saved_nodeids.append(node.id)
             st.saved_logl.append(Lmin)
+            now = clock()
+            part_s[_TREE] += now - t
             st.main_iterator.passing_node(rootid, node, active_rootids,
                                           active_values)
+            t = clock()
+            part_s[_COUNT] += t - now
+            part_n[_COUNT] += 1
             if len(node.children) == 0 and self.region is not None:
                 # nlive shrank: radius invalid, force a region rebuild
                 self.region.maxradiussq = None
@@ -2854,6 +2914,7 @@ class ReactiveNestedSampler:
             st.it += 1
             st.explorer.expand_children_of(rootid, node)
 
+        _book_loop_parts(spans, part_s, part_n, clock() - t)
         if self.log:
             self.logger.info("Explored until L=%.1g  ", node.value)
         self.pointstore.flush()

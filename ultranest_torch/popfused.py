@@ -503,6 +503,9 @@ def _drive_walk(walk, graphs):
     ``capture_s`` (graphs captured in this call, and the seconds that
     took).
 
+    In a segment dispatch the set-up is booked as the part ``load`` of
+    the span in progress, the rounds as ``rounds`` (:func:`tracing.lap`).
+
     With *graphs* (a :class:`SpecGraphs` none of whose captures failed)
     the rounds run as replays of the walk's graphs, those it lacks
     captured first: a chunk of :attr:`_Walk.every` rounds and, where the
@@ -532,11 +535,14 @@ def _drive_walk(walk, graphs):
         run = functools.partial(walk.replay_rounds, info=info)
     else:
         run = walk.run_rounds
+    tracing.lap('load')
     if walk.every is None:
         run(walk.max_rounds)
-        return dict(reads=0, rounds=walk.max_rounds, **info)
-    lag = 1 if walk.flag.is_cuda and not walk.exact else 0
-    reads, rounds = _drive_rounds(run, walk.max_rounds, walk.every, lag)
+        reads, rounds = 0, walk.max_rounds
+    else:
+        lag = 1 if walk.flag.is_cuda and not walk.exact else 0
+        reads, rounds = _drive_rounds(run, walk.max_rounds, walk.every, lag)
+    tracing.lap('rounds')
     return dict(reads=reads, rounds=rounds, **info)
 
 
@@ -1715,21 +1721,27 @@ class FusedPopulationSliceSampler(GenericPopulationSampler):
         """Run one chained walk+consume segment; its result streams home.
 
         Reads from the host only what the walk's flag reads need
-        (:func:`_drive_rounds`; none for the random walk).
+        (:func:`_drive_rounds`; none for the random walk). Books its
+        parts in the run in progress (:func:`tracing.lap`): ``load`` (the
+        region's upload, the walk's set-up), ``banks``, ``rounds`` and
+        ``tail``.
         """
         self._sync_treg_key(tregion)
         axes, treg, tpack = self._upload(
             self._region_axes(region), self._pack_tregion(tregion),
             self._pack_whiten(region))
         live_u, live_L = self._seg_state
+        tracing.lap('load')
         banks = self._draw_banks(self._seg_nlive, self._seg_ndim,
                                  segment=True)
+        tracing.lap('banks')
         lu, lL, packed, counts = self._run_segment(
             banks, live_u, live_L, self._seg_nlive, axes, self.scale, treg,
             tpack)
         self._seg_state = (lu, lL)
         self._seg_queue.append((start_fetch(packed), start_fetch(counts),
                                 self.nsteps, region))
+        tracing.lap('tail')
 
     def segment_fetch(self):
         """Wait for the oldest queued segment; returns parsed records.

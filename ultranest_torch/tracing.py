@@ -49,7 +49,32 @@ pass ask of the fused region sampler (the dispatch, the wait, which is
 ``classic/wait``); ``plan/strategy``, the reactive strategy's verdict
 (``_find_strategy``), and ``plan/widen``, widening the tree for the
 next pass (``_expand_nodes_before``, ``_widen_nodes`` with the search
-for their parents, or ``_widen_roots_beyond_initial_plateau``). Two keys overlap the spans and are never summed
+for their parents, or ``_widen_roots_beyond_initial_plateau``).
+
+The parts of a dispatch under ``launch``, each exclusive of the others
+and of ``launch/wait`` and ``launch/capture``: on the population path
+(:mod:`ultranest_torch.popfused`) ``load`` (the live set's upload at a
+segment's start; a dispatch's region upload, the walk's set-up and the
+copy of its inputs into the walk's buffers), ``banks`` (seeding and
+drawing the walk's banks), ``rounds`` (the walk's rounds: the graph
+replays or the host loop, and the flag reads) and ``tail`` (from the
+walk's end through the records' ``start_fetch``); on the region path
+(:mod:`ultranest_torch.fused`) ``load`` (the live set's upload),
+``geometry`` (the region's geometry, the mask and the whitened live
+points), ``draw`` (seeding and drawing the candidates), ``filter``
+(``filter_stage``: membership, transform, likelihood) and ``tail``
+(compaction, K3, the pack and ``start_fetch``). The parts of the
+per-point iterations (``_explore_pass``), under ``classic``,
+``improve`` or, before the first region, ``prepare``, exclusive of
+their ``rebuild``, ``draw`` and ``wait``: ``advice`` (the reactive
+strategy's advice), ``tree`` (the explorer's next node, the expansion
+decision, the saved lists and the children's expansion), ``count``
+(``passing_node``), ``point`` (``_create_point`` and the node),
+``insert`` (the insertion test, the governor's feed, the swap into the
+region and the child's append) and ``coords`` (the live points'
+coordinates). Each part's count is the number of intervals it sums.
+
+Two keys overlap the spans and are never summed
 with them: ``segment``, one for each visit of the segment loop, and
 ``gc``, Python's garbage collector.
 
@@ -67,7 +92,10 @@ its region: ``segment`` holds ``launch``, ``fetch``, ``replay`` and
 Code below the sampler (:mod:`ultranest_torch.parallel.launch`,
 :mod:`ultranest_torch.fused`, :mod:`ultranest_torch.popfused`) books
 into the run in progress with :func:`book` and :func:`count`, under
-its innermost open span.
+its innermost open span, and books consecutive parts of that span with
+:func:`lap` where the sampler runs :meth:`Spans.laps`. No part is a
+span: a part costs one clock read, and never changes the key of what is
+booked inside it.
 """
 
 import contextlib
@@ -76,7 +104,7 @@ import time
 
 import torch
 
-__all__ = ['Spans', 'book', 'count']
+__all__ = ['Spans', 'book', 'count', 'lap']
 
 # the record of the run in progress (Spans.running)
 _current = None
@@ -104,6 +132,10 @@ class Spans(dict):
         super().__init__()
         # open spans: (key, children's key prefix, start, profiler range)
         self._open = []
+        # seconds booked under each open span so far (inner_s)
+        self._inner = []
+        # inside laps(): the end of the last part, and inner_s then
+        self._mark = None
         self.ranges = False       # whether spans are profiler ranges
         self._gc_t0 = None
 
@@ -130,9 +162,16 @@ class Spans(dict):
         rf.__enter__()
         return rf
 
-    def _add(self, key, seconds):
+    @property
+    def inner_s(self):
+        """Seconds booked so far under the innermost open span: its
+        closed children and what :meth:`book` added there (0 where none
+        is open)."""
+        return self._inner[-1] if self._inner else 0.0
+
+    def _add(self, key, seconds, n=1):
         self[key] = self.get(key, 0.0) + seconds
-        self[key + '#'] = self.get(key + '#', 0) + 1
+        self[key + '#'] = self.get(key + '#', 0) + n
 
     def _push(self, name, ranged, nests, now):
         key = self._key(name)
@@ -140,10 +179,14 @@ class Spans(dict):
                                     else None)
         rf = self._range(key) if ranged else None
         self._open.append((key, prefix, now, rf))
+        self._inner.append(0.0)
 
     def _pop(self, now):
         key, _, t0, rf = self._open.pop()
+        self._inner.pop()
         self._add(key, now - t0)
+        if self._inner:
+            self._inner[-1] += now - t0
         if rf is not None:
             rf.__exit__(None, None, None)
 
@@ -178,10 +221,35 @@ class Spans(dict):
         """``with``: a span that is never a profiler range."""
         return _Edge(self, name, False)
 
-    def book(self, name, seconds):
-        """Add *seconds*, measured by the caller, and one to the count of
+    def book(self, name, seconds, n=1):
+        """Add *seconds*, measured by the caller, and *n* to the count of
         *name* under the innermost open span."""
-        self._add(self._key(name), seconds)
+        self._add(self._key(name), seconds, n)
+        if self._inner:
+            self._inner[-1] += seconds
+
+    @contextlib.contextmanager
+    def laps(self):
+        """``with``: consecutive parts of the innermost open span, each
+        booked by :meth:`lap`, the first from here."""
+        previous, self._mark = self._mark, (time.perf_counter(),
+                                            self.inner_s)
+        try:
+            yield
+        finally:
+            self._mark = previous
+
+    def lap(self, name):
+        """Inside :meth:`laps`, book the seconds since the last part
+        ended as part *name* of the innermost open span, less what was
+        booked under that span meanwhile (its ``wait``, ``capture``);
+        elsewhere nothing."""
+        if self._mark is None:
+            return
+        now = time.perf_counter()
+        t, inner = self._mark
+        self.book(name, now - t - (self.inner_s - inner))
+        self._mark = (now, self.inner_s)
 
     def _gc(self, phase, info):
         if phase == 'start':
@@ -210,14 +278,23 @@ class Spans(dict):
             _current = previous
 
 
-def book(name, seconds):
-    """Book *seconds* under *name* in the run in progress, if any."""
+def book(name, seconds, n=1):
+    """Book *seconds* and a count of *n* under *name* in the run in
+    progress, if any."""
     rec = _current
     if rec is not None:
-        rec.book(name, seconds)
+        rec.book(name, seconds, n)
 
 
 def count(name):
     """``with``: a counted span *name* of the run in progress, if any."""
     rec = _current
     return rec.count(name) if rec is not None else contextlib.nullcontext()
+
+
+def lap(name):
+    """Book part *name* of the innermost open span in the run in
+    progress, if any, inside its :meth:`Spans.laps`."""
+    rec = _current
+    if rec is not None:
+        rec.lap(name)
