@@ -27,6 +27,7 @@ import torch
 
 import ultranest_tpu.popfused as jpop
 import ultranest_tpu.segmentops as jseg
+import ultranest_torch.mlfriends as tml
 from ultranest_torch import convert, popfused, segmentops
 from ultranest_torch.ops import kernels
 from ultranest_torch.ops.pairwise import pad_rows, round_up
@@ -314,6 +315,42 @@ def test_walk_stops_at_the_round_cap_and_reads_every_k_rounds():
     assert st['rounds'] < max_rounds
 
 
+def test_points_drawn_above_a_higher_threshold_are_never_handed_out():
+    """A new pass of the integrator starts below the threshold that the
+    buffered points and the dispatch in flight were drawn above (on a
+    card the prefetch leaves one): ``__next__`` throws both away,
+    counting the buffered points as ``stale``, and draws anew above the
+    lower threshold; ``needs_live_points`` asks for the live set then."""
+    d = 2
+    u, L, _, _ = _state(d, 7)
+    layer = tml.ScalingLayer()
+    layer.optimize(u.astype(float), u.astype(float))
+    region = tml.SimpleRegion(u.astype(float), layer, device='cpu')
+    # more walkers than one hand-off chunk, so that points stay buffered
+    port = popfused.FusedPopulationSliceSampler(
+        popsize=4 * P, nsteps=NSTEPS, torch_loglike=_loglike_torch,
+        spec_depth=D, seed=2, device='cpu')
+    hi, lo = float(np.sort(L)[40]), float(L.min()) - 1.0
+    uf, _, Lf, _ = port.__next__(region, hi, u, L, lambda x: x, _loglike_np)
+    assert len(Lf) and (Lf > hi).all()
+    kept = port._buf_remaining()
+    assert kept > 0 and not port.needs_live_points(hi)
+    assert port.needs_live_points(lo)
+    harvested = port.point_counts['harvested']
+    assert harvested >= len(Lf) + kept
+    port._pending = port._launch(region, hi, u, L)
+    uf, _, Lf, _ = port.__next__(region, lo, u, L, lambda x: x, _loglike_np)
+    assert port.point_counts['stale'] == kept
+    # the buffer now holds a dispatch launched at the lower threshold,
+    # not the one that was in flight
+    assert port._buf_Lmin == lo and port._pending is None
+    assert port.point_counts['harvested'] > harvested
+    assert len(Lf) and (Lf > lo).all()
+    # within a pass the threshold only rises: nothing is thrown away
+    port.__next__(region, lo, u, L, lambda x: x, _loglike_np)
+    assert port.point_counts['stale'] == kept
+
+
 def test_unported_options_raise():
     """A mesh that is not a DeviceMesh, an axis name without a mesh and an
     unknown engine are refused; every engine and option builds."""
@@ -376,8 +413,9 @@ def test_counts_past_f32_exact_range_come_home_exact():
 
     port._pending = port._launch(region, float(np.sort(L)[5]),
                                  u.astype(float), L.astype(float))
-    handle, _, us, at_nsteps = port._pending
-    port._pending = (handle, _forged_counts(big, useful), us, at_nsteps)
+    handle, _, us, at_nsteps, at_Lmin = port._pending
+    port._pending = (handle, _forged_counts(big, useful), us, at_nsteps,
+                     at_Lmin)
     assert port._harvest(region, lambda x: x, _loglike_np,
                          float(np.sort(L)[5])) == big
     assert (port.ncalls, port.ncalls_useful) == (2 * big, 2 * useful)

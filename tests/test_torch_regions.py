@@ -7,6 +7,7 @@ clustering and the pairwise helpers, on the vendored eggbox region
 to rtol 1e-6 in f64; masks, labels and counts must be equal.
 """
 import os
+import warnings
 
 import numpy as np
 import pytest
@@ -194,6 +195,26 @@ def test_pairwise_helpers_match(n):
     np.testing.assert_array_equal(
         tcluster.connected_components(a, r2, device=CPU),
         jcluster.connected_components(a, r2))
+
+
+@pytest.mark.parametrize('r2', [3.5e38, 1e300, np.inf, 2.0 ** 128 - 2.0 ** 104])
+def test_match_clusters_takes_a_radius_beyond_float32_without_warning(r2):
+    """A radius beyond float32's range (a SimpleRegion's, say) reaches
+    every point on the device route as its float32 cast would, and
+    raises no overflow warning; below the cast's rounding to infinity
+    the threshold is float32's largest value, as the cast gives."""
+    rng = np.random.RandomState(5)
+    a, b = rng.uniform(size=(1500, 2)), rng.uniform(size=(1500, 2))
+    ids = np.where(np.arange(1500) < 750, 1, 2)
+    assert not tpw._small(1500, 1500, 2)
+    with np.errstate(over='ignore'):
+        cast = np.float32(r2)
+    with warnings.catch_warnings():
+        warnings.simplefilter('error')
+        got = tpw.match_clusters(a, ids, b, r2, device=CPU)
+        assert tpw._f32_or_inf(r2) == cast
+    # two clusters within reach of every point: each stays unassigned
+    np.testing.assert_array_equal(got, np.zeros(1500, dtype=np.int64))
 
 
 def test_large_problems_need_a_device():

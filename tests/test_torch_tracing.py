@@ -4,7 +4,10 @@ keeps the segment loop's five phases, nests every span in its parent,
 covers ``run()``'s wall, and becomes ``torch.profiler`` ranges named by
 its keys only while the profiler records. The parts of a dispatch and
 of the per-point iterations (an eggbox fit with one improvement pass)
-sum to their span, and booking them changes no fit."""
+sum to their span, and booking them changes no fit. A spec-walk fit
+under upstream's run() defaults books the walk of its improvement
+passes, what became of the walk's points and the passes' clock; a run
+of one pass books none of them."""
 
 import gc
 import time
@@ -286,7 +289,17 @@ def _improving():
                    max_ncalls=200000)
 
 
-PARTS = dict(spec=_spec, improving=_improving)
+def _walking():
+    """The spec-walk fit under upstream's run() defaults at the 64 live
+    points that dlogz 0.5 asks at least: a segment pass, then
+    improvement passes whose per-point iterations ask the walk for
+    their points."""
+    s, _ = _spec()
+    return s, dict(viz_callback=False, show_status=False,
+                   min_num_live_points=64, region_class=tml.SimpleRegion)
+
+
+PARTS = dict(spec=_spec, improving=_improving, walking=_walking)
 
 
 def _result(sampler):
@@ -377,6 +390,36 @@ def test_the_first_pass_books_the_per_point_parts(parted):
 def test_booking_the_parts_changes_no_fit(parted, fit):
     sampler, _, bare = parted[fit]
     assert _result(sampler) == bare
+
+
+# what the passes after the first book beside the per-point parts
+WALK_COUNTS = ('harvested', 'taken', 'dropped', 'stale')
+
+
+@pytest.mark.parametrize('fit', sorted(FITS))
+def test_a_one_pass_run_books_nothing_of_the_passes(runs, fit):
+    rec = runs[fit][0]._segment_phase_s
+    assert rec['plan#'] == 1
+    assert not [k for k in rec if k.startswith(('improve', 'passes'))]
+
+
+def test_the_passes_book_the_walk_its_points_and_their_clock(parted):
+    rec = parted['walking'][0]._segment_phase_s
+    assert rec['plan/widen#'] >= 1 and rec['improve#'] >= 1
+    # the refills that the passes asked of the walk, inside 'improve'
+    assert rec['improve/walk#'] >= 1
+    assert rec['improve/walk'] <= rec['improve']
+    _parts_within(rec, 'improve', LOOP, ('walk', 'rebuild', 'wait'))
+    # the counts book no seconds; each point the passes made came from
+    # the walk, and no point is both taken and dropped
+    n = {k: rec.get('improve/walk/%s#' % k, 0) for k in WALK_COUNTS}
+    assert all(rec.get('improve/walk/' + k, 0.0) == 0.0 for k in n)
+    assert n['taken'] == rec['improve/point#'] >= 1
+    assert n['harvested'] >= n['taken'] + n['dropped']
+    # one clock a run, over every 'improve' and within the run's spans
+    assert rec['passes#'] == 1
+    top = sum(rec[k] for k in TOP + ('improve',) if k in rec)
+    assert rec['improve'] <= rec['passes'] < top
 
 
 def test_laps_book_parts_less_what_was_booked_inside():

@@ -1660,10 +1660,8 @@ class ReactiveNestedSampler:
         """Generate fresh candidates into the sample buffer (device or host)."""
         try:
             if self.stepsampler is not None:
-                u, v, logl, nc = self.stepsampler.__next__(
-                    self.region, Lmin=Lmin, us=active_u, Ls=active_values,
-                    transform=self.transform, loglike=self.loglike,
-                    tregion=self.tregion, ndraw=ndraw)
+                u, v, logl, nc = self._step(Lmin, ndraw, active_u,
+                                            active_values)
                 quality = self.stepsampler.nsteps
             else:
                 u, v, logl, nc, quality = self._refill_samples(
@@ -1692,6 +1690,30 @@ class ReactiveNestedSampler:
             for ui, vi, logli in zip(u, v, logl):
                 self.pointstore.add(
                     _listify([Lmin, logli, quality], ui, vi), self.ncall)
+
+    def _step(self, Lmin, ndraw, active_u, active_values):
+        """The step sampler's next points; in an improvement pass booked
+        as 'improve/walk', with what became of its walk points
+        (``point_counts``) meanwhile: 'improve/walk/harvested',
+        'improve/walk/dropped' and 'improve/walk/stale'."""
+        ss = self.stepsampler
+        spans = self._segment_phase_s
+
+        def step():
+            return ss.__next__(
+                self.region, Lmin=Lmin, us=active_u, Ls=active_values,
+                transform=self.transform, loglike=self.loglike,
+                tregion=self.tregion, ndraw=ndraw)
+        if spans.innermost != 'improve':
+            return step()
+        counts = getattr(ss, 'point_counts', {})
+        before = dict(counts)
+        with spans.count('walk'):
+            out = step()
+            for k, n in counts.items():
+                if n > before[k]:
+                    spans.book(k, 0.0, n - before[k])
+        return out
 
     def _maybe_prefetch(self, Lmin, ndraw):
         """Keep one device proposal batch in flight while the host consumes.
@@ -1726,6 +1748,12 @@ class ReactiveNestedSampler:
                 "None of the live points satisfies the current region!",
                 self.region.maxradiussq, self.region.u, active_u)
 
+        # in an improvement pass, a step sampler's points taken into the
+        # tree and those dropped below Lmin, booked as
+        # 'improve/walk/taken' and 'improve/walk/dropped'
+        spans = self._segment_phase_s
+        walked = self.stepsampler is not None \
+            and spans.innermost == 'improve'
         nit = 0
         while True:
             if self.ib >= len(self.samples) and self.use_point_stack:
@@ -1738,6 +1766,8 @@ class ReactiveNestedSampler:
             i = self.ib
             self.ib += 1
             if not self.likes[i] > Lmin:
+                if walked:
+                    spans.book('walk/dropped', 0.0)
                 continue
             u = self.samples[i, :]
             assert np.logical_and(u > 0, u < 1).all(), u
@@ -1753,6 +1783,8 @@ class ReactiveNestedSampler:
                 logl = float(self.loglike(p.reshape((1, -1)))[0])
                 if not logl > Lmin:
                     continue
+            if walked:
+                spans.book('walk/taken', 0.0)
             return u, p, logl
 
     def _init_region(self, active_u, active_node_ids, nbootstraps, minvol):
@@ -3064,6 +3096,10 @@ class ReactiveNestedSampler:
             self.results = None
             st = self._begin_pass(-np.inf, opts['minimal_widths'],
                                   log_interval)
+            # the passes after the first, on a clock of their own:
+            # 'passes', from the start of the second pass to the end of
+            # the last pass's plan
+            passes_t0 = None
 
             while True:
                 if self.log and (np.isfinite(Llo) or np.isfinite(Lhi)):
@@ -3085,7 +3121,11 @@ class ReactiveNestedSampler:
                             st.main_iterator.Lmax, opts['minimal_widths'],
                             log_interval)
                 if plan is None:
+                    if passes_t0 is not None:
+                        spans.book('passes', time.perf_counter() - passes_t0)
                     break
+                if passes_t0 is None:
+                    passes_t0 = time.perf_counter()
                 Llo, Lhi = plan
 
     def _warn_if_chains_short(self):

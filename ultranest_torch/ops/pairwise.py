@@ -191,6 +191,17 @@ def subtract_nearby(upoints, maxradiussq, *, device):
     return (pts - means).cpu().numpy().astype(float)
 
 
+# the least float64 that float32 rounds to infinity: float32's largest
+# value plus half its last step
+_F32_ROUNDS_TO_INF = 2.0 ** 128 - 2.0 ** 103
+
+
+def _f32_or_inf(x):
+    """*x* rounded to float32, infinity beyond float32's range (the cast's
+    own result, without its overflow warning)."""
+    return np.float32(np.inf) if x >= _F32_ROUNDS_TO_INF else np.float32(x)
+
+
 def match_clusters(apts, clusterids, bpts, radiussq, *, device):
     """For each point in *bpts*: which clusters of *apts* are within reach.
 
@@ -216,7 +227,7 @@ def match_clusters(apts, clusterids, bpts, radiussq, *, device):
     else:
         onehot = _torch(clusterids[:, None] == ids[None, :], device)
         within = (pairwise_sqdist(_torch(apts, device), _torch(bpts, device))
-                  <= np.float32(radiussq)).float()
+                  <= _f32_or_inf(radiussq)).float()
         counts = (onehot.T @ within > 0).cpu().numpy()
     nhit = counts.sum(axis=0)
     first = counts.argmax(axis=0)

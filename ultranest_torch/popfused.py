@@ -1136,6 +1136,8 @@ class FusedPopulationSliceSampler(GenericPopulationSampler):
         self._buf = None
         self._buf_i = 0
         self._buf_sufmax = None
+        # the threshold that the buffered points were drawn above
+        self._buf_Lmin = -np.inf
         self.torch_loglike = torch_loglike
         # every constructor argument is kept under its own name, as given,
         # so that a clone by constructor introspection (the calibrator's)
@@ -1162,6 +1164,13 @@ class FusedPopulationSliceSampler(GenericPopulationSampler):
         self.ncalls_useful = 0
         self.nrejects = 0
         self.discarded = 0
+        # what became of the classic path's walk points, counted:
+        # 'harvested', the walkers that finished above their dispatch's
+        # threshold (in float64); 'dropped', those of them at or below
+        # the threshold when they were harvested; 'stale', buffered
+        # points thrown away because the threshold fell below the one
+        # they were drawn above (_drop_stale)
+        self.point_counts = dict(harvested=0, dropped=0, stale=0)
         self.logstat = []
         self.logstat_labels = ['accept_rate', 'efficiency', 'scale',
                                'nsteps', 'far_enough', 'mean_rel_jump']
@@ -1202,7 +1211,7 @@ class FusedPopulationSliceSampler(GenericPopulationSampler):
         needed.
         """
         n = self._buf_remaining()
-        if n == 0:
+        if n == 0 or Lmin < self._buf_Lmin:
             return True
         if self._pending is None and \
                 n <= max(1, int(0.3 * self._last_yield)):
@@ -1525,7 +1534,8 @@ class FusedPopulationSliceSampler(GenericPopulationSampler):
             packed = all_gather_rows(packed, self.mesh, self.axis_name)
             counts = psum(counts, self.mesh, self.axis_name)
         return (start_fetch(packed), start_fetch(counts),
-                np.array(us, np.float32, copy=True), self.nsteps)
+                np.array(us, np.float32, copy=True), self.nsteps,
+                float(Lmin))
 
     def _harvest(self, region, transform, loglike, Lmin):
         """Fetch the pending dispatch and fill the sample buffer.
@@ -1534,7 +1544,7 @@ class FusedPopulationSliceSampler(GenericPopulationSampler):
         entering the tree; points at or below the *current* Lmin (which
         may have risen since launch) are discarded here.
         """
-        handle, counts, us, at_nsteps = self._pending
+        handle, counts, us, at_nsteps, at_Lmin = self._pending
         self._pending = None
         nlive, ndim = us.shape
         packed = finish_fetch(handle).astype(float)
@@ -1558,6 +1568,9 @@ class FusedPopulationSliceSampler(GenericPopulationSampler):
         Lf64 = loglike(pf)
         ok = Lf64 > Lmin
         self.nrejects += int((~ok).sum())
+        above = Lf64 > at_Lmin
+        self.point_counts['harvested'] += int(above.sum())
+        self.point_counts['dropped'] += int((above & ~ok).sum())
         if len(ok) >= 32 and ok.mean() < 0.05 and \
                 not getattr(self, '_warned_mismatch', False):
             self._warned_mismatch = True
@@ -1577,6 +1590,7 @@ class FusedPopulationSliceSampler(GenericPopulationSampler):
         L_ok = Lf64[ok]
         self._buf = (uf[ok], pf[ok], L_ok)
         self._buf_i = 0
+        self._buf_Lmin = at_Lmin
         self._buf_sufmax = np.maximum.accumulate(L_ok[::-1])[::-1] \
             if len(L_ok) else L_ok
         self._last_yield = max(len(L_ok), 1)
@@ -1599,6 +1613,25 @@ class FusedPopulationSliceSampler(GenericPopulationSampler):
                            rel_jump_gm=self.logstat[-1][-1],
                            gm_target=gm_target)
         return nc
+
+    def _drop_stale(self, Lmin):
+        """Throw away the buffered points and the dispatch in flight
+        where *Lmin* lies below the threshold they were drawn above.
+
+        Within a pass of the integrator the threshold only rises, and a
+        point drawn above a lower threshold that lies above the current
+        one is a draw above the current one. A new pass starts again at
+        the roots, far below: a point drawn above the last pass's
+        threshold is no draw from the prior above that, and handed to
+        the new pass's first nodes it biases logZ upwards.
+        """
+        if self._pending is not None and Lmin < self._pending[-1]:
+            self._pending = None
+        if Lmin < self._buf_Lmin:
+            self.point_counts['stale'] += self._buf_remaining()
+            self._buf = None
+            self._buf_i = 0
+            self._buf_Lmin = -np.inf
 
     def _adapt_scale(self, width):
         """Adapt the slice length guess from the final interval width."""
@@ -1840,8 +1873,11 @@ class FusedPopulationSliceSampler(GenericPopulationSampler):
         Hands out up to ``HANDOFF_CHUNK`` buffered rows at once. Refills
         from the pending dispatch when the buffer runs out and, on a
         card, launches the next dispatch once the buffer is down to ~30%
-        of the last harvest.
+        of the last harvest. Buffered points and a dispatch drawn above
+        a threshold higher than *Lmin* are thrown away first
+        (:meth:`_drop_stale`).
         """
+        self._drop_stale(Lmin)
         nc = 0
         if self._buf_remaining() == 0:
             if self._pending is None:

@@ -46,7 +46,17 @@ dispatch whose rows replace one live point more than once, and
 batch of candidates that the per-point iterations of an improvement
 pass ask of the fused region sampler (the dispatch, the wait, which is
 ``improve/draw/wait``, and the copy back; a first pass's batches keep
-``classic/wait``); ``plan/strategy``, the reactive strategy's verdict
+``classic/wait``); ``improve/walk``, each refill that they ask of a
+step sampler instead (its ``__next__``: a population walk's launch, the
+harvest with its float64 re-evaluation, and the wait, which is
+``improve/walk/wait``), and inside it the counts of the walk's points
+(no seconds, a count each): ``improve/walk/harvested``, the walkers that
+finished above their dispatch's threshold, ``improve/walk/dropped``,
+those thrown away below a later threshold (at the harvest or in the
+per-point loop), ``improve/walk/taken``, those taken into the tree, and
+``improve/walk/stale``, buffered ones thrown away because a new pass
+started below the threshold they were drawn above (the population
+walks' ``point_counts``); ``plan/strategy``, the reactive strategy's verdict
 (``_find_strategy``), and ``plan/widen``, widening the tree for the
 next pass (``_expand_nodes_before``, ``_widen_nodes`` with the search
 for their parents, or ``_widen_roots_beyond_initial_plateau``).
@@ -74,9 +84,13 @@ decision, the saved lists and the children's expansion), ``count``
 region and the child's append) and ``coords`` (the live points'
 coordinates). Each part's count is the number of intervals it sums.
 
-Two keys overlap the spans and are never summed
-with them: ``segment``, one for each visit of the segment loop, and
-``gc``, Python's garbage collector.
+Three keys overlap the spans and are never summed
+with them: ``segment``, one for each visit of the segment loop,
+``gc``, Python's garbage collector, and ``passes``, booked once at the
+end of a run that made improvement passes: the seconds from the start
+of the second pass to the end of the last pass's ``plan`` (the segment
+visits, per-point iterations, rebuilds, results and plans of the passes
+after the first; a run of one pass books none).
 
 Each span costs one clock read at each edge. While torch's profiler
 records (checked once when a run starts), the spans ``prepare``,
