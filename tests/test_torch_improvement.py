@@ -8,7 +8,11 @@ from the published formulas and importing nothing of the port: on
 seeded random trees, and over the tree of a small run that widens. A
 counter planted with one live point too many fails the comparison. The
 run that widens books the improvement passes' spans; a run of one pass
-books none of them.
+books none of them. The runs of counting-only visits consumed in C
+(``netiter.NodeSweep``) leave the run that widens, and a spec-walk run
+with ``SimpleRegion`` that makes improvement passes, bit for bit as the
+per-node loop leaves them; without the native library no visit is
+swept.
 """
 
 import numpy as np
@@ -17,7 +21,10 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 import ultranest_torch
+import ultranest_torch.mlfriends as tml
+import ultranest_torch.popfused as tpop
 from ultranest_torch import netiter
+from ultranest_torch.models import problems
 from torch_port_helpers import load_script
 
 nested_integral = load_script('portbench/reference/nested_integral.py',
@@ -189,9 +196,9 @@ def _torch_loglike(u):
     return torch.logaddexp(-0.5 * d[:, 0].sum(1), -0.5 * d[:, 1].sum(1))
 
 
-def _two_modes(**run):
+def _two_modes(seed=3, **run):
     sampler = ultranest_torch.ReactiveNestedSampler(
-        ['a', 'b'], _loglike, vectorized=True, seed=3, device='cpu',
+        ['a', 'b'], _loglike, vectorized=True, seed=seed, device='cpu',
         torch_loglike=_torch_loglike, ndraw_min=256, ndraw_max=4096)
     result = sampler.run(min_num_live_points=80, cluster_num_live_points=40,
                          viz_callback=False, show_status=False, **run)
@@ -246,3 +253,76 @@ def test_one_pass_books_none_of_the_improvement_spans():
                 if k == new or k.startswith(new + '/')}
     assert {k for k in keys if '/' not in k} <= set(TOP)
     assert 'classic' in keys and 'plan' in keys
+
+
+def _spec_walk(seed, **run):
+    """The spec walk at d 8 with 128 walkers, ``SimpleRegion`` and 64 live
+    points, at upstream's defaults: a segment pass, then improvement
+    passes whose per-node visits ask the walk for their points."""
+    prob = problems.asymgauss(ndim=8, sigma_min=0.01)
+    sampler = ultranest_torch.ReactiveNestedSampler(
+        prob.param_names, prob.loglike, vectorized=True, seed=seed,
+        device='cpu')
+    sampler.transform_layer_class = tml.ScalingLayer
+    sampler.stepsampler = tpop.FusedPopulationSliceSampler(
+        popsize=128, nsteps=16, spec_depth=8, engine='spec', seed=seed,
+        torch_loglike=prob.torch_loglike, device='cpu')
+    result = sampler.run(min_num_live_points=64,
+                         region_class=tml.SimpleRegion, viz_callback=False,
+                         show_status=False, **run)
+    return sampler, result
+
+
+FITS = dict(two_modes=_two_modes, spec_walk=_spec_walk)
+
+
+def _passes(fit, seed, monkeypatch):
+    """(sampler, result, each pass's records) of fit *fit*, numpy's
+    global stream (the results' tree replay draws from it) seeded."""
+    records = []
+    real = ultranest_torch.ReactiveNestedSampler._update_results
+
+    def update(self, mi, saved_logl, saved_nodeids):
+        records.append(dict(
+            saved_logl=list(saved_logl), saved_nodeids=list(saved_nodeids),
+            logweights=mi.logweights.copy(), istail=list(mi.istail),
+            insertion_order_runs=list(mi.insertion_order_runs),
+            logZ=mi.logZ, logZerr=mi.logZerr))
+        return real(self, mi, saved_logl, saved_nodeids)
+    with monkeypatch.context() as mp:
+        mp.setattr(ultranest_torch.ReactiveNestedSampler, '_update_results',
+                   update)
+        np.random.seed(seed)
+        sampler, result = FITS[fit](seed)
+    return sampler, result, records
+
+
+@pytest.mark.parametrize('fit,seed', [('two_modes', 3), ('two_modes', 4),
+                                      ('spec_walk', 1), ('spec_walk', 2)])
+def test_the_native_runs_leave_each_fit_as_the_per_node_loop(fit, seed,
+                                                             monkeypatch):
+    swept, result, records = _passes(fit, seed, monkeypatch)
+    # the routine consumes nothing: the per-node loop does every visit
+    monkeypatch.setattr(netiter.NodeSweep, 'run', lambda self, *a: 0)
+    per_node, want, want_records = _passes(fit, seed, monkeypatch)
+    rec, ref = swept._segment_phase_s, per_node._segment_phase_s
+    assert rec['improve/sweep#'] > 0
+    assert ref.get('improve/sweep#', 0) == 0
+    assert rec['improve/sweep#'] + rec['improve/count#'] \
+        == ref['improve/count#']
+    assert (swept.ncall, result['niter'], result['logz'],
+            result['logzerr'], result['insertion_order_MWW_test']) == (
+        per_node.ncall, want['niter'], want['logz'], want['logzerr'],
+        want['insertion_order_MWW_test'])
+    assert len(records) == len(want_records) >= 2
+    for got, exp in zip(records, want_records):
+        for key in exp:
+            np.testing.assert_array_equal(got[key], exp[key], err_msg=key)
+
+
+def test_without_the_native_library_no_visit_is_swept(monkeypatch):
+    monkeypatch.setenv('ULTRANEST_TORCH_NO_NATIVE', '1')
+    sampler, _ = _spec_walk(2)
+    rec = sampler._segment_phase_s
+    assert rec['improve/count#'] > 0
+    assert not [k for k in rec if k.rstrip('#').endswith('/sweep')]

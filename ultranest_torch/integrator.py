@@ -71,6 +71,7 @@ from .mlfriends import WrappingEllipsoid
 from .mlfriends import find_nearby  # noqa: F401 (re-export)
 from .netiter import BreadthFirstIterator  # noqa: I100 (grouped imports)
 from .netiter import MultiCounter
+from .netiter import NodeSweep
 from .netiter import PointPile
 from .netiter import SingleCounter
 from .netiter import TreeNode
@@ -106,9 +107,12 @@ int_t = np.int64
 
 
 # the parts of a per-point iteration (_explore_pass), booked under the
-# span they ran in (ultranest_torch.tracing)
-_LOOP_PARTS = ('advice', 'tree', 'count', 'point', 'insert', 'coords')
-_ADVICE, _TREE, _COUNT, _POINT, _INSERT, _COORDS = range(len(_LOOP_PARTS))
+# span they ran in (ultranest_torch.tracing); 'sweep' is the runs of
+# counting-only visits consumed in C (netiter.NodeSweep), counted in visits
+_LOOP_PARTS = ('advice', 'tree', 'count', 'point', 'insert', 'coords',
+               'sweep')
+(_ADVICE, _TREE, _COUNT, _POINT, _INSERT, _COORDS,
+ _SWEEP) = range(len(_LOOP_PARTS))
 
 
 def _book_loop_parts(spans, secs, counts, pending):
@@ -117,7 +121,8 @@ def _book_loop_parts(spans, secs, counts, pending):
     innermost open span of *spans*; clear the sums."""
     secs[_TREE] += pending
     for i, name in enumerate(_LOOP_PARTS):
-        if counts[i]:
+        # a sweep's calls may consume no visit, and cost all the same
+        if counts[i] or (i == _SWEEP and secs[i]):
             spans.book(name, secs[i], counts[i])
         secs[i], counts[i] = 0.0, 0
 
@@ -2819,6 +2824,13 @@ class ReactiveNestedSampler:
         # 'classic' span, or in a pass after the first one 'improve' span
         spans = self._segment_phase_s
         outside = 'improve' if opts['improvement_it'] else 'classic'
+        # a visit to a node that already has children (a pass after the
+        # first revisits the earlier passes' tree) starts a run of visits
+        # that only count, consumed in C; not where advice is due at
+        # once, nor where each visit would log unhealthy live points
+        sweep = NodeSweep.make(st.explorer, st.main_iterator,
+                               target_min_num_children,
+                               st.minimal_widths_sequence)
         # each iteration's parts (_LOOP_PARTS) summed here on one clock,
         # from t on, and booked before the innermost span changes; the
         # region rebuild is a span of its own
@@ -2842,9 +2854,21 @@ class ReactiveNestedSampler:
             if spans.innermost is None:
                 spans.open(outside)
                 t = clock()
-            part_n[_TREE] += 1
             rootid, node, (_, active_rootids, active_values,
                            active_node_ids) = visit
+            if node.children and sweep is not None and not strategy_stale \
+                    and node.value <= Lhi and math.isfinite(Lhi) \
+                    and (self.live_points_healthy or not self.log):
+                now = clock()
+                part_s[_TREE] += now - t
+                n = self._sweep(st, sweep, Llo, Lhi, opts)
+                t = clock()
+                part_s[_SWEEP] += t - now
+                if n:
+                    part_n[_SWEEP] += n
+                    node = sweep.last_node
+                    continue
+            part_n[_TREE] += 1
             assert not isinstance(rootid, float)
             self.Lmin = Lmin = node.value
             nlive = len(active_node_ids)
@@ -2952,6 +2976,30 @@ class ReactiveNestedSampler:
         self.pointstore.flush()
         spans.unwind()
         return Llo, Lhi, strategy_stale
+
+    def _sweep(self, st, sweep, Llo, Lhi, opts):
+        """Consume in C the run of visits from the explorer's next node
+        that would only count (:class:`netiter.NodeSweep`), and apply
+        what the per-node loop would have done to the pass besides;
+        returns the number of visits consumed."""
+        max_ncalls = opts['max_ncalls']
+        n = sweep.run(
+            st.it, Llo, Lhi,
+            0 if self.region is None
+            else self.cluster_num_live_points * self._n_multi_clusters,
+            self.live_points_healthy,
+            max_ncalls is not None and self.ncall >= max_ncalls,
+            opts['max_iters'], self.log, st.saved_logl, st.saved_nodeids)
+        if n:
+            st.it += n
+            # don't count non-working iterations towards efficiency
+            st.it_at_first_region += n
+            self.Lmin = sweep.last_node.value
+            if sweep.leaves and self.region is not None:
+                # nlive shrank: radius invalid, force a region rebuild
+                self.region.maxradiussq = None
+                st.next_update_interval_volume = 1
+        return n
 
     def _live_coords_if_needed(self, st, Lmin, active_node_ids):
         """Gather the live point coordinate arrays only when they are used.

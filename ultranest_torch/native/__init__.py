@@ -4,11 +4,13 @@ Native (C) runtime kernels
 --------------------------
 
 Host-side hot loops compiled to machine code: the per-iteration
-integrator update (:func:`counter_step`), the tree sweep and the
-segment replay counters. The C sources lie beside this file
-(``counters.c``, ``stepfuncs.c``, ``treesweep.c``, ``replay.c``): the
-port's own copies, byte for byte, of the reference package's native
-sources, which a test holds equal. They are built on first use with the
+integrator update (:func:`counter_step`), the tree sweep, the
+segment replay counters and the runs of an improvement pass's
+counting-only node visits (:func:`node_run`). The C sources lie beside
+this file: ``counters.c``, ``stepfuncs.c``, ``treesweep.c`` and
+``replay.c`` are the port's own copies, byte for byte, of the reference
+package's native sources, which a test holds equal; ``nodesweep.c`` is
+the port's own. They are built on first use with the
 system compiler into ``ultranest_torch/native/_build/`` or, where the
 package directory cannot be written (an installed, read-only
 site-packages), into the user's cache directory (:func:`build_dir`).
@@ -23,8 +25,8 @@ import tempfile
 
 import numpy as np
 
-__all__ = ['counter_step', 'slice_update', 'tree_sweep', 'available',
-           'build_dir']
+__all__ = ['counter_step', 'slice_update', 'tree_sweep', 'node_run',
+           'available', 'build_dir']
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 # the C sources live beside this loader
@@ -32,7 +34,8 @@ _SRC_DIR = _HERE
 _LIB = None
 
 
-SOURCES = ('counters.c', 'stepfuncs.c', 'treesweep.c', 'replay.c')
+SOURCES = ('counters.c', 'stepfuncs.c', 'treesweep.c', 'replay.c',
+           'nodesweep.c')
 
 
 def build_dir(preferred):
@@ -141,6 +144,9 @@ def _load():
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ]
+        fn = lib.ns_node_run
+        fn.restype = ctypes.c_int64
+        fn.argtypes = [ctypes.c_void_p] * 3
         _LIB = lib
     except Exception:
         _LIB = False
@@ -252,6 +258,15 @@ def tree_sweep(values, pids, nch, first_child, nroots, threshold,
     nruns = int(acc_state[2])
     return (Ls, out_ids, out_nch, rtid, nact, cio, runs[:nruns],
             float(acc_state[0]), int(acc_state[1]), float(last_value[0]))
+
+
+def node_run():
+    """The C routine that consumes a run of counting-only node visits
+    (``nodesweep.c``: ``ns_node_run(iv, dv, pv)``, three parameter
+    vectors, see ``netiter.NodeSweep``), or None when the native library
+    is unavailable."""
+    lib = _load()
+    return None if lib is None else lib.ns_node_run
 
 
 def replay_counters(Li, nch, rootid, nact, rootmask, random_mode, u_nl,

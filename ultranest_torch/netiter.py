@@ -22,6 +22,7 @@ ultranest/netiter.py). Differences from upstream:
 """
 
 import bisect
+import ctypes
 import math
 import sys
 
@@ -34,8 +35,9 @@ from .utils import resample_equal
 
 __all__ = [
     'TreeNode', 'BreadthFirstIterator', 'PointPile', 'SingleCounter',
-    'MultiCounter', 'combine_results', 'logz_sequence', 'print_tree',
-    'dump_tree', 'count_tree', 'count_tree_between', 'find_nodes_before',
+    'MultiCounter', 'NodeSweep', 'combine_results', 'logz_sequence',
+    'print_tree', 'dump_tree', 'count_tree', 'count_tree_between',
+    'find_nodes_before',
 ]
 
 
@@ -577,19 +579,25 @@ class MultiCounter:
                 rootid, node, rootids, parallel_values)
         return self._passing_node_py(rootid, node, rootids, parallel_values)
 
+    def _bind_native(self, rootids):
+        """Count the live arcs of each counter over *rootids*, the roots of
+        the active arcs, and bind the C stepper's buffers; once, before
+        the first native step."""
+        self._nlive = np.ascontiguousarray(
+            self.rootids[:, rootids].sum(axis=1), dtype=np.int64)
+        self._rootids_u8 = np.ascontiguousarray(
+            self.rootids.T, dtype=np.uint8)
+        self._logZremain_buf = np.empty(self.ncounters)
+        self._scalars_buf = np.empty(6)
+        self._stepper = _native.make_stepper(
+            self.all_logZ, self.all_H, self.all_logVolremaining,
+            self._nlive, self._logZremain_buf, self._scalars_buf)
+
     def _passing_node_native(self, rootid, node, rootids, parallel_values):
         """One-call C update of all counters (see counters.c)."""
         nchildren = len(node.children)
         if self._nlive is None:
-            self._nlive = np.ascontiguousarray(
-                self.rootids[:, rootids].sum(axis=1), dtype=np.int64)
-            self._rootids_u8 = np.ascontiguousarray(
-                self.rootids.T, dtype=np.uint8)
-            self._logZremain_buf = np.empty(self.ncounters)
-            self._scalars_buf = np.empty(6)
-            self._stepper = _native.make_stepper(
-                self.all_logZ, self.all_H, self.all_logVolremaining,
-                self._nlive, self._logZremain_buf, self._scalars_buf)
+            self._bind_native(rootids)
         nlive0 = int(self._nlive[0])
         logwidth = np.empty(self.ncounters)
         values = np.ascontiguousarray(parallel_values, dtype=np.float64)
@@ -814,6 +822,225 @@ class MultiCounter:
         self._nlive = nlive + (nchildren - 1) * active
 
 
+class NodeSweep:
+    """Runs of a pass's counting-only node visits, consumed in C.
+
+    A pass after the first revisits the tree of the earlier passes; at
+    most of its visits the reactive loop (``integrator._explore_pass``)
+    only takes the frontier's minimum, decides not to expand it, records
+    it and advances the counters. :meth:`run` hands such a run of visits
+    to ``nodesweep.c`` in one call. The routine stops before the first
+    visit at which the loop would do more than count (advice due, an
+    expansion, the every-64 segment check on a childless frontier, a
+    logged plateau, an empty frontier), and :meth:`run` leaves the
+    explorer, the counter and the pass's records as the per-node loop
+    would have left them.
+
+    The tree below the frontier is flattened once, at the first run
+    (:func:`_flatten_nodes`); a node made later in the pass lies beyond
+    the table, keyed by point-pile id, and is childless until visited.
+    :meth:`make` gives None where the counters are random or the native
+    library is missing: the per-node loop then does every visit.
+    """
+
+    # the parameter vectors of nodesweep.c (ns_node_run)
+    (I_N, I_CAP, I_IT, I_MAX_ITERS, I_OVER_CALLS, I_HEALTHY, I_CLUSTER_W,
+     I_SEQ_K, I_SEQ_LEN, I_PLATEAU_STOP, I_CHECK_ORDER, I_ACC_N, I_MAXV,
+     I_TLEN, I_NB, I_M, I_STOP, I_NRUNS, I_LEAVES, I_ZERR_SET) = range(20)
+    D_LLO, D_LHI, D_THR, D_ACC_SUM, D_ZERR = range(5)
+    STOPS = ('empty', 'advice', 'expand', 'segment', 'plateau', 'full')
+    # visits one call consumes at most
+    MAXV = 1024
+
+    @classmethod
+    def make(cls, explorer, counter, target_min_num_children, widths):
+        """A sweep of *explorer*'s pass on *counter*, or None where the
+        per-node loop has to do every visit."""
+        # the same condition as MultiCounter.passing_node's C path
+        if counter.random or not _native.available():
+            return None
+        fn = _native.node_run()
+        if fn is None:
+            return None
+        return cls(fn, explorer, counter, target_min_num_children, widths)
+
+    def __init__(self, fn, explorer, counter, target_min_num_children,
+                 widths):
+        """Bind the routine *fn* to the pass: its *explorer* and
+        *counter*, the least children by node id and the width schedule
+        *widths* (a list of (L, width), popped from the front)."""
+        self._fn = fn
+        self.explorer = explorer
+        self.counter = counter
+        self._targets = target_min_num_children
+        self._widths = widths
+        self._args = None
+        self.stop = None
+        self.leaves = 0
+        self.last_node = None
+
+    def _flatten(self):
+        """Build the node table, the buffers and the pointer vector; False
+        where the tree's point-pile ids are not one per node."""
+        ex, mi = self.explorer, self.counter
+        nodes, values, pids, ncs, first = _flatten_nodes(ex.active_nodes)
+        N = len(nodes)
+        if pids.min() < 0:
+            self._fn = None
+            return False
+        tlen = int(pids.max()) + 1
+        pos = np.full(tlen, -1, dtype=np.int64)
+        pos[pids] = np.arange(N)
+        if not np.array_equal(pos[pids], np.arange(N)):
+            # two nodes share a point-pile id
+            self._fn = None
+            return False
+        self._nodes = nodes
+        self._pid = pids
+        self._tval = np.zeros(tlen)
+        self._tval[pids] = values
+        self._tnch = np.zeros(tlen, dtype=np.int64)
+        self._tnch[pids] = ncs
+        self._tfirst = np.full(tlen, -1, dtype=np.int64)
+        self._tfirst[pids] = first
+        self._tnmin = np.ones(tlen, dtype=np.int64)
+        for k, v in self._targets.items():
+            if 0 <= k < tlen:
+                # integer counts: len(children) < v iff < ceil(v)
+                self._tnmin[k] = math.ceil(v)
+        self._seqL = np.array([w[0] for w in self._widths], dtype=float)
+        self._seqW = np.array([w[1] for w in self._widths], dtype=float)
+        if mi._nlive is None or not hasattr(mi, '_stepper'):
+            mi._bind_native(ex.active_root_ids)
+        nb = mi.ncounters
+        self._nnodes = N
+        self._opid = np.empty(self.MAXV, dtype=np.int64)
+        self._oval = np.empty(self.MAXV)
+        self._ops = np.empty((self.MAXV, 3), dtype=np.int64)
+        self._ologw = np.empty((self.MAXV, nb))
+        self._oruns = np.empty(N + 1, dtype=np.int64)
+        self._iv = np.zeros(20, dtype=np.int64)
+        self._dv = np.zeros(5)
+        iv = self._iv
+        iv[self.I_SEQ_LEN] = len(self._seqL)
+        iv[self.I_MAXV] = self.MAXV
+        iv[self.I_TLEN] = tlen
+        iv[self.I_NB] = nb
+        self._dv[self.D_THR] = mi.insertion_order_threshold
+        self._seq_len0 = len(self._widths)
+        self._grow(len(ex.active_nodes))
+        return True
+
+    def _grow(self, n):
+        """Frontier buffers for *n* live nodes and every table node."""
+        cap = 2 * (n + self._nnodes)
+        self._aval = np.empty(cap)
+        self._aroot = np.empty(cap, dtype=np.int64)
+        self._apid = np.empty(cap, dtype=np.int64)
+        self._prev = np.empty(cap)
+        self._sorted = np.empty(cap)
+        self._iv[self.I_CAP] = cap
+        mi = self.counter
+        keep = (self._tval, self._tnch, self._tfirst, self._tnmin,
+                self._pid, self._seqL, self._seqW,
+                self._aval, self._aroot, self._apid, self._prev,
+                self._sorted, mi._rootids_u8, mi.all_logZ, mi.all_H,
+                mi.all_logVolremaining, mi._nlive, mi._logZremain_buf,
+                mi._scalars_buf, self._opid, self._oval, self._ops,
+                self._ologw, self._oruns)
+        self._bound = mi._nlive
+        self._pv = np.array([a.ctypes.data for a in keep], dtype=np.uintp)
+        self._args = (ctypes.c_void_p(self._iv.ctypes.data),
+                      ctypes.c_void_p(self._dv.ctypes.data),
+                      ctypes.c_void_p(self._pv.ctypes.data))
+
+    def run(self, it, Llo, Lhi, cluster_width, healthy, over_calls,
+            max_iters, plateau_stops, saved_logl, saved_nodeids):
+        """Consume the run of counting-only visits that starts at the
+        explorer's next node; returns how many it consumed (0: the next
+        visit is the per-node loop's).
+
+        *it* is the pass's iteration count, (*Llo*, *Lhi*) the strategy's
+        interval, *cluster_width* the width the clusters ask for,
+        *healthy* whether the live points are, *over_calls* whether the
+        call budget is spent, *max_iters* the iteration budget or None,
+        *plateau_stops* whether to stop before a plateau visit; the
+        consumed nodes' values and ids go to *saved_logl* and
+        *saved_nodeids*. Afterwards :attr:`stop` names why the run ended,
+        :attr:`leaves` counts the leaves it passed, :attr:`last_node` is
+        the last node it consumed.
+        """
+        if self._fn is None or (self._args is None and not self._flatten()):
+            return 0
+        ex, mi = self.explorer, self.counter
+        n = len(ex.active_node_values)
+        iv, dv = self._iv, self._dv
+        if n + self._nnodes > iv[self.I_CAP] or mi._nlive is not self._bound:
+            self._grow(n)
+        self._aval[:n] = ex.active_node_values
+        self._aroot[:n] = ex.active_root_ids
+        self._apid[:n] = ex.active_node_ids
+        seq_k = self._seq_len0 - len(self._widths)
+        iv[self.I_N] = n
+        iv[self.I_IT] = it
+        iv[self.I_MAX_ITERS] = -1 if max_iters is None else max_iters
+        iv[self.I_OVER_CALLS] = over_calls
+        iv[self.I_HEALTHY] = healthy
+        iv[self.I_CLUSTER_W] = cluster_width
+        iv[self.I_SEQ_K] = seq_k
+        iv[self.I_PLATEAU_STOP] = plateau_stops
+        iv[self.I_CHECK_ORDER] = mi.check_insertion_order
+        dv[self.D_LLO] = Llo
+        dv[self.D_LHI] = Lhi
+        acc = mi.insertion_order_accumulator
+        if mi.check_insertion_order:
+            iv[self.I_ACC_N] = acc.N
+            dv[self.D_ACC_SUM] = acc.U
+        m = self._fn(*self._args)
+        out = iv.tolist()
+        self.stop = self.STOPS[out[self.I_STOP]]
+        self.leaves = out[self.I_LEAVES]
+        # the decision at an expansion pops the schedule too
+        del self._widths[:out[self.I_SEQ_K] - seq_k]
+        if not m:
+            return 0
+
+        n = out[self.I_N]
+        ex.active_node_values = self._aval[:n].copy()
+        ex.active_root_ids = self._aroot[:n].copy()
+        ex.active_node_ids = self._apid[:n].copy()
+        live, nodes = ex.active_nodes, self._nodes
+        for i, nc, first in self._ops[:m].tolist():
+            node = live[i]
+            if nc == 1:
+                live[i] = nodes[first]
+            else:
+                del live[i]
+                if nc:
+                    live += nodes[first:first + nc]
+        self.last_node = node
+        saved_logl.extend(self._oval[:m].tolist())
+        saved_nodeids.extend(self._opid[:m].tolist())
+
+        mi._logw_extend(self._ologw[:m])
+        mi.istail.extend((self._ops[:m, 1] == 0).tolist())
+        s = mi._scalars_buf
+        mi.logZ = s[0]
+        if out[self.I_ZERR_SET]:
+            mi.logZerr = dv[self.D_ZERR]
+        mi.logVolremaining = mi.all_logVolremaining[0]
+        mi.all_logZremain = mi._logZremain_buf
+        mi.logZremain = s[2]
+        mi.logZremainMax = s[3]
+        mi.remainder_ratio = s[4]
+        mi.remainder_fraction = s[5]
+        if mi.check_insertion_order:
+            acc.load(dv[self.D_ACC_SUM], out[self.I_ACC_N])
+            mi.insertion_order_runs.extend(
+                self._oruns[:out[self.I_NRUNS]].tolist())
+        return m
+
+
 def combine_results(saved_logl, saved_nodeids, pointpile, main_iterator,
                     mpi_comm=None):
     """Combine dead-point sequence and integrator state into a results dict.
@@ -1013,6 +1240,21 @@ def _sweep_tree_sequence(roots):
             ranks, last_values)
 
 
+def _flatten_nodes(roots):
+    """Flatten the tree below *roots*: ``(nodes, values, pids, nch,
+    first)``, the node objects and parallel arrays in processing order
+    (roots first); the children of node *i* occupy indices
+    ``first[i] .. first[i]+nch[i]-1``."""
+    nodes = list(roots)
+    for node in nodes:      # visits the children appended as it goes
+        nodes.extend(node.children)
+    n = len(nodes)
+    ncs = np.fromiter([len(node.children) for node in nodes], np.int64, n)
+    return (nodes, np.fromiter([node.value for node in nodes], float, n),
+            np.fromiter([node.id for node in nodes], np.int64, n), ncs,
+            np.cumsum(ncs) - ncs + len(roots))
+
+
 def _flatten_tree(roots):
     """Flatten the tree to parallel arrays, children contiguous.
 
@@ -1021,22 +1263,7 @@ def _flatten_tree(roots):
     is the one remaining python pass over the node objects before the
     native sweep takes over.
     """
-    nodes = list(roots)
-    values, pids, ncs, first = [], [], [], []
-    i = 0
-    while i < len(nodes):
-        node = nodes[i]
-        values.append(node.value)
-        pids.append(node.id)
-        children = node.children
-        ncs.append(len(children))
-        first.append(len(nodes))
-        nodes.extend(children)
-        i += 1
-    return (np.asarray(values, dtype=float),
-            np.asarray(pids, dtype=np.int64),
-            np.asarray(ncs, dtype=np.int64),
-            np.asarray(first, dtype=np.int64))
+    return _flatten_nodes(roots)[1:]
 
 
 def _sweep_tree_native(roots, main_iterator):
